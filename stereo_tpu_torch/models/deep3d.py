@@ -1,0 +1,190 @@
+"""Deep3D right-view synthesis network (port of ``stereo_tpu/models/deep3d.py``).
+
+A VGG16 encoder over the 4x-downscaled left view, per-pool-stage branches
+each predicting a 65-channel disparity distribution, a fully connected
+global branch, branch summation, a softmax upconvolution, and the fused
+x4 upsample + 65-way shifted-view blend (``ops.cuda.upsample_blend``).
+
+Submodules carry the Flax module names (``VggBlock_0.Conv_1`` ...) so the
+committed Flax checkpoint maps onto ``state_dict`` keys by name
+(``models.deep3d_state_dict_from_flax``).  Tensors are NCHW; the global
+branch flattens its input in NHWC order, as the Flax model does, because
+the rows of its first Dense kernel are in (h, w, c) order.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.cuda import upsample_blend
+from .layers import Deconv2dParity
+
+NUM_DISPARITY_CHANNELS = 65
+
+# VGG16 convolutional configuration, split at MaxPool boundaries.
+VGG16_BLOCKS: Tuple[Tuple[int, ...], ...] = (
+    (64, 64), (128, 128), (256, 256, 256), (512, 512, 512), (512, 512, 512))
+_VGG_STRIDE = 32
+
+
+def _conv3x3(cin: int, cout: int) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, padding=1)
+
+
+class VggBlock(nn.Module):
+    """N 3x3 conv + ReLU layers followed by a 2x2 max pool."""
+
+    def __init__(self, in_channels: int, channels: Sequence[int]):
+        super().__init__()
+        self.n = len(channels)
+        for i, ch in enumerate(channels):
+            self.add_module(f"Conv_{i}", _conv3x3(in_channels, ch))
+            in_channels = ch
+
+    def forward(self, x):
+        for i in range(self.n):
+            x = F.relu(getattr(self, f"Conv_{i}")(x))
+        return F.max_pool2d(x, 2)
+
+
+class DeconvBranch(nn.Module):
+    """conv3x3 -> relu -> conv3x3 -> relu -> transposed conv to 65 channels
+    upsampling by ``scale`` (a 1x1 conv at scale 1)."""
+
+    def __init__(self, in_channels: int, filters: int, scale: int):
+        super().__init__()
+        self.scale = scale
+        self.Conv_0 = _conv3x3(in_channels, filters)
+        self.Conv_1 = _conv3x3(filters, filters)
+        if scale == 1:
+            self.Conv_2 = nn.Conv2d(filters, NUM_DISPARITY_CHANNELS, 1)
+        else:
+            self.ConvTranspose_0 = Deconv2dParity(
+                filters, NUM_DISPARITY_CHANNELS, scale)
+
+    def forward(self, x):
+        x = F.relu(self.Conv_1(F.relu(self.Conv_0(x))))
+        if self.scale == 1:
+            return self.Conv_2(x)
+        return self.ConvTranspose_0(x)
+
+
+class FeedForwardBranch(nn.Module):
+    """Global branch: fc (h*w*512 -> 4096) -> relu -> fc (-> h*w*65),
+    reshaped NHWC to (h, w, 65) and deconvolved x16.
+
+    ``dense_dtype=torch.bfloat16`` runs the two fc products in bf16 (their
+    weights are then stored in bf16 too); the branch output is cast back
+    to the input dtype before summation.  Dropout is inference-off.
+    """
+
+    def __init__(self, grid: Tuple[int, int], in_channels: int = 512,
+                 hidden_dim: int = 4096,
+                 dense_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.grid = tuple(grid)
+        self.dense_dtype = dense_dtype
+        gh, gw = self.grid
+        self.Dense_0 = nn.Linear(gh * gw * in_channels, hidden_dim)
+        self.Dense_1 = nn.Linear(hidden_dim, gh * gw * NUM_DISPARITY_CHANNELS)
+        self.ConvTranspose_0 = Deconv2dParity(NUM_DISPARITY_CHANNELS,
+                                              NUM_DISPARITY_CHANNELS, 16)
+
+    def _dense(self, layer: nn.Linear, x):
+        # Product, then bias, each rounded in the working dtype.
+        dtype = self.dense_dtype or x.dtype
+        return F.linear(x, layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+    def forward(self, x_nchw):
+        n = x_nchw.shape[0]
+        x = x_nchw.permute(0, 2, 3, 1).reshape(n, -1)
+        if self.dense_dtype is not None:
+            x = x.to(self.dense_dtype)
+        x = F.relu(self._dense(self.Dense_0, x))
+        x = self._dense(self.Dense_1, x).to(x_nchw.dtype)
+        gh, gw = self.grid
+        x = x.reshape(n, gh, gw, NUM_DISPARITY_CHANNELS).permute(0, 3, 1, 2)
+        return self.ConvTranspose_0(x)
+
+
+class DisparityUpconvSoftmax(nn.Module):
+    """Final head: deconv x2 (one more stage at ``prob_volume_scale=2``) ->
+    relu -> conv3x3 -> softmax over the 65 disparity channels."""
+
+    def __init__(self, n_upconvs: int = 1):
+        super().__init__()
+        self.n_upconvs = n_upconvs
+        for i in range(n_upconvs):
+            self.add_module(f"ConvTranspose_{i}", Deconv2dParity(
+                NUM_DISPARITY_CHANNELS, NUM_DISPARITY_CHANNELS, 2))
+        self.Conv_0 = _conv3x3(NUM_DISPARITY_CHANNELS, NUM_DISPARITY_CHANNELS)
+
+    def forward(self, x):
+        for i in range(self.n_upconvs):
+            x = F.relu(getattr(self, f"ConvTranspose_{i}")(x))
+        return torch.softmax(self.Conv_0(x), dim=1)
+
+
+class DisparityEstimationNetwork(nn.Module):
+    """Downscaled left view (N, 3, h, w) -> (N, 65, H/s, W/s) softmax
+    disparity probabilities at their computed resolution."""
+
+    def __init__(self, down_shape: Tuple[int, int],
+                 deconv_filters: Sequence[int] = (64, 128, 256, 512, 512),
+                 prob_volume_scale: int = 4,
+                 ff_dense_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if prob_volume_scale not in (2, 4):
+            raise ValueError("prob_volume_scale must be 2 or 4")
+        in_ch = 3
+        scale = 1
+        for idx, block in enumerate(VGG16_BLOCKS):
+            scale = scale if idx == 0 else scale * 2
+            self.add_module(f"VggBlock_{idx}", VggBlock(in_ch, block))
+            in_ch = block[-1]
+            self.add_module(f"DeconvBranch_{idx}",
+                            DeconvBranch(in_ch, deconv_filters[idx], scale))
+        grid = (down_shape[0] // _VGG_STRIDE, down_shape[1] // _VGG_STRIDE)
+        self.FeedForwardBranch_0 = FeedForwardBranch(grid, in_ch,
+                                                     dense_dtype=ff_dense_dtype)
+        self.DisparityUpconvSoftmax_0 = DisparityUpconvSoftmax(
+            1 + (prob_volume_scale == 2))
+
+    def forward(self, left_down_nchw):
+        predictions = []
+        features = left_down_nchw
+        for idx in range(len(VGG16_BLOCKS)):
+            features = getattr(self, f"VggBlock_{idx}")(features)
+            predictions.append(getattr(self, f"DeconvBranch_{idx}")(features))
+        predictions.append(self.FeedForwardBranch_0(features))
+        summed = sum(predictions)
+        return self.DisparityUpconvSoftmax_0(summed)
+
+
+class Deep3D(nn.Module):
+    """``(left_full, left_down)`` (NCHW, 0..1) -> synthesized right view
+    (NCHW, 0..1).  ``left_down`` is 1/4 of the full resolution with dims
+    divisible by 32; ``down_shape`` fixes the global branch's size."""
+
+    def __init__(self, down_shape: Tuple[int, int] = (96, 320),
+                 deconv_filters: Sequence[int] = (64, 128, 256, 512, 512),
+                 prob_volume_scale: int = 4,
+                 ff_dense_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.prob_volume_scale = prob_volume_scale
+        self.DisparityEstimationNetwork_0 = DisparityEstimationNetwork(
+            down_shape, deconv_filters, prob_volume_scale, ff_dense_dtype)
+
+    def prob_volume_low(self, left_down_nchw):
+        """Softmax volume at its computed resolution, (N, 65, H/s, W/s)."""
+        return self.DisparityEstimationNetwork_0(left_down_nchw)
+
+    def forward(self, left_full_nchw, left_down_nchw):
+        prob = self.prob_volume_low(left_down_nchw)
+        return upsample_blend(prob.float().contiguous(),
+                              left_full_nchw.float().contiguous(),
+                              self.prob_volume_scale)

@@ -1,0 +1,30 @@
+"""Deep3D's shifted-view blend (port of ``stereo_tpu/ops/shift_stack.py``).
+
+``weighted_shift_sum`` is the plain half of the ``upsample_blend`` kernel:
+``out[n, c, y, x] = sum_d w[n, d, y, x] * view[n, c, y, x + d]``, with the
+view taken as zero past the right edge.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _shift_cols(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``out[..., y] = x[..., y + d]`` with zero fill (``d >= 0``)."""
+    if d == 0:
+        return x
+    return F.pad(x[..., d:], (0, d))
+
+
+def weighted_shift_sum(weights_ndhw: torch.Tensor,
+                       view_nchw: torch.Tensor) -> torch.Tensor:
+    """Sum over d of ``weights[:, d] * left_shift(view, d)``.
+
+    ``weights``: (N, D, H, W); ``view``: (N, C, H, W).  Returns (N, C, H, W).
+    """
+    out = torch.zeros_like(view_nchw)
+    for d in range(weights_ndhw.shape[1]):
+        out = out + weights_ndhw[:, d][:, None] * _shift_cols(view_nchw, d)
+    return out
