@@ -9,8 +9,9 @@ Phases, each ending in one flushed JSON line with its name and seconds:
 2. build:    one ``nvcc`` call builds every ``stereo_tpu_torch/csrc/*.cu``
              into one library (0 s when the library is already built);
 3. kernels:  each kernel against its plain PyTorch version at the shapes of
-             the single-view path (384x1280, disparity 1..64), with its
-             median time, the plain version's time and its bound;
+             the single-view paths (384x1280, disparity 1..64; GwcNet's
+             volume also at disparity 192 and in bf16), with its median
+             time, the plain version's time and its bound;
 4. golden:   the classical matcher on the synthetic KITTI pair against the
              committed golden (>= 99% of pixels within 0.5 px);
 5. pipeline: ``DepthEstimationPipeline`` on single views at full width,
@@ -18,21 +19,30 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              and its ms/frame with the per-stage times;
    profile:  device time by kernel over a few frames (``torch.profiler``)
              and the device's busy share of the wall time;
-6. server:   ``DepthEstimationServer`` on a free local port answers three
-             PNG uploads, then shuts down.  The kernel launch counts are
-             zeroed just before and read just after; every kernel of the
+6. dnn:      the same pipeline with the GwcNet backend: single views
+             (ms/frame, stages, the disparity against the same frame
+             through ``gwc_volume_plain``), the synthetic KITTI pair, GwcNet
+             at disparity 192 and its feature extractor alone, and a few
+             forwards each of MSNet2D, MSNet3D and GwcNet in bf16;
+   profile_dnn: the GwcNet single view's device time by kernel;
+7. server:   ``DepthEstimationServer`` on a free local port answers three
+             PNG uploads, then shuts down, once with the classical backend
+             and once with GwcNet.  The kernel launch counts are zeroed
+             just before each and read just after; every kernel of that
              path must have launched.
 
-Then a JSON line with every kernel's numbers, the ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``.  Any failure raises and the script
+Then a JSON line with every kernel's numbers (its launches summed over
+the two server runs), the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero without that last line; so does a machine without CUDA.
-The Deep3D weights are the committed checkpoint
-(``data/checkpoints/deep3d.npz``) when it is present, else seeded random
-weights at the same width.
+Every network loads its committed checkpoint (``data/checkpoints/*.npz``)
+when it is present, else seeded random weights at the same width; the
+phase lines say which.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -48,6 +58,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KITTI_GOLDEN = os.path.join(ROOT, "tests", "golden",
                             "kitti_synthetic_disparity_tpu.npz")
 DEEP3D_NPZ = os.path.join(ROOT, "data", "checkpoints", "deep3d.npz")
+
+# The kernels each single-view path must launch.
+CLASSICAL_KERNELS = ("upsample_blend", "matching_core", "sampled_window")
+GWCNET_KERNELS = ("upsample_blend", "gwc_volume")
 
 # H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -187,36 +201,110 @@ def phase_kernels(torch, cfg, dev) -> list:
                         replaces="stereo_tpu/ops/pallas/blend.py:209",
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    results.append(check_gwc_volume(torch, rng, dev))
     return results
 
 
-def phase_pipeline(torch, dev, reference_check: bool):
+def check_gwc_volume(torch, rng, dev) -> dict:
+    """``gwc_volume`` at GwcNet's width on the 384x1280 path (features
+    (1, 320, 96, 320), 40 groups): D=16 planes (disparity 64) and 48
+    (disparity 192) in float32, 16 in bf16.  Float32 must agree with the
+    plain version within 1e-5 * max|vol|, bf16 (compared in bf16) within
+    one bf16 ulp of max|vol|.  The kernel's entry is the path's shape
+    (D=16, float32); the others go in ``variants``."""
+    from stereo_tpu_torch.ops.cuda import gwc_volume, gwc_volume_plain
+
+    n, c, h, w, g = 1, 320, 96, 320, 40
+    # ReLU'd like real features.
+    left, right = (torch.from_numpy(np.maximum(rng.standard_normal(
+        (n, c, h, w)), 0).astype(np.float32)).to(dev) for _ in range(2))
+    variants = []
+    for d, dtype in ((16, torch.float32), (48, torch.float32),
+                     (16, torch.bfloat16)):
+        lt, rt = left.to(dtype), right.to(dtype)
+        vol_k = gwc_volume(lt, rt, d, g)
+        vol_p = gwc_volume_plain(lt, rt, d, g)
+        torch.cuda.synchronize()
+        err = float((vol_k.float() - vol_p.float()).abs().max())
+        peak = float(vol_p.float().abs().max())
+        if dtype == torch.float32:
+            limit = 1e-5 * peak
+        else:
+            limit = 2.0 ** (np.floor(np.log2(peak)) - 7)   # 1 bf16 ulp
+        require(err <= limit, f"gwc_volume D={d} {dtype}: off by {err} "
+                              f"(limit {limit})")
+        ms = cuda_ms(lambda: gwc_volume(lt, rt, d, g), 50)
+        plain_ms = cuda_ms(lambda: gwc_volume_plain(lt, rt, d, g), 5)
+        # Each input read once, the volume written once; one multiply and
+        # one add per channel at each live (d, w >= d) position.
+        live = n * h * sum(w - k for k in range(d))
+        b_ms, b_by = bound(lt.element_size()
+                           * (2 * n * c * h * w + n * g * d * h * w),
+                           2 * c * live)
+        variants.append(dict(planes=d, dtype=str(dtype).split(".")[-1],
+                             max_abs_err=err, limit=limit, max_abs_vol=peak,
+                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by))
+    main = variants[0]
+    return dict(name="gwc_volume", route="cuda",
+                source="stereo_tpu_torch/csrc/gwc_volume.cu",
+                replaces="stereo_tpu/ops/pallas/gwc_volume.py:103",
+                max_abs_err=main["max_abs_err"], ms=main["ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=None,
+                variants=variants)
+
+
+def frame_ms(torch, fn, reps: int) -> list:
+    """Host milliseconds of ``reps`` calls of ``fn``, each between two
+    ``torch.cuda.synchronize()``."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def seeded_frames(torch, dev, shape, seed: int, n: int = 4) -> list:
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(np.round(rng.uniform(0, 255, (3, *shape)))
+                             .astype(np.float32)).to(dev) for _ in range(n)]
+
+
+def make_synthesis(dev):
+    """Deep3D at its native 384x1280 / 96x320: the committed weights when
+    present, else seeded ones of the same width."""
+    from stereo_tpu_torch.synthesis import RightViewSynthesis
+
+    committed = os.path.isfile(DEEP3D_NPZ)
+    synthesis = RightViewSynthesis(
+        output_shape=(384, 1280),
+        checkpoint_dir=DEEP3D_NPZ if committed else None,
+        seed=None if committed else 0, device=dev)
+    return synthesis, "committed" if committed else "seeded"
+
+
+def phase_pipeline(torch, dev, synthesis, reference_check: bool):
     from stereo_tpu_torch.core.config import PipelineConfig
     from stereo_tpu_torch.matching.classical import ClassicalStereoEngine
     from stereo_tpu_torch.ops import rescale_generated_view
     from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
     from stereo_tpu_torch.ops.cuda import upsample_blend_plain
     from stereo_tpu_torch.pipeline import DepthEstimationPipeline
-    from stereo_tpu_torch.synthesis import RightViewSynthesis
     from stereo_tpu_torch.synthesis.right_view_synthesis import resize_nchw
 
     config = PipelineConfig()
-    committed = os.path.isfile(DEEP3D_NPZ)
-    synthesis = RightViewSynthesis(
-        output_shape=config.image_shape,
-        checkpoint_dir=DEEP3D_NPZ if committed else None,
-        seed=None if committed else 0, device=dev)
     pipeline = DepthEstimationPipeline(config, synthesis=synthesis, device=dev)
-    rng = np.random.default_rng(2)
-    frames = [torch.from_numpy(np.round(rng.uniform(
-        0, 255, (3, *config.image_shape))).astype(np.float32)).to(dev)
-        for _ in range(4)]
+    frames = seeded_frames(torch, dev, config.image_shape, 2)
 
     reset_launch_counts()
     result = pipeline.process(frames[0])
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
-    require(all(v >= 1 for v in counts.values()),
+    require(all(counts[k] >= 1 for k in CLASSICAL_KERNELS),
             f"pipeline missed a kernel: {counts}")
     disp = result.disparity_map
     require(tuple(disp.shape) == tuple(config.image_shape),
@@ -243,20 +331,104 @@ def phase_pipeline(torch, dev, reference_check: bool):
     for f in frames:
         pipeline.process(f)
     pipeline.reset_stage_times()
-    times = []
-    for i in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pipeline.process(frames[i % len(frames)])
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    cycle = itertools.cycle(frames)
+    times = frame_ms(torch, lambda: pipeline.process(next(cycle)), 20)
     stages = {k: v * 1e3 for k, v in pipeline.stage_times().items()}
-    return pipeline, dict(weights="committed" if committed else "seeded",
-                          launches_per_frame=counts,
+    return pipeline, dict(launches_per_frame=counts,
                           frac_within_0p5_of_plain=frac,
                           ms_per_frame_median=statistics.median(times),
                           ms_per_frame_min=min(times),
                           stage_ms=stages)
+
+
+def phase_dnn(torch, dev, synthesis):
+    """The single-view pipeline with GwcNet at 384x1280 / disparity 1..64,
+    held against the same frame through ``gwc_volume_plain``; then GwcNet
+    on the synthetic KITTI pair at disparity 64 and 192, its feature
+    extractor alone, and MSNet2D, MSNet3D and GwcNet in bf16 (disparity
+    64) on the pair."""
+    import stereo_tpu_torch.models.gwcnet as gwcnet_module
+    from stereo_tpu_torch.core.config import PipelineConfig
+    from stereo_tpu_torch.ops.cuda import (LAUNCHES, gwc_volume_plain,
+                                           reset_launch_counts)
+    from stereo_tpu_torch.pipeline import (DepthEstimationPipeline,
+                                           DnnStereoMatchingBackend)
+
+    config = PipelineConfig(stereo_matching_backend="gwcnet")
+    pipeline = DepthEstimationPipeline(config, synthesis=synthesis, device=dev)
+    backend = pipeline.stereo_matching
+    build_gwc_volume = gwcnet_module.build_gwc_volume
+    frames = seeded_frames(torch, dev, config.image_shape, 4)
+
+    reset_launch_counts()
+    result = pipeline.process(frames[0])
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    require(all(counts[k] >= 1 for k in GWCNET_KERNELS),
+            f"GwcNet pipeline missed a kernel: {counts}")
+    disp = result.disparity_map
+    require(tuple(disp.shape) == tuple(config.image_shape),
+            f"GwcNet disparity shape {tuple(disp.shape)}")
+    require(bool(torch.isfinite(disp).all()), "non-finite GwcNet disparity")
+
+    # The same frame (same weights, same synthesized view) with the volume
+    # built by the plain version.
+    gwcnet_module.build_gwc_volume = gwc_volume_plain
+    try:
+        disp_plain = backend.process(frames[0], result.right_image)
+    finally:
+        gwcnet_module.build_gwc_volume = build_gwc_volume
+    diff = (disp - disp_plain).abs()
+    frac = float((diff <= 0.5).float().mean())
+    require(frac >= 0.99, f"GwcNet vs plain volume: {frac} within 0.5 px")
+
+    for f in frames:
+        pipeline.process(f)
+    pipeline.reset_stage_times()
+    cycle = itertools.cycle(frames)
+    times = frame_ms(torch, lambda: pipeline.process(next(cycle)), 20)
+    stages = {k: v * 1e3 for k, v in pipeline.stage_times().items()}
+    single = dict(weights=backend.weights, launches_per_frame=counts,
+                  frac_within_0p5_of_plain=frac,
+                  max_abs_diff_to_plain=float(diff.max()),
+                  ms_per_frame_median=statistics.median(times),
+                  ms_per_frame_min=min(times), stage_ms=stages)
+
+    left, right = (torch.from_numpy(x).to(dev) for x in kitti_pair())
+
+    def pair_numbers(fn, reps):
+        disp = fn()
+        times = frame_ms(torch, fn, reps)
+        require(bool(torch.isfinite(disp).all()), "non-finite disparity")
+        return dict(ms_per_frame_median=statistics.median(times),
+                    median_disparity=float(disp[:, 64:-64].median()))
+
+    pair = pair_numbers(lambda: pipeline.process(left, right).disparity_map,
+                        10)
+    pipe192 = DepthEstimationPipeline(
+        PipelineConfig(stereo_matching_backend="gwcnet", max_disparity=192),
+        device=dev)
+    pair192 = pair_numbers(
+        lambda: pipe192.process(left, right).disparity_map, 10)
+    del pipe192
+    # GwcNet's 2-D feature extractor alone (the stacked pair), to split
+    # its device time from the volume and the 3-D aggregation.
+    stacked = torch.zeros((2, 3, *config.image_shape), device=dev)
+    with torch.no_grad():
+        features_ms = cuda_ms(
+            lambda: backend.model.GwcFeatureExtractor_0(stacked), 5)
+    others = {}
+    for name, dtype in (("msnet2d", "float32"), ("msnet3d", "float32"),
+                        ("gwcnet", "bfloat16")):
+        net = DnnStereoMatchingBackend(name, config.image_shape,
+                                       max_disparity=64, compute_dtype=dtype,
+                                       device=dev)
+        others[f"{name}_{dtype}"] = dict(weights=net.weights, **pair_numbers(
+            lambda: net.process(left, right), 3))
+        del net
+    return pipeline, dict(single_view=single, pair_d64=pair,
+                          pair_d192=pair192,
+                          gwcnet_features_ms=features_ms, **others)
 
 
 def phase_profile(torch, pipeline, dev, frames: int = 3) -> dict:
@@ -287,13 +459,24 @@ def phase_profile(torch, pipeline, dev, frames: int = 3) -> dict:
                      for e in kernels[:12]])
 
 
-def phase_server(torch, pipeline, dev):
-    from stereo_tpu_torch.core.config import PipelineConfig
+def profile(torch, label: str, pipeline, dev) -> None:
+    """The profile only measures; a profiler that cannot trace the card is
+    reported, not fatal."""
+    t = time.perf_counter()
+    try:
+        report(label, t, **phase_profile(torch, pipeline, dev))
+    except Exception as exc:  # noqa: BLE001 — measurement only
+        report(label, t, error=f"{type(exc).__name__}: {exc}")
+
+
+def phase_server(torch, pipeline, dev, kernels):
+    """Three PNG uploads to a server around ``pipeline``; every name in
+    ``kernels`` must launch in that run."""
     from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
     from stereo_tpu_torch.serve import DepthEstimationServer
     from stereo_tpu_torch.utils.png import decode_png, encode_png
 
-    config = PipelineConfig()
+    config = pipeline.get_configuration()
     server = DepthEstimationServer(config, pipeline=pipeline, micro_batch=2,
                                    device=dev)
     rng = np.random.default_rng(3)
@@ -325,8 +508,8 @@ def phase_server(torch, pipeline, dev):
     for _, body in replies:
         shape = decode_png(body).shape
         require(shape[:2] == tuple(config.image_shape), f"reply shape {shape}")
-    require(all(v >= 1 for v in counts.values()),
-            f"main path missed a kernel: {counts}")
+    require(all(counts[k] >= 1 for k in kernels),
+            f"{config.stereo_matching_backend} path missed a kernel: {counts}")
     return counts, dict(statuses=statuses, batches=server.batcher.batches_run,
                         frames=server.batcher.frames_run)
 
@@ -374,23 +557,26 @@ def main() -> int:
            mean_disparity=float(disp.mean()))
 
     t = time.perf_counter()
-    pipeline, numbers = phase_pipeline(torch, dev, reference_check=True)
-    report("pipeline", t, **numbers)
-
-    # The profile only measures; a profiler that cannot trace the card is
-    # reported, not fatal.
-    t = time.perf_counter()
-    try:
-        report("profile", t, **phase_profile(torch, pipeline, dev))
-    except Exception as exc:  # noqa: BLE001 — measurement only
-        report("profile", t, error=f"{type(exc).__name__}: {exc}")
+    synthesis, deep3d_weights = make_synthesis(dev)
+    pipeline, numbers = phase_pipeline(torch, dev, synthesis,
+                                       reference_check=True)
+    report("pipeline", t, weights=deep3d_weights, **numbers)
+    profile(torch, "profile", pipeline, dev)
 
     t = time.perf_counter()
-    counts, numbers = phase_server(torch, pipeline, dev)
-    report("server", t, launches=counts, **numbers)
+    dnn_pipeline, numbers = phase_dnn(torch, dev, synthesis)
+    report("dnn", t, deep3d_weights=deep3d_weights, **numbers)
+    profile(torch, "profile_dnn", dnn_pipeline, dev)
+
+    counts = {}
+    for label, pipe, needed in (("server", pipeline, CLASSICAL_KERNELS),
+                                ("server_dnn", dnn_pipeline, GWCNET_KERNELS)):
+        t = time.perf_counter()
+        counts[label], numbers = phase_server(torch, pipe, dev, needed)
+        report(label, t, launches=counts[label], **numbers)
 
     for k in kernels:
-        k["launches"] = counts[k["name"]]
+        k["launches"] = sum(c[k["name"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the single-view path, with their wrappers.
+"""Hand-written CUDA kernels of the port, with their wrappers.
 
 Each wrapper takes its kernel's plain PyTorch version for a CPU tensor and
 launches the kernel for a CUDA tensor (or raises on a device, dtype, shape
@@ -10,9 +10,11 @@ time: the library is built on the first launch (``build.library``).
 
 from .launch import LAUNCHES, reset_launch_counts
 from .blend import upsample_blend, upsample_blend_plain
+from .gwc_volume import gwc_volume, gwc_volume_plain
 from .matching import (matching_core, matching_core_plain, sampled_window,
                        sampled_window_plain)
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "matching_core",
+__all__ = ["LAUNCHES", "reset_launch_counts", "gwc_volume",
+           "gwc_volume_plain", "matching_core",
            "matching_core_plain", "sampled_window", "sampled_window_plain",
            "upsample_blend", "upsample_blend_plain"]

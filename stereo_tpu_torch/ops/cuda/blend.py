@@ -8,7 +8,7 @@ import torch.nn.functional as F
 
 from ..shift_stack import weighted_shift_sum
 from . import build
-from .launch import LAUNCHES, check_cuda_f32, require, use_kernel
+from .launch import LAUNCHES, check_cuda, require, use_kernel
 
 
 def upsample_blend_plain(prob_low_ndhw: torch.Tensor, view_nchw: torch.Tensor,
@@ -37,8 +37,8 @@ def upsample_blend(prob_low_ndhw: torch.Tensor, view_nchw: torch.Tensor,
         return upsample_blend_plain(prob_low_ndhw, view_nchw, scale)
     h, w = scale * hl, scale * wl
     dev = prob_low_ndhw.device
-    check_cuda_f32("prob_low", prob_low_ndhw, dev, (n, num_d, hl, wl))
-    check_cuda_f32("view", view_nchw, dev, (n, 3, h, w))
+    check_cuda("prob_low", prob_low_ndhw, dev, (n, num_d, hl, wl))
+    check_cuda("view", view_nchw, dev, (n, 3, h, w))
     out = torch.empty((n, 3, h, w), dtype=torch.float32, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):

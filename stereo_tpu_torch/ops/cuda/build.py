@@ -33,6 +33,7 @@ _SIGNATURES = {
     "stereo_matching_core": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "stereo_sampled_window": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "stereo_upsample_blend": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "stereo_gwc_volume": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

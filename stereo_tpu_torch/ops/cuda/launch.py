@@ -8,7 +8,8 @@ from typing import Tuple
 import torch
 
 # Kernel launches by kernel name; a wrapper adds one where it launches.
-LAUNCHES = {"matching_core": 0, "sampled_window": 0, "upsample_blend": 0}
+LAUNCHES = {"matching_core": 0, "sampled_window": 0, "upsample_blend": 0,
+            "gwc_volume": 0}
 
 
 def reset_launch_counts() -> None:
@@ -31,12 +32,14 @@ def require(cond: bool, message: str) -> None:
         raise ValueError(message)
 
 
-def check_cuda_f32(name: str, t: torch.Tensor, device: torch.device,
-                   shape: Tuple[int, ...]) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
-    ``device``: the only layout the kernels take."""
+def check_cuda(name: str, t: torch.Tensor, device: torch.device,
+               shape: Tuple[int, ...],
+               dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``shape`` on ``device``
+    with a dtype in ``dtypes`` (float32 unless the kernel says otherwise):
+    the only layout the kernels take."""
     require(t.device == device, f"{name} is on {t.device}, expected {device}")
-    require(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
+    require(t.dtype in dtypes, f"{name} must be one of {dtypes}, got {t.dtype}")
     require(tuple(t.shape) == tuple(shape),
             f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     require(t.is_contiguous(), f"{name} must be contiguous")

@@ -20,7 +20,7 @@ from ..gather import take_lane, take_window_lanes
 from ..refinement import sampled_sad_volume
 from ..wta import wta_disparity
 from . import build
-from .launch import LAUNCHES, check_cuda_f32, use_kernel
+from .launch import LAUNCHES, check_cuda, use_kernel
 
 
 def matching_core_plain(left_down: torch.Tensor, right_down: torch.Tensor,
@@ -55,8 +55,8 @@ def matching_core(left_down: torch.Tensor, right_down: torch.Tensor,
     c = config
     h, w = left_down.shape[-2:]
     dev = left_down.device
-    check_cuda_f32("left_down", left_down, dev, (h, w))
-    check_cuda_f32("right_down", right_down, dev, (h, w))
+    check_cuda("left_down", left_down, dev, (h, w))
+    check_cuda("right_down", right_down, dev, (h, w))
     disparity = torch.empty((h, w), dtype=torch.float32, device=dev)
     mbm = torch.empty((3, h, w), dtype=torch.float32, device=dev)
     lib = build.library()
@@ -102,9 +102,9 @@ def sampled_window(left_gray: torch.Tensor, right_gray: torch.Tensor,
     h, w = left_gray.shape[-2:]
     hd, wd = -(-h // k), -(-w // k)
     dev = left_gray.device
-    check_cuda_f32("left_gray", left_gray, dev, (h, w))
-    check_cuda_f32("right_gray", right_gray, dev, (h, w))
-    check_cuda_f32("disparity_down", disparity_down, dev, (hd, wd))
+    check_cuda("left_gray", left_gray, dev, (h, w))
+    check_cuda("right_gray", right_gray, dev, (h, w))
+    check_cuda("disparity_down", disparity_down, dev, (hd, wd))
     out = torch.empty((2 * k + 3, hd, wd), dtype=torch.float32, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):

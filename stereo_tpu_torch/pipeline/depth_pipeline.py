@@ -1,9 +1,9 @@
 """Depth-estimation pipeline (port of ``stereo_tpu/pipeline/depth_pipeline.py``).
 
 ``DepthEstimationPipeline.process(left, right=None)`` synthesizes the right
-view with Deep3D when it is not given, then runs the classical matcher.
-The classical backend is the only one ported so far; the DNN backends and
-the multi-device mesh raise.
+view with Deep3D when it is not given, then runs the stereo-matching
+backend: the classical matcher or a DNN (GwcNet, MSNet2D, MSNet3D).  The
+multi-device mesh is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ import torch
 from ..core.config import PipelineConfig
 from ..core.device import resolve_device
 from ..utils.profiling import StageTimer, perf_clock
-from .backends import ClassicalStereoBackend, StereoMatchingBackend
+from .backends import (AVAILABLE_DNN_BACKENDS, ClassicalStereoBackend,
+                       DnnStereoMatchingBackend, StereoMatchingBackend)
 from .single_view import SingleViewEngine
 
 
@@ -40,17 +41,12 @@ class DepthEstimationPipeline:
                  synthesis=None, device="cuda"):
         self._config = config
         self.device = resolve_device(device)
-        if config.stereo_matching_backend not in ("classical", "cuda"):
-            raise NotImplementedError(
-                f"backend {config.stereo_matching_backend!r} is not ported "
-                "to PyTorch yet; use 'classical'")
         if config.mesh is not None and config.mesh.num_devices > 1:
             raise NotImplementedError("multi-device meshes are not ported yet")
         self._right_view_synthesis = synthesis
         self._single_view = None
         self._timer = StageTimer(self.device)
-        self._stereo_matching = ClassicalStereoBackend(
-            config.matching_config(), device=self.device)
+        self._stereo_matching = self._build_backend()
 
     def get_configuration(self) -> PipelineConfig:
         return self._config
@@ -98,6 +94,19 @@ class DepthEstimationPipeline:
         self._timer.reset()
 
     # ------------------------------------------------------------------
+    def _build_backend(self) -> StereoMatchingBackend:
+        cfg = self._config
+        if cfg.stereo_matching_backend in AVAILABLE_DNN_BACKENDS:
+            # The 1/4-resolution volume follows the disparity range, in
+            # steps of 4; the networks are fully convolutional.
+            model_d = max(32, -(-int(cfg.max_disparity) // 4) * 4)
+            return DnnStereoMatchingBackend(
+                cfg.stereo_matching_backend, image_shape=cfg.image_shape,
+                max_disparity=model_d, compute_dtype=cfg.compute_dtype,
+                device=self.device)
+        return ClassicalStereoBackend(cfg.matching_config(),
+                                      device=self.device)
+
     def _synthesis(self):
         if self._right_view_synthesis is None:
             from ..synthesis import RightViewSynthesis
@@ -113,7 +122,7 @@ class DepthEstimationPipeline:
             synthesis = self._synthesis()
             self._check_disparity_coverage(synthesis)
             self._single_view = SingleViewEngine(
-                self._config.matching_config(), synthesis, timer=self._timer)
+                self._stereo_matching, synthesis, timer=self._timer)
         return self._single_view
 
     def _check_disparity_coverage(self, synthesis) -> None:

@@ -1,12 +1,13 @@
 """Single-view engine: the headline scenario, one left view in, disparity
 out (port of ``stereo_tpu/pipeline/single_view.py``).
 
-Deep3D synthesizes the right view, then the classical matcher runs on the
-ORIGINAL left view and the synthesized right view (not on the resized or
-normalised left view), as in the reference's
+Deep3D synthesizes the right view, then the stereo-matching backend runs
+on the ORIGINAL left view and the synthesized right view (not on the
+resized or normalised left view), as in the reference's
 ``depth_estimation_pipeline.py:55-66`` composition.  On a CUDA device the
-path runs three hand-written kernels per frame: ``upsample_blend``,
-``matching_core`` and ``sampled_window``.
+path runs hand-written kernels in every frame: ``upsample_blend``, then
+``matching_core`` and ``sampled_window`` (classical backend) or
+``gwc_volume`` (GwcNet).
 """
 
 from __future__ import annotations
@@ -16,21 +17,19 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.config import MatchingConfig
-from ..matching.classical import ClassicalStereoEngine
 from ..utils.profiling import StageTimer
 
 
 class SingleViewEngine:
-    """``synthesis`` is a constructed ``RightViewSynthesis`` whose output
-    shape is the matcher's image shape; its device is the engine's.
-    ``timer`` (optional) records the two stages."""
+    """``backend``: a stereo-matching backend with ``process_batch(left,
+    right)`` on the synthesis's device; ``synthesis``: a constructed
+    ``RightViewSynthesis`` whose output shape is the backend's image
+    shape.  ``timer`` (optional) records the two stages."""
 
-    def __init__(self, config: MatchingConfig, synthesis,
+    def __init__(self, backend, synthesis,
                  timer: Optional[StageTimer] = None):
-        self.config = config
+        self.backend = backend
         self.synthesis = synthesis
-        self.engine = ClassicalStereoEngine(config, device=synthesis.device)
         self.timer = timer
 
     def _stage(self, name: str):
@@ -48,5 +47,5 @@ class SingleViewEngine:
         with self._stage("right_view_generation"):
             right = self.synthesis.process_batch(left)
         with self._stage("stereo_matching"):
-            disparity = self.engine.compute_disparity_maps(left, right)
+            disparity = self.backend.process_batch(left, right)
         return disparity, right

@@ -2,7 +2,7 @@
 (port of the stdlib server and ``MicroBatcher`` of ``stereo_tpu/serve/api.py``).
 
 ``POST /`` takes a PNG (multipart ``file`` field or raw body), runs the
-single-view pipeline (right-view synthesis + classical matching) and
+single-view pipeline (right-view synthesis + the configured backend) and
 answers with the disparity map as an 8-bit PNG; ``GET /`` returns the
 configuration.  Uploads travel to the device as uint8 and are upcast
 there; the disparity is quantised to uint8 on the device before it comes
@@ -285,23 +285,38 @@ class DepthEstimationServer:
             self.shutdown()
 
 
-def main() -> None:
+def parse_args(argv=None):
     import argparse
 
     parser = argparse.ArgumentParser(description="Depth estimation REST API")
     parser.add_argument("--host", default="localhost")
     parser.add_argument("--port", type=int, default=8080)
+    parser.add_argument("--backend", default="classical",
+                        choices=["classical", "gwcnet", "msnet2d", "msnet3d"])
     parser.add_argument("--height", type=int, default=384)
     parser.add_argument("--width", type=int, default=1280)
     parser.add_argument("--max-disparity", type=int, default=64)
     parser.add_argument("--micro-batch", type=int, default=1,
                         help=">1 coalesces concurrent requests into device "
                              "batches")
+    parser.add_argument("--compute-dtype", default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="precision of the neural paths (DNN backend and "
+                             "right-view synthesis)")
     parser.add_argument("--device", default="cuda")
-    args = parser.parse_args()
-    config = PipelineConfig(image_shape=(args.height, args.width),
-                            min_disparity=0, max_disparity=args.max_disparity)
-    DepthEstimationServer(config, micro_batch=args.micro_batch,
+    return parser.parse_args(argv)
+
+
+def config_from_args(args) -> PipelineConfig:
+    return PipelineConfig(image_shape=(args.height, args.width),
+                          min_disparity=0, max_disparity=args.max_disparity,
+                          stereo_matching_backend=args.backend,
+                          compute_dtype=args.compute_dtype)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    DepthEstimationServer(config_from_args(args), micro_batch=args.micro_batch,
                           device=args.device).serve(args.host, args.port)
 
 

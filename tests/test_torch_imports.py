@@ -52,6 +52,16 @@ engine = ClassicalStereoEngine(MatchingConfig(height=32, width=64,
 disp = engine.compute_disparity_map(left, np.roll(left, -4, axis=-1))
 assert disp.shape == (32, 64)
 print("median", float(disp[:, 8:-8].median()))
+import torch
+from stereo_tpu_torch.models import build_stereo_model, init_params
+from stereo_tpu_torch.ops.cuda import build
+for name in ("gwcnet", "msnet2d", "msnet3d"):
+    net = build_stereo_model(name, 32)
+    init_params(net, 0)
+    with torch.no_grad():
+        out = net.eval()(torch.zeros(1, 3, 32, 64), torch.zeros(1, 3, 32, 64))
+    print(name, tuple(out.shape))
+assert build._library is None        # importing and running built nothing
 """
 
 
@@ -62,18 +72,22 @@ def test_port_runs_with_forbidden_modules_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "median 4.0" in proc.stdout
+    for name in ("gwcnet", "msnet2d", "msnet3d"):
+        assert f"{name} (1, 32, 64)" in proc.stdout
 
 
 def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     from stereo_tpu_torch.core.config import MatchingConfig, PipelineConfig
     from stereo_tpu_torch.matching.classical import ClassicalStereoEngine
-    from stereo_tpu_torch.pipeline import DepthEstimationPipeline
+    from stereo_tpu_torch.pipeline import (DepthEstimationPipeline,
+                                           DnnStereoMatchingBackend)
     from stereo_tpu_torch.serve import DepthEstimationServer
     from stereo_tpu_torch.synthesis import RightViewSynthesis
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for build in (lambda: ClassicalStereoEngine(MatchingConfig()),
                   lambda: DepthEstimationPipeline(PipelineConfig()),
+                  lambda: DnnStereoMatchingBackend("gwcnet", (64, 128)),
                   lambda: RightViewSynthesis(seed=0),
                   lambda: DepthEstimationServer(PipelineConfig())):
         with pytest.raises(RuntimeError, match="is_available"):

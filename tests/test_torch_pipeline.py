@@ -79,9 +79,11 @@ def test_stereo_pair_and_stage_times(pipelines):
 
 
 def test_unported_backends_raise():
+    from stereo_tpu_torch.core.config import MeshConfig
+
     with pytest.raises(NotImplementedError, match="not ported"):
         DepthEstimationPipeline(
-            PipelineConfig(stereo_matching_backend="gwcnet"), device="cpu")
+            PipelineConfig(mesh=MeshConfig(data=2)), device="cpu")
 
 
 def test_coverage_guard_warns():
