@@ -7,11 +7,18 @@ Phases, each ending in one flushed JSON line with its name and seconds:
 
 1. device:   the card's name, count and ``nvidia-smi`` name/power limit;
 2. build:    one ``nvcc`` call builds every ``stereo_tpu_torch/csrc/*.cu``
-             into one library (0 s when the library is already built);
+             into one library (0 s when the library is already built),
+             with each kernel's registers, spills and static shared memory;
 3. kernels:  each kernel against its plain PyTorch version at the shapes of
              the single-view paths (384x1280, disparity 1..64; GwcNet's
              volume also at disparity 192 and in bf16), with its median
-             time, the plain version's time and its bound;
+             time (``ms``: launch and run; ``device_ms``: run alone;
+             ``host_us``: launch alone), the plain version's time and its
+             bound; the classical kernels also on adversarial integer
+             pairs (every plane a winner, all planes tied) and windows
+             (smallest and largest disparity, across the wrap);
+   kernels_middlebury: the same for the classical kernels at
+             ``MatchingConfig()``, 1080x1920 / disparity 75..262;
 4. golden:   the classical matcher on the synthetic KITTI pair against the
              committed golden (>= 99% of pixels within 0.5 px);
 5. pipeline: ``DepthEstimationPipeline`` on single views at full width,
@@ -38,6 +45,18 @@ exits non-zero without that last line; so does a machine without CUDA.
 Every network loads its committed checkpoint (``data/checkpoints/*.npz``)
 when it is present, else seeded random weights at the same width; the
 phase lines say which.
+
+    python3 chip_smoke.py --compare NAME=DIR [NAME=DIR ...]
+
+times versions of the two classical kernels against each other instead:
+each ``DIR`` holds a ``matching_core.cu`` and a ``sampled_window.cu`` with
+the launchers' C interface, built into a library of its own.  Each
+version must equal the plain versions (winners, MBM costs and windows)
+before it is timed; then all are timed in turns (first to last, then last
+to first) at the KITTI and Middlebury configs, ``matching_core`` also at a
+second disparity range of each size, which splits its fixed cost from its
+cost per plane.  Each time is taken as ``ms`` (launch and run),
+``device_ms`` (run alone) and ``host_us`` (launch alone).
 """
 
 from __future__ import annotations
@@ -45,12 +64,15 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -79,9 +101,13 @@ def require(cond: bool, message: str) -> None:
         raise RuntimeError(message)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device milliseconds of ``fn`` over ``reps`` calls (CUDA events
-    around each call), after one warm-up call."""
+def cuda_ms(fn, reps: int, device_only: bool = False) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` calls (CUDA events around
+    each call on an idle device), after one warm-up call.  The time counts
+    the host's launch of the call's kernels as well as their run.  With
+    ``device_only`` the device first spins for about half a millisecond, so
+    the host has queued the launches before the start event is reached:
+    the time is then the device's alone."""
     import torch
 
     fn()
@@ -90,12 +116,37 @@ def cuda_ms(fn, reps: int) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(1_000_000)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Median host microseconds of one call of ``fn``, the calls queued
+    back to back without a synchronization (a launch's host cost)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def timings(fn, reps: int = 50) -> dict:
+    """A kernel wrapper's ``ms`` (launch and run), ``device_ms`` (run
+    alone) and ``host_us`` (launch alone)."""
+    return dict(ms=cuda_ms(fn, reps), device_ms=cuda_ms(fn, reps, True),
+                host_us=host_us(fn, reps))
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -114,42 +165,77 @@ def kitti_pair():
     return left, np.roll(left, -11, axis=-1)
 
 
-def phase_kernels(torch, cfg, dev) -> list:
+def middlebury_pair():
+    """A seeded integer RGB pair at ``MatchingConfig()``'s 1080x1920,
+    true disparity 150 (inside 75..262)."""
+    rng = np.random.default_rng(5)
+    left = np.round(rng.uniform(0, 255, (3, 1080, 1920))).astype(np.float32)
+    return left, np.roll(left, -150, axis=-1)
+
+
+def integer_pairs(cfg, rng):
+    """The integer-valued downscaled pairs ``matching_core`` is held to
+    (every box sum is exact, so kernel and plain version must agree): a
+    constant pair, where every plane ties and plane 0 must win everywhere;
+    then for each plane p, seeded noise and its roll that makes p the
+    winner, so that plane 0, plane D-1 and both sides of every chunk
+    boundary of the kernel's disparity split are winners."""
+    hd, wd = cfg.down_height, cfg.down_width
+    lo, num_d = cfg.min_disparity_down, cfg.num_disparities_down
+    flat = np.full((hd, wd), 128.0, np.float32)
+    yield "constant", 0, flat, flat
+    noise = rng.integers(0, 256, (hd, wd)).astype(np.float32)
+    for p in range(num_d):
+        yield f"plane {p}", p, noise, np.roll(noise, -(lo + p), axis=-1)
+
+
+def check_classical(torch, cfg, dev, rng, pair, label: str,
+                    plain_reps: int) -> list:
+    """``matching_core`` and ``sampled_window`` against their plain versions
+    at ``cfg`` (the pooled and full-res luma of ``pair``), with their
+    median times, the plain versions' times and their bounds."""
     from stereo_tpu_torch.ops import mean_pool, rgb_to_grayscale
     from stereo_tpu_torch.ops.cuda import (matching_core, matching_core_plain,
                                            sampled_window,
-                                           sampled_window_plain,
-                                           upsample_blend,
-                                           upsample_blend_plain)
+                                           sampled_window_plain)
 
-    rng = np.random.default_rng(1)
     h, w = cfg.height, cfg.width
     hd, wd = cfg.down_height, cfg.down_width
-    num_d, k = cfg.num_disparities_down, cfg.k
-    results = []
+    lo, num_d, k = cfg.min_disparity_down, cfg.num_disparities_down, cfg.k
+    shape = f"{h}x{w}, disparity {cfg.min_disparity}..{cfg.max_disparity}"
 
-    # matching_core: an integer-valued pair is exact in every box sum, so
-    # kernel and plain version must agree to 1e-4; a real-valued pair (the
-    # pooled luma of the KITTI pair) may flip near-tie winners.
-    li = rng.integers(0, 256, (hd, wd)).astype(np.float32)
-    ld = torch.from_numpy(li).to(dev)
-    rd = torch.from_numpy(np.roll(li, -5, axis=-1).copy()).to(dev)
-    disp_k, mbm_k = matching_core(ld, rd, cfg)
-    disp_p, mbm_p = matching_core_plain(ld, rd, cfg)
-    err = float((disp_k - disp_p).abs().max())
-    require(err <= 1e-4, f"matching_core disparity off by {err} (int pair)")
-    mbm_rel = float(((mbm_k - mbm_p).abs() / mbm_p.abs().clamp_min(1)).max())
-    require(mbm_rel <= 1e-6, f"matching_core mbm off by rel {mbm_rel}")
-    left, right = kitti_pair()
+    # matching_core on the integer pairs: disparity within 1e-4 and MBM
+    # costs within relative 1e-6 of the plain version; each case's winner
+    # must be the plane it was built for on most pixels.
+    err = mbm_rel = 0.0
+    cases = 0
+    for name, plane, left_i, right_i in integer_pairs(cfg, rng):
+        ld = torch.from_numpy(left_i).to(dev)
+        rd = torch.from_numpy(np.ascontiguousarray(right_i)).to(dev)
+        disp_k, mbm_k = matching_core(ld, rd, cfg)
+        disp_p, mbm_p = matching_core_plain(ld, rd, cfg)
+        err = max(err, float((disp_k - disp_p).abs().max()))
+        mbm_rel = max(mbm_rel, float(((mbm_k - mbm_p).abs()
+                                      / mbm_p.abs().clamp_min(1)).max()))
+        hit = float((disp_k == lo + plane).float().mean())
+        require(hit >= (1.0 if name == "constant" else 0.5),
+                f"matching_core {label} {name}: plane {plane} won on only "
+                f"{hit} of the pixels")
+        cases += 1
+    require(err <= 1e-4, f"matching_core {label} disparity off by {err}")
+    require(mbm_rel <= 1e-6, f"matching_core {label} mbm off by rel {mbm_rel}")
+
+    # The real-valued luma may flip near-tie winners: >= 99% equal.
+    left, right = pair
     lg = rgb_to_grayscale(torch.from_numpy(left).to(dev)).contiguous()
     rg = rgb_to_grayscale(torch.from_numpy(right).to(dev)).contiguous()
     lgd, rgd = mean_pool(lg, k).contiguous(), mean_pool(rg, k).contiguous()
     disp_kr, _ = matching_core(lgd, rgd, cfg)
     disp_pr, _ = matching_core_plain(lgd, rgd, cfg)
     frac_real = float(((disp_kr - disp_pr).abs() <= 0.5).float().mean())
-    require(frac_real >= 0.99, f"matching_core real pair: {frac_real}")
-    ms = cuda_ms(lambda: matching_core(lgd, rgd, cfg), 50)
-    plain_ms = cuda_ms(lambda: matching_core_plain(lgd, rgd, cfg), 5)
+    require(frac_real >= 0.99, f"matching_core {label} real pair: {frac_real}")
+    times = timings(lambda: matching_core(lgd, rgd, cfg))
+    plain_ms = cuda_ms(lambda: matching_core_plain(lgd, rgd, cfg), plain_reps)
     # Per pixel and plane, summing separably: one difference (sub, abs),
     # the 3x3 box and its subtraction from 255*area, the three MBM box
     # sums, two products and the winner test.
@@ -157,29 +243,99 @@ def phase_kernels(torch, cfg, dev) -> list:
                   cfg.mid_mbm_radius, cfg.large_mbm_radius)
     per = 2 + 4 * r + 1 + 4 * (L + s + m) + 2 + 1
     b_ms, b_by = bound(4 * hd * wd * (2 + 1 + 3), per * num_d * hd * wd)
-    results.append(dict(name="matching_core", route="cuda",
-                        source="stereo_tpu_torch/csrc/matching_core.cu",
-                        replaces="stereo_tpu/ops/pallas/kernels.py:210",
-                        max_abs_err=err, real_pair_frac_within_0p5=frac_real,
-                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                        library_ms=None))
+    results = [dict(name="matching_core", kernel="matching_core", config=shape,
+                    route="cuda",
+                    source="stereo_tpu_torch/csrc/matching_core.cu",
+                    replaces="stereo_tpu/ops/pallas/kernels.py:210",
+                    max_abs_err=err, max_mbm_rel_err=mbm_rel,
+                    integer_cases=cases, real_pair_frac_within_0p5=frac_real,
+                    **times, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None)]
 
-    # sampled_window on the real-valued luma and the kernel's winners.
-    win_k = sampled_window(lg, rg, disp_kr, cfg)
-    win_p = sampled_window_plain(lg, rg, disp_kr, cfg)
-    err = float((win_k - win_p).abs().max())
-    require(err <= 2e-2, f"sampled_window off by {err}")
-    ms = cuda_ms(lambda: sampled_window(lg, rg, disp_kr, cfg), 50)
-    plain_ms = cuda_ms(lambda: sampled_window_plain(lg, rg, disp_kr, cfg), 3)
+    # sampled_window on the real-valued luma: at the kernel's winners, at
+    # the smallest and the largest disparity everywhere (taps at
+    # negative disparities and beyond the first columns read across the
+    # image's wrap), and at seeded winners over the whole range.
+    maps = {"winners": disp_kr,
+            "smallest": torch.full((hd, wd), float(lo), device=dev),
+            "largest": torch.full((hd, wd), float(lo + num_d - 1), device=dev),
+            "seeded": torch.from_numpy(rng.integers(lo, lo + num_d, (hd, wd))
+                                       .astype(np.float32)).to(dev)}
+    errs = {}
+    for name, disp in maps.items():
+        win_k = sampled_window(lg, rg, disp, cfg)
+        win_p = sampled_window_plain(lg, rg, disp, cfg)
+        errs[name] = float((win_k - win_p).abs().max())
+    err = max(errs.values())
+    require(err <= 2e-2, f"sampled_window {label} off by {errs}")
+    times = timings(lambda: sampled_window(lg, rg, disp_kr, cfg))
+    plain_ms = cuda_ms(lambda: sampled_window_plain(lg, rg, disp_kr, cfg),
+                       plain_reps)
     # Per tap: (2r+1)^2 differences (sub, abs) and their sum.
     win, patch = 2 * k + 3, 2 * cfg.sad_patch_radius + 1
     b_ms, b_by = bound(4 * (2 * h * w + hd * wd + win * hd * wd),
                        3 * win * patch * patch * hd * wd)
-    results.append(dict(name="sampled_window", route="cuda",
+    results.append(dict(name="sampled_window", kernel="sampled_window",
+                        config=shape, route="cuda",
                         source="stereo_tpu_torch/csrc/sampled_window.cu",
                         replaces="stereo_tpu/ops/pallas/kernels.py:394",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                        max_abs_err=err, max_abs_err_by_map=errs, **times,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None))
+    return results
+
+
+def check_other_radii(torch, dev) -> dict:
+    """The classical kernels at radii other than the defaults (the
+    scaling bench's "light" set and the JAX kernel tests' Middlebury-style
+    set), which run the kernels' instance with run-time radii: on integer
+    pairs with the winner at each plane in turn they must equal the plain
+    versions as at the defaults.  The image is small (10 tiles), so
+    ``matching_core`` splits its 16 planes into 8 chunks here."""
+    from stereo_tpu_torch.core.config import MatchingConfig
+    from stereo_tpu_torch.ops.cuda import (matching_core, matching_core_plain,
+                                           sampled_window,
+                                           sampled_window_plain)
+
+    rng = np.random.default_rng(4)
+    errors = {}
+    for name, radii in (("light", (1, 2, 1, 1, 2)), ("mid", (1, 3, 1, 2, 3))):
+        cfg = MatchingConfig(height=96, width=320, min_disparity=8,
+                             max_disparity=39, cost_patch_radius=radii[0],
+                             sad_patch_radius=radii[1],
+                             small_mbm_radius=radii[2],
+                             mid_mbm_radius=radii[3],
+                             large_mbm_radius=radii[4])
+        full = rng.integers(0, 256, (96, 320)).astype(np.float32)
+        lg = torch.from_numpy(full).to(dev)
+        e = dict(disparity=0.0, mbm_rel=0.0, window=0.0)
+        for p in range(cfg.num_disparities_down):
+            shift = cfg.k * (cfg.min_disparity_down + p)
+            rg = torch.from_numpy(
+                np.roll(full, -shift, axis=-1).copy()).to(dev)
+            ld, rd = lg[::2, ::2].contiguous(), rg[::2, ::2].contiguous()
+            disp_k, mbm_k = matching_core(ld, rd, cfg)
+            disp_p, mbm_p = matching_core_plain(ld, rd, cfg)
+            win_k = sampled_window(lg, rg, disp_k, cfg)
+            win_p = sampled_window_plain(lg, rg, disp_k, cfg)
+            e["disparity"] = max(e["disparity"],
+                                 float((disp_k - disp_p).abs().max()))
+            e["mbm_rel"] = max(e["mbm_rel"], float(
+                ((mbm_k - mbm_p).abs() / mbm_p.abs().clamp_min(1)).max()))
+            e["window"] = max(e["window"], float((win_k - win_p).abs().max()))
+        errors[name] = e
+        require(e["disparity"] <= 1e-4 and e["mbm_rel"] <= 1e-6
+                and e["window"] <= 2e-2, f"radii {name}: {e}")
+    return errors
+
+
+def phase_kernels(torch, cfg, dev) -> list:
+    from stereo_tpu_torch.ops.cuda import upsample_blend, upsample_blend_plain
+
+    rng = np.random.default_rng(1)
+    h, w = cfg.height, cfg.width
+    results = check_classical(torch, cfg, dev, rng, kitti_pair(), "KITTI",
+                              plain_reps=5)
 
     # upsample_blend: softmax volume (1, 65, 96, 320), view in 0..1.
     logits = rng.standard_normal((1, 65, h // 4, w // 4)).astype(np.float32)
@@ -190,16 +346,17 @@ def phase_kernels(torch, cfg, dev) -> list:
     out_p = upsample_blend_plain(prob, view, 4)
     err = float((out_k - out_p).abs().max())
     require(err <= 2e-4, f"upsample_blend off by {err}")
-    ms = cuda_ms(lambda: upsample_blend(prob, view, 4), 50)
+    times = timings(lambda: upsample_blend(prob, view, 4))
     plain_ms = cuda_ms(lambda: upsample_blend_plain(prob, view, 4), 3)
     # Per output pixel and live plane: 9 ops of bilinear weight, 3 FMAs.
     live = sum(min(65, w - x) for x in range(w)) * h
     b_ms, b_by = bound(4 * (prob.numel() + view.numel() + out_k.numel()),
                        15 * live)
-    results.append(dict(name="upsample_blend", route="cuda",
+    results.append(dict(name="upsample_blend", kernel="upsample_blend",
+                        route="cuda",
                         source="stereo_tpu_torch/csrc/upsample_blend.cu",
                         replaces="stereo_tpu/ops/pallas/blend.py:209",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        max_abs_err=err, **times, plain_ms=plain_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
     results.append(check_gwc_volume(torch, rng, dev))
     return results
@@ -233,7 +390,7 @@ def check_gwc_volume(torch, rng, dev) -> dict:
             limit = 2.0 ** (np.floor(np.log2(peak)) - 7)   # 1 bf16 ulp
         require(err <= limit, f"gwc_volume D={d} {dtype}: off by {err} "
                               f"(limit {limit})")
-        ms = cuda_ms(lambda: gwc_volume(lt, rt, d, g), 50)
+        times = timings(lambda: gwc_volume(lt, rt, d, g))
         plain_ms = cuda_ms(lambda: gwc_volume_plain(lt, rt, d, g), 5)
         # Each input read once, the volume written once; one multiply and
         # one add per channel at each live (d, w >= d) position.
@@ -243,16 +400,58 @@ def check_gwc_volume(torch, rng, dev) -> dict:
                            2 * c * live)
         variants.append(dict(planes=d, dtype=str(dtype).split(".")[-1],
                              max_abs_err=err, limit=limit, max_abs_vol=peak,
-                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             **times, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by))
     main = variants[0]
-    return dict(name="gwc_volume", route="cuda",
+    return dict(name="gwc_volume", kernel="gwc_volume", route="cuda",
                 source="stereo_tpu_torch/csrc/gwc_volume.cu",
                 replaces="stereo_tpu/ops/pallas/gwc_volume.py:103",
                 max_abs_err=main["max_abs_err"], ms=main["ms"],
+                device_ms=main["device_ms"], host_us=main["host_us"],
                 plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
                 bound_by=main["bound_by"], library_ms=None,
                 variants=variants)
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers, spills and static shared memory of each kernel, from the
+    ``-Xptxas -v`` lines of an ``nvcc`` build (keyed by mangled name)."""
+    kernels, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            name = found.group(1)
+            kernels[name] = {}
+            continue
+        if name is None:
+            continue
+        for key, pattern in (("registers", r"Used (\d+) registers"),
+                             ("stack_frame", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("static_smem", r"(\d+) bytes smem")):
+            found = re.search(pattern, line)
+            if found:
+                kernels[name][key] = int(found.group(1))
+    return kernels
+
+
+def sass_counts(path: str) -> dict:
+    """Shared-memory loads and stores, barriers and float adds in the
+    machine code of each classical kernel of a library (``cuobjdump``),
+    or None where the toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if "matching_core" in name or "sampled_window" in name:
+            counts[name] = {op: len(re.findall(rf"\b{op}(\.\w+)*\s", block))
+                            for op in ("LDS", "STS", "BAR", "FADD")}
+    return counts
 
 
 def frame_ms(torch, fn, reps: int) -> list:
@@ -503,6 +702,10 @@ def phase_server(torch, pipeline, dev, kernels):
         counts = dict(LAUNCHES)
     finally:
         server.shutdown()
+    # The stage timer folds finished stages as it goes: a server that never
+    # asks for the stage times must not hold more CUDA events per batch.
+    pending = pipeline._timer.pending
+    require(pending <= 8, f"stage timer holds {pending} pending stages")
     statuses = [r[0] if r else None for r in replies]
     require(statuses == [200] * len(uploads), f"server replies {statuses}")
     for _, body in replies:
@@ -511,7 +714,8 @@ def phase_server(torch, pipeline, dev, kernels):
     require(all(counts[k] >= 1 for k in kernels),
             f"{config.stereo_matching_backend} path missed a kernel: {counts}")
     return counts, dict(statuses=statuses, batches=server.batcher.batches_run,
-                        frames=server.batcher.frames_run)
+                        frames=server.batcher.frames_run,
+                        timer_pending=pending)
 
 
 def main() -> int:
@@ -538,12 +742,26 @@ def main() -> int:
     t = time.perf_counter()
     build.library()
     report("build", t, nvcc_seconds=round(build.build_seconds, 3),
-           library=os.path.relpath(build.library_path(), ROOT))
+           library=os.path.relpath(build.library_path(), ROOT),
+           ptxas=ptxas_summary(build.build_log))
 
     t = time.perf_counter()
     cfg = PipelineConfig().matching_config()
     kernels = phase_kernels(torch, cfg, dev)
-    report("kernels", t, kernels=kernels)
+    report("kernels", t, kernels=kernels,
+           other_radii=check_other_radii(torch, dev))
+
+    # The classical kernels at the matcher's own default, Middlebury
+    # 1080x1920 / disparity 75..262: 95 planes at 540x960.
+    t = time.perf_counter()
+    middlebury = check_classical(torch, MatchingConfig(), dev,
+                                 np.random.default_rng(2), middlebury_pair(),
+                                 "Middlebury", plain_reps=3)
+    for k in middlebury:
+        k["name"] += "_middlebury"
+        k["launches"] = None   # no path the smoke counts runs this config
+    report("kernels_middlebury", t, kernels=middlebury)
+    kernels += middlebury
 
     t = time.perf_counter()
     golden = np.load(KITTI_GOLDEN)["disparity"].astype(np.float32)
@@ -576,7 +794,8 @@ def main() -> int:
         report(label, t, launches=counts[label], **numbers)
 
     for k in kernels:
-        k["launches"] = sum(c[k["name"]] for c in counts.values())
+        if "launches" not in k:
+            k["launches"] = sum(c[k["kernel"]] for c in counts.values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
@@ -588,5 +807,125 @@ def main() -> int:
     return 0
 
 
+def launch_classical(torch, lib, cfg, left_down, right_down, disparity,
+                     left_gray, right_gray):
+    """The C launchers of one library, on preallocated outputs: returns
+    ``(run_matching_core, run_sampled_window, outputs)``."""
+    from stereo_tpu_torch.ops.cuda import build
+
+    hd, wd = left_down.shape
+    h, w = left_gray.shape
+    disp = torch.empty((hd, wd), device=left_down.device)
+    mbm = torch.empty((3, hd, wd), device=left_down.device)
+    win = torch.empty((2 * cfg.k + 3, hd, wd), device=left_down.device)
+
+    def run_matching_core():
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(lib.stereo_matching_core(
+            left_down.data_ptr(), right_down.data_ptr(), disp.data_ptr(),
+            mbm.data_ptr(), hd, wd, cfg.min_disparity_down,
+            cfg.num_disparities_down, cfg.cost_patch_radius,
+            cfg.small_mbm_radius, cfg.mid_mbm_radius, cfg.large_mbm_radius,
+            stream), "matching_core")
+
+    def run_sampled_window():
+        stream = torch.cuda.current_stream().cuda_stream
+        build.check(lib.stereo_sampled_window(
+            left_gray.data_ptr(), right_gray.data_ptr(), disparity.data_ptr(),
+            win.data_ptr(), h, w, hd, wd, cfg.k, cfg.sad_patch_radius,
+            cfg.min_disparity_down, cfg.num_disparities_down, stream),
+            "sampled_window")
+
+    return run_matching_core, run_sampled_window, (disp, mbm, win)
+
+
+def compare(specs) -> int:
+    """``--compare``: see the module's docstring."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from stereo_tpu_torch.core.config import MatchingConfig, PipelineConfig
+    from stereo_tpu_torch.ops import mean_pool, rgb_to_grayscale
+    from stereo_tpu_torch.ops.cuda import (build, matching_core_plain,
+                                           sampled_window_plain)
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    report("device", time.perf_counter(), name=torch.cuda.get_device_name(0),
+           nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    t = time.perf_counter()
+    variants = dict(spec.split("=", 1) for spec in specs)
+    # One nvcc call per version, all at once.
+    with ThreadPoolExecutor(len(variants)) as pool:
+        built = dict(zip(variants, pool.map(
+            lambda src_dir: build.compile_library(
+                [os.path.join(src_dir, f)
+                 for f in ("matching_core.cu", "sampled_window.cu")]),
+            variants.values())))
+    libs = {}
+    for name, (path, seconds, log) in built.items():
+        libs[name] = build.load(path)
+        report("variant", t, name=name, sources=variants[name],
+               nvcc_seconds=round(seconds, 3), ptxas=ptxas_summary(log),
+               sass=sass_counts(path))
+
+    kitti = PipelineConfig().matching_config()
+    middlebury = MatchingConfig()
+    # A second disparity range of each image size: 17 planes at KITTI,
+    # 48 at Middlebury.
+    configs = (("kitti", kitti, kitti_pair),
+               ("kitti_17_planes", kitti.replace(max_disparity=32),
+                kitti_pair),
+               ("middlebury", middlebury, middlebury_pair),
+               ("middlebury_48_planes", middlebury.replace(max_disparity=168),
+                middlebury_pair))
+    order = list(libs) + list(libs)[::-1]
+    for label, cfg, make_pair in configs:
+        t = time.perf_counter()
+        left, right = make_pair()
+        lg = rgb_to_grayscale(torch.from_numpy(left).to(dev)).contiguous()
+        rg = rgb_to_grayscale(torch.from_numpy(right).to(dev)).contiguous()
+        lgd = mean_pool(lg, cfg.k).contiguous()
+        rgd = mean_pool(rg, cfg.k).contiguous()
+        disp_p, mbm_p = matching_core_plain(lgd, rgd, cfg)
+        win_p = sampled_window_plain(lg, rg, disp_p, cfg)
+        runs, checks = {}, {}
+        for name, lib in libs.items():
+            runs[name] = launch_classical(torch, lib, cfg, lgd, rgd, disp_p,
+                                          lg, rg)
+            run_mc, run_sw, (disp, mbm, win) = runs[name]
+            run_mc()
+            run_sw()
+            torch.cuda.synchronize()
+            checks[name] = dict(
+                winners_equal=float((disp == disp_p).float().mean()),
+                mbm_max_abs_diff=float((mbm - mbm_p).abs().max()),
+                window_max_abs_diff=float((win - win_p).abs().max()))
+            # The same bits as the plain versions, as in the main smoke.
+            require(checks[name] == dict(winners_equal=1.0,
+                                         mbm_max_abs_diff=0.0,
+                                         window_max_abs_diff=0.0),
+                    f"version {name} at {label}: {checks[name]}")
+        times = {name: dict(matching_core=[], sampled_window=[])
+                 for name in libs}
+        for name in order:
+            run_mc, run_sw, _ = runs[name]
+            times[name]["matching_core"].append(timings(run_mc))
+            times[name]["sampled_window"].append(timings(run_sw))
+        report("compare", t, config=label,
+               shape=[cfg.height, cfg.width, cfg.num_disparities_down],
+               checks=checks, ms=times, order=order)
+    for line in smi:
+        print(line, flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--compare":
+        sys.exit(compare(sys.argv[2:]))
     sys.exit(main())

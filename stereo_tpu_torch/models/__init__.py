@@ -148,6 +148,15 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
                 module.running_var.fill_(1.0)
 
 
+def init_stereo_params(model: nn.Module, image_shape: Tuple[int, int],
+                       seed: int = 0) -> None:
+    """The reference's call form of ``init_params`` (in place).
+    ``image_shape`` is unused: the networks are fully convolutional, so
+    their parameters do not depend on it."""
+    del image_shape
+    init_params(model, seed)
+
+
 def _check_shapes(model: nn.Module, state: Dict[str, torch.Tensor],
                   source: str) -> None:
     """Fail with an actionable message when a checkpoint's shapes do not
@@ -166,14 +175,17 @@ def _check_shapes(model: nn.Module, state: Dict[str, torch.Tensor],
 
 
 def load_or_init_params(model: nn.Module, name: str,
+                        image_shape: Optional[Tuple[int, int]] = None,
                         checkpoint_dir: Optional[str] = None,
                         seed: int = 0) -> str:
     """Load trained parameters into ``model`` (``strict=True``) from the
     first npz found, ``checkpoint_dir`` (with or without ``.npz``) then the
     committed ``data/checkpoints/<name>.npz``; else a seeded init.  Returns
-    the file used, or ``"seeded"``."""
+    the file used, or ``"seeded"``.  The arguments are the reference's;
+    ``image_shape`` is unused (see ``init_stereo_params``)."""
     from ..utils.paths import model_checkpoint_dir
 
+    del image_shape
     for cand in (checkpoint_dir, model_checkpoint_dir(name)):
         if not cand:
             continue
@@ -190,6 +202,7 @@ def load_or_init_params(model: nn.Module, name: str,
 __all__ = ["Deep3D", "GwcNet", "MSNet2D", "MSNet3D", "build_stereo_model",
            "deep3d_state_dict_from_flax", "load_deep3d_npz",
            "stereo_state_dict_from_flax", "load_stereo_npz", "init_params",
-           "load_or_init_params", "build_concat_volume", "build_gwc_volume",
-           "build_interlaced_volume", "disparity_regression",
-           "groupwise_correlation", "upsampled_soft_argmin"]
+           "init_stereo_params", "load_or_init_params", "build_concat_volume",
+           "build_gwc_volume", "build_interlaced_volume",
+           "disparity_regression", "groupwise_correlation",
+           "upsampled_soft_argmin"]

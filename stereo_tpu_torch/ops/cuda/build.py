@@ -22,8 +22,10 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
+# -Xptxas -v makes ptxas print each kernel's registers, spills and static
+# shared memory (``build_log``); it does not change the code.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,7 +33,8 @@ _I = ctypes.c_int
 # void*, every size an int; each returns its cudaGetLastError() code.
 _SIGNATURES = {
     "stereo_matching_core": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "stereo_sampled_window": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "stereo_sampled_window": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P),
     "stereo_upsample_blend": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "stereo_gwc_volume": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
@@ -39,6 +42,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _library = None
 build_seconds = 0.0   # wall time of this process's nvcc call, 0 on a cache hit
+build_log = ""        # what it printed (with -Xptxas -v: registers, spills)
 
 
 def _sources():
@@ -46,9 +50,11 @@ def _sources():
                   if f.endswith(".cu"))
 
 
-def library_path() -> str:
+def library_path(sources=None) -> str:
+    """Where the library of ``sources`` (default: every ``csrc/*.cu``)
+    lives: named by a hash of the sources and the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sources or _sources():
         digest.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             digest.update(f.read())
@@ -67,23 +73,46 @@ def _nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
-def build() -> str:
-    """Build the shared library if it is not there yet; returns its path."""
-    global build_seconds
-    path = library_path()
+def compile_library(sources=None):
+    """Build ``sources`` (default: every ``csrc/*.cu``) in one ``nvcc``
+    call, unless that library is there already.  Returns ``(path, seconds,
+    log)``: the nvcc call's wall time and what it printed (0 and "" on a
+    cache hit)."""
+    sources = sources or _sources()
+    path = library_path(sources)
     if os.path.isfile(path):
-        return path
+        return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
     start = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, path)
-    build_seconds = time.perf_counter() - start
+    return path, time.perf_counter() - start, proc.stdout + proc.stderr
+
+
+def build() -> str:
+    """Build every ``csrc/*.cu`` into the port's library if it is not there
+    yet; returns its path."""
+    global build_seconds, build_log
+    path, seconds, log = compile_library()
+    if seconds:
+        build_seconds, build_log = seconds, log
     return path
+
+
+def load(path: str) -> ctypes.CDLL:
+    """Load a kernel library and declare the launchers it has."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def library() -> ctypes.CDLL:
@@ -91,12 +120,7 @@ def library() -> ctypes.CDLL:
     global _library
     with _lock:
         if _library is None:
-            lib = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _library = lib
+            _library = load(build())
     return _library
 
 

@@ -112,7 +112,8 @@ def sampled_window(left_gray: torch.Tensor, right_gray: torch.Tensor,
         status = lib.stereo_sampled_window(
             left_gray.data_ptr(), right_gray.data_ptr(),
             disparity_down.data_ptr(), out.data_ptr(), h, w, hd, wd, k,
-            c.sad_patch_radius, c.min_disparity_down, stream)
+            c.sad_patch_radius, c.min_disparity_down, c.num_disparities_down,
+            stream)
     build.check(status, "sampled_window")
     LAUNCHES["sampled_window"] += 1
     return out

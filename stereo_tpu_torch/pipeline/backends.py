@@ -83,8 +83,8 @@ class DnnStereoMatchingBackend(StereoMatchingBackend):
             model.load_state_dict(state_dict, strict=True)
             self.weights = "given"
         else:
-            self.weights = load_or_init_params(model, model_name,
-                                               checkpoint_dir)
+            self.weights = load_or_init_params(
+                model, model_name, checkpoint_dir=checkpoint_dir)
         self.model = model.to(self.device, self.compute_dtype).eval()
 
     def process(self, left_image, right_image) -> torch.Tensor:

@@ -47,6 +47,8 @@ class DepthEstimationPipeline:
         self._single_view = None
         self._timer = StageTimer(self.device)
         self._stereo_matching = self._build_backend()
+        print(f"Using '{config.stereo_matching_backend}' as stereo matching "
+              f"backend.")
 
     def get_configuration(self) -> PipelineConfig:
         return self._config
@@ -61,15 +63,20 @@ class DepthEstimationPipeline:
         return images.to(self.device, torch.float32)
 
     def process(self, left_image, right_image=None) -> DepthEstimationResult:
-        """One frame: (3, H, W) float RGB (0..255) -> disparity (H, W)."""
+        """One frame: (3, H, W) float RGB (0..255) -> disparity (H, W).
+        A given right view is timed as the ``right_view_generation`` stage
+        too (its upload), as in the reference."""
+        log, dev = self._config.log_perf_time, self.device
         left = self._as_tensor(left_image)
-        with perf_clock("Depth estimation", self._config.log_perf_time,
-                        self.device):
-            if right_image is None:
+        if right_image is None:
+            with perf_clock("Depth estimation", log, dev):
                 disparity, right = self._single_view_engine().process(left)
-            else:
-                right = self._as_tensor(right_image)
-                with self._timer.stage("stereo_matching"):
+        else:
+            with self._timer.stage("right_view_generation"):
+                with perf_clock("Right view generation", log, dev):
+                    right = self._as_tensor(right_image)
+            with self._timer.stage("stereo_matching"):
+                with perf_clock("Stereo matching", log, dev):
                     disparity = self._stereo_matching.process(left, right)
         return DepthEstimationResult(left_image=left, right_image=right,
                                      disparity_map=disparity)

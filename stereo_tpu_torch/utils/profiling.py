@@ -2,8 +2,10 @@
 
 On a CUDA device the clocks are CUDA events recorded on the current stream,
 so they measure device time without a synchronisation inside the timed
-code; the events are read (one synchronisation) when a summary is asked
-for.  On the CPU they are host clocks.
+code.  Each new stage folds the stages whose events have completed into
+the totals, so the pending events stay few however long the timer runs;
+the rest are read (one synchronisation) when a summary is asked for.  On
+the CPU they are host clocks.
 """
 
 from __future__ import annotations
@@ -44,9 +46,16 @@ class StageTimer:
         self.counts: dict[str, int] = {}
         self._pending: list = []
 
+    @property
+    def pending(self) -> int:
+        """Stages recorded on the device and not yet folded into the
+        totals."""
+        return len(self._pending)
+
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
         if self.cuda:
+            self._fold_completed()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -65,6 +74,16 @@ class StageTimer:
     def _add(self, name: str, seconds: float) -> None:
         self.totals[name] = self.totals.get(name, 0.0) + seconds
         self.counts[name] = self.counts.get(name, 0) + 1
+
+    def _fold_completed(self) -> None:
+        """Fold every pending stage whose end event has completed."""
+        waiting = []
+        for name, start, end in self._pending:
+            if end.query():
+                self._add(name, start.elapsed_time(end) / 1000.0)
+            else:
+                waiting.append((name, start, end))
+        self._pending = waiting
 
     def summary(self) -> dict[str, float]:
         if self._pending:
