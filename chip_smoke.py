@@ -16,7 +16,10 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              ``host_us``: launch alone), the plain version's time and its
              bound; the classical kernels also on adversarial integer
              pairs (every plane a winner, all planes tied) and windows
-             (smallest and largest disparity, across the wrap);
+             (smallest and largest disparity, across the wrap), and
+             ``upsample_blend`` also at the servers' batch of 2, at scale 2,
+             at widths that are not a multiple of its tile or are under D,
+             and at a scale (8) it takes at run time;
    kernels_middlebury: the same for the classical kernels at
              ``MatchingConfig()``, 1080x1920 / disparity 75..262;
 4. golden:   the classical matcher on the synthetic KITTI pair against the
@@ -48,15 +51,19 @@ phase lines say which.
 
     python3 chip_smoke.py --compare NAME=DIR [NAME=DIR ...]
 
-times versions of the two classical kernels against each other instead:
-each ``DIR`` holds a ``matching_core.cu`` and a ``sampled_window.cu`` with
-the launchers' C interface, built into a library of its own.  Each
-version must equal the plain versions (winners, MBM costs and windows)
-before it is timed; then all are timed in turns (first to last, then last
-to first) at the KITTI and Middlebury configs, ``matching_core`` also at a
-second disparity range of each size, which splits its fixed cost from its
-cost per plane.  Each time is taken as ``ms`` (launch and run),
-``device_ms`` (run alone) and ``host_us`` (launch alone).
+times versions of the kernels against each other instead: each ``DIR``
+holds any of ``matching_core.cu``, ``sampled_window.cu`` and
+``upsample_blend.cu`` with the launchers' C interface, built into a
+library of its own.  Each version of the classical kernels must equal the
+plain versions (winners, MBM costs and windows) before it is timed; then
+all are timed in turns (first to last, then last to first) at the KITTI
+and Middlebury configs, ``matching_core`` also at a second disparity range
+of each size, which splits its fixed cost from its cost per plane.  Each
+version of ``upsample_blend`` must be within 2e-4 of its plain version and
+is timed the same way at the KITTI shape and at the smoke's other shapes
+of it.  Each time is
+taken as ``ms`` (launch and run), ``device_ms`` (run alone) and
+``host_us`` (launch alone).
 """
 
 from __future__ import annotations
@@ -84,6 +91,10 @@ DEEP3D_NPZ = os.path.join(ROOT, "data", "checkpoints", "deep3d.npz")
 # The kernels each single-view path must launch.
 CLASSICAL_KERNELS = ("upsample_blend", "matching_core", "sampled_window")
 GWCNET_KERNELS = ("upsample_blend", "gwc_volume")
+
+# The sources ``--compare`` builds from each version's directory.
+COMPARED_SOURCES = ("matching_core.cu", "sampled_window.cu",
+                    "upsample_blend.cu")
 
 # H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -338,28 +349,70 @@ def phase_kernels(torch, cfg, dev) -> list:
                               plain_reps=5)
 
     # upsample_blend: softmax volume (1, 65, 96, 320), view in 0..1.
-    logits = rng.standard_normal((1, 65, h // 4, w // 4)).astype(np.float32)
-    prob = torch.softmax(torch.from_numpy(logits).to(dev), dim=1).contiguous()
-    view = torch.from_numpy(
-        rng.uniform(0, 1, (1, 3, h, w)).astype(np.float32)).to(dev)
+    prob, view = blend_inputs(torch, rng, dev, 1, 65, h // 4, w // 4, 4)
     out_k = upsample_blend(prob, view, 4)
     out_p = upsample_blend_plain(prob, view, 4)
     err = float((out_k - out_p).abs().max())
     require(err <= 2e-4, f"upsample_blend off by {err}")
     times = timings(lambda: upsample_blend(prob, view, 4))
     plain_ms = cuda_ms(lambda: upsample_blend_plain(prob, view, 4), 3)
-    # Per output pixel and live plane: 9 ops of bilinear weight, 3 FMAs.
-    live = sum(min(65, w - x) for x in range(w)) * h
     b_ms, b_by = bound(4 * (prob.numel() + view.numel() + out_k.numel()),
-                       15 * live)
+                       blend_ops(65, h, w, 4))
     results.append(dict(name="upsample_blend", kernel="upsample_blend",
                         route="cuda",
                         source="stereo_tpu_torch/csrc/upsample_blend.cu",
                         replaces="stereo_tpu/ops/pallas/blend.py:209",
                         max_abs_err=err, **times, plain_ms=plain_ms,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        cases=check_blend_cases(torch, dev)))
     results.append(check_gwc_volume(torch, rng, dev))
     return results
+
+
+# upsample_blend's other shapes, (N, D, H/s, W/s, s): the servers'
+# micro-batch, Deep3D's other scale, a width that is not a multiple of the
+# kernel's tile, a width under D (every pixel's shift window cut at the
+# edge; narrower than a tile, it takes the per-pixel kernel), and a scale
+# the kernel takes at run time.
+BLEND_CASES = ((2, 65, 96, 320, 4), (1, 65, 192, 640, 2),
+               (1, 65, 24, 250, 4), (1, 65, 4, 12, 4), (1, 9, 12, 32, 8))
+
+
+def blend_ops(num_d, h, w, s):
+    """Float32 operations ``upsample_blend`` needs for one (h, w) view: per
+    output pixel and plane whose view column lies inside the view, the
+    blend's 3 FMAs (6) and the column phase's FMA (2); per low column of
+    an output row and plane, shared by s pixels, the row phase's
+    subtraction and FMA (3) and the column difference (1)."""
+    live = sum(min(num_d, w - x) for x in range(w)) * h
+    return (8 + 4 / s) * live
+
+
+def blend_inputs(torch, rng, dev, n, num_d, hl, wl, s):
+    """A softmax volume (n, num_d, hl, wl) and a view in 0..1 at x s."""
+    logits = rng.standard_normal((n, num_d, hl, wl)).astype(np.float32)
+    prob = torch.softmax(torch.from_numpy(logits).to(dev), dim=1).contiguous()
+    view = torch.from_numpy(rng.uniform(0, 1, (n, 3, s * hl, s * wl))
+                            .astype(np.float32)).to(dev)
+    return prob, view
+
+
+def check_blend_cases(torch, dev) -> list:
+    """``upsample_blend`` against its plain version at ``BLEND_CASES``,
+    within 2e-4 as at the main path's shape, with its times."""
+    from stereo_tpu_torch.ops.cuda import upsample_blend, upsample_blend_plain
+
+    rng = np.random.default_rng(6)
+    cases = []
+    for n, num_d, hl, wl, s in BLEND_CASES:
+        prob, view = blend_inputs(torch, rng, dev, n, num_d, hl, wl, s)
+        err = float((upsample_blend(prob, view, s)
+                     - upsample_blend_plain(prob, view, s)).abs().max())
+        require(err <= 2e-4, f"upsample_blend {(n, num_d, hl, wl, s)}: "
+                             f"off by {err}")
+        cases.append(dict(shape=[n, num_d, hl, wl, s], max_abs_err=err,
+                          **timings(lambda: upsample_blend(prob, view, s))))
+    return cases
 
 
 def check_gwc_volume(torch, rng, dev) -> dict:
@@ -437,9 +490,9 @@ def ptxas_summary(log: str) -> dict:
 
 
 def sass_counts(path: str) -> dict:
-    """Shared-memory loads and stores, barriers and float adds in the
-    machine code of each classical kernel of a library (``cuobjdump``),
-    or None where the toolkit has no ``cuobjdump``."""
+    """Shared-memory loads and stores, barriers, float adds and FMAs and
+    global loads in the machine code of each kernel of a library
+    (``cuobjdump``), or None where the toolkit has no ``cuobjdump``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(tool):
         return None
@@ -448,9 +501,11 @@ def sass_counts(path: str) -> dict:
     counts = {}
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
-        if "matching_core" in name or "sampled_window" in name:
+        if any(k in name for k in ("matching_core", "sampled_window",
+                                   "upsample_blend")):
             counts[name] = {op: len(re.findall(rf"\b{op}(\.\w+)*\s", block))
-                            for op in ("LDS", "STS", "BAR", "FADD")}
+                            for op in ("LDS", "STS", "BAR", "FADD", "FFMA",
+                                       "LDG", "LDGSTS")}
     return counts
 
 
@@ -839,40 +894,12 @@ def launch_classical(torch, lib, cfg, left_down, right_down, disparity,
     return run_matching_core, run_sampled_window, (disp, mbm, win)
 
 
-def compare(specs) -> int:
-    """``--compare``: see the module's docstring."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
+def compare_classical(torch, libs, dev) -> None:
+    """``--compare`` of the classical kernels' versions in ``libs``."""
     from stereo_tpu_torch.core.config import MatchingConfig, PipelineConfig
     from stereo_tpu_torch.ops import mean_pool, rgb_to_grayscale
-    from stereo_tpu_torch.ops.cuda import (build, matching_core_plain,
+    from stereo_tpu_torch.ops.cuda import (matching_core_plain,
                                            sampled_window_plain)
-
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
-    report("device", time.perf_counter(), name=torch.cuda.get_device_name(0),
-           nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
-    t = time.perf_counter()
-    variants = dict(spec.split("=", 1) for spec in specs)
-    # One nvcc call per version, all at once.
-    with ThreadPoolExecutor(len(variants)) as pool:
-        built = dict(zip(variants, pool.map(
-            lambda src_dir: build.compile_library(
-                [os.path.join(src_dir, f)
-                 for f in ("matching_core.cu", "sampled_window.cu")]),
-            variants.values())))
-    libs = {}
-    for name, (path, seconds, log) in built.items():
-        libs[name] = build.load(path)
-        report("variant", t, name=name, sources=variants[name],
-               nvcc_seconds=round(seconds, 3), ptxas=ptxas_summary(log),
-               sass=sass_counts(path))
 
     kitti = PipelineConfig().matching_config()
     middlebury = MatchingConfig()
@@ -920,6 +947,85 @@ def compare(specs) -> int:
         report("compare", t, config=label,
                shape=[cfg.height, cfg.width, cfg.num_disparities_down],
                checks=checks, ms=times, order=order)
+
+
+def compare_blend(torch, libs, dev) -> None:
+    """``--compare`` of the ``upsample_blend`` versions in ``libs``."""
+    from stereo_tpu_torch.ops.cuda import build, upsample_blend_plain
+
+    order = list(libs) + list(libs)[::-1]
+    for n, num_d, hl, wl, s in ((1, 65, 96, 320, 4),) + BLEND_CASES:
+        label = "x".join(map(str, (n, num_d, hl, wl, s)))
+        t = time.perf_counter()
+        prob, view = blend_inputs(torch, np.random.default_rng(1), dev, n,
+                                  num_d, hl, wl, s)
+        want = upsample_blend_plain(prob, view, s)
+        out = torch.empty_like(view)
+        runs, checks = {}, {}
+        for name, lib in libs.items():
+            def run(lib=lib):
+                build.check(lib.stereo_upsample_blend(
+                    prob.data_ptr(), view.data_ptr(), out.data_ptr(), n,
+                    num_d, hl, wl, s * hl, s * wl,
+                    torch.cuda.current_stream().cuda_stream),
+                    "upsample_blend")
+            out.fill_(float("nan"))
+            run()
+            checks[name] = float((out - want).abs().max())
+            # The main smoke's gate (nan fails it too).
+            require(checks[name] <= 2e-4,
+                    f"version {name} at {label}: off by {checks[name]}")
+            runs[name] = run
+        times = {name: [] for name in libs}
+        for name in order:
+            times[name].append(timings(runs[name]))
+        report("compare_blend", t, config=label, shape=[n, num_d, hl, wl, s],
+               max_abs_err=checks, ms=times, order=order)
+
+
+def compare(specs) -> int:
+    """``--compare``: see the module's docstring."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from stereo_tpu_torch.ops.cuda import build
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    report("device", time.perf_counter(), name=torch.cuda.get_device_name(0),
+           nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    t = time.perf_counter()
+    variants = dict(spec.split("=", 1) for spec in specs)
+    sources = {name: [os.path.join(src_dir, f) for f in COMPARED_SOURCES
+                      if os.path.isfile(os.path.join(src_dir, f))]
+               for name, src_dir in variants.items()}
+    require(all(sources.values()), f"a version has no kernel source: "
+                                   f"{sources}")
+    # One nvcc call per version, all at once.
+    with ThreadPoolExecutor(len(variants)) as pool:
+        built = dict(zip(variants, pool.map(build.compile_library,
+                                            sources.values())))
+    libs = {}
+    for name, (path, seconds, log) in built.items():
+        libs[name] = build.load(path)
+        report("variant", t, name=name, sources=sources[name],
+               nvcc_seconds=round(seconds, 3), ptxas=ptxas_summary(log),
+               sass=sass_counts(path))
+
+    classical = {name: lib for name, lib in libs.items()
+                 if hasattr(lib, "stereo_matching_core")
+                 and hasattr(lib, "stereo_sampled_window")}
+    if classical:
+        compare_classical(torch, classical, dev)
+    blend = {name: lib for name, lib in libs.items()
+             if hasattr(lib, "stereo_upsample_blend")}
+    if blend:
+        compare_blend(torch, blend, dev)
     for line in smi:
         print(line, flush=True)
     return 0

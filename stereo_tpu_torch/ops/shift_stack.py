@@ -12,10 +12,11 @@ import torch.nn.functional as F
 
 
 def _shift_cols(x: torch.Tensor, d: int) -> torch.Tensor:
-    """``out[..., y] = x[..., y + d]`` with zero fill (``d >= 0``)."""
+    """``out[..., y] = x[..., y + d]`` with zero fill (``d >= 0``; all zeros
+    once ``d`` reaches the width)."""
     if d == 0:
         return x
-    return F.pad(x[..., d:], (0, d))
+    return F.pad(x[..., d:], (0, min(d, x.shape[-1])))
 
 
 def weighted_shift_sum(weights_ndhw: torch.Tensor,

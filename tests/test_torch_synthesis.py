@@ -86,6 +86,8 @@ def test_weighted_shift_sum():
     (4, 16, 32, 9, 1),
     (4, 48, 64, 65, 1),
     (2, 16, 32, 7, 2),
+    # Narrower than D - 1 columns: every shift window runs past the edge.
+    (4, 16, 48, 65, 1),
 ])
 def test_upsample_blend_plain_matches_jax_kernel(scale, h, w, num_d, batch):
     rng = np.random.default_rng(5)
