@@ -9,6 +9,10 @@ Phases, each ending in one flushed JSON line with its name and seconds:
 2. build:    one ``nvcc`` call builds every ``stereo_tpu_torch/csrc/*.cu``
              into one library (0 s when the library is already built),
              with each kernel's registers, spills and static shared memory;
+   io:       one ``g++`` call builds the native host runtime
+             (``stereo_tpu_torch/_native``); the committed KITTI fixture
+             frames decoded by it equal the Python decoder's bytes, and the
+             host ms of a 375x1242 frame for each decoder;
 3. kernels:  each kernel against its plain PyTorch version at the shapes of
              the single-view paths (384x1280, disparity 1..64; GwcNet's
              volume also at disparity 192 and in bf16), with its median
@@ -35,14 +39,35 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              at disparity 192 and its feature extractor alone, and a few
              forwards each of MSNet2D, MSNet3D and GwcNet in bf16;
    profile_dnn: the GwcNet single view's device time by kernel;
-7. server:   ``DepthEstimationServer`` on a free local port answers three
-             PNG uploads, then shuts down, once with the classical backend
-             and once with GwcNet.  The kernel launch counts are zeroed
-             just before each and read just after; every kernel of that
-             path must have launched.
+7. evaluation: ``run_depth_estimation_pipeline_evaluation`` with the six
+             metrics on the KITTI fixture drive (``KittiSingleViewCamera``,
+             Velodyne ground truth): classical and GwcNet, each with the
+             real right view and with Deep3D's, each arm's metrics and
+             disparities against the same arm through the plain versions;
+   runner:   ``run_depth_estimation_pipeline`` on the drive (classical,
+             Deep3D) with every saver, each file read back (PNGs, PLYs, the
+             AVI), the batched runner at batch 2 against it, the
+             frames/s of both runners, and one frame under
+             ``device_trace``, whose Chrome trace must hold the kernels;
+   middlebury: ``middlebury_pair()`` written as a Middlebury scene, run
+             through ``MiddleburyStereoCamera``, the config it implies and
+             the runner at 1080x1920 / disparity 75..262, against the same
+             pair through the plain versions, with its ms/frame;
+   scripts:  the three entry points (``python -m
+             stereo_tpu_torch.scripts.<name>``), each in its own process;
+8. server:   ``DepthEstimationServer`` on a free local port answers four
+             PNG uploads (one the fixture frame, resized by the server),
+             then shuts down, once with the classical backend and once
+             with GwcNet;
+   server_asgi: ``create_asgi_app`` around the classical pipeline, driven
+             through ASGI's scope/receive/send: GET, a raw and a multipart
+             POST of the fixture frame, and a bad payload (400).
 
-Then a JSON line with every kernel's numbers (its launches summed over
-the two server runs), the ``nvidia-smi`` line, and last
+The kernel launch counts are zeroed just before each path of phases 7-8
+is driven and read just after; every kernel of that path must have
+launched.  Then a JSON line with every kernel's numbers (its launches
+summed over those paths; the Middlebury entries' over the ``middlebury``
+phase), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero without that last line; so does a machine without CUDA.
 Every network loads its committed checkpoint (``data/checkpoints/*.npz``)
@@ -87,6 +112,28 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KITTI_GOLDEN = os.path.join(ROOT, "tests", "golden",
                             "kitti_synthetic_disparity_tpu.npz")
 DEEP3D_NPZ = os.path.join(ROOT, "data", "checkpoints", "deep3d.npz")
+# The committed KITTI fixture drive: two 375x1242 frames per camera, each
+# PNG Paeth-filtered as image libraries write them, and Velodyne scans.
+FIXTURE_DRIVE = os.path.join(ROOT, "tests", "fixtures", "kitti", "2011_09_26",
+                             "2011_09_26_drive_0001_sync")
+FIXTURE_FRAMES = [os.path.join(FIXTURE_DRIVE, side, "data", name)
+                  for side in ("image_02", "image_03")
+                  for name in ("0000000000.png", "0000000001.png")]
+# A Middlebury calibration for ``middlebury_pair()``: MatchingConfig()'s
+# 1080x1920 and disparity range 75..262.
+MIDDLEBURY_CALIB = """cam0=[1758.23 0 953.34; 0 1758.23 552.29; 0 0 1]
+cam1=[1758.23 0 953.34; 0 1758.23 552.29; 0 0 1]
+doffs=0
+baseline=111.53
+width=1920
+height=1080
+ndisp=290
+isint=0
+vmin=75
+vmax=262
+dyavg=0
+dymax=0
+"""
 
 # The kernels each single-view path must launch.
 CLASSICAL_KERNELS = ("upsample_blend", "matching_core", "sampled_window")
@@ -724,10 +771,14 @@ def profile(torch, label: str, pipeline, dev) -> None:
 
 
 def phase_server(torch, pipeline, dev, kernels):
-    """Three PNG uploads to a server around ``pipeline``; every name in
-    ``kernels`` must launch in that run."""
+    """Four PNG uploads to a server around ``pipeline``: three seeded
+    frames at the pipeline's shape and the fixture frame's bytes (375x1242,
+    Paeth-filtered, resized by the server).  Every name in ``kernels`` must
+    launch in that run.  Also the host ms of decoding and uploading the
+    fixture frame (``decode_png_to_pipeline_image``)."""
     from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
-    from stereo_tpu_torch.serve import DepthEstimationServer
+    from stereo_tpu_torch.serve import (DepthEstimationServer,
+                                        decode_png_to_pipeline_image)
     from stereo_tpu_torch.utils.png import decode_png, encode_png
 
     config = pipeline.get_configuration()
@@ -736,6 +787,15 @@ def phase_server(torch, pipeline, dev, kernels):
     rng = np.random.default_rng(3)
     uploads = [encode_png(rng.integers(0, 256, (*config.image_shape, 3),
                                        dtype=np.uint8)) for _ in range(3)]
+    with open(FIXTURE_FRAMES[0], "rb") as f:
+        uploads.append(f.read())
+    decode_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_png_to_pipeline_image(uploads[-1], config.image_shape, dev)
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
     replies = [None] * len(uploads)
     host, port = server.start("127.0.0.1", 0)
 
@@ -770,10 +830,472 @@ def phase_server(torch, pipeline, dev, kernels):
             f"{config.stereo_matching_backend} path missed a kernel: {counts}")
     return counts, dict(statuses=statuses, batches=server.batcher.batches_run,
                         frames=server.batcher.frames_run,
-                        timer_pending=pending)
+                        timer_pending=pending,
+                        fixture_decode_upload_ms_median=statistics.median(
+                            decode_ms))
+
+
+def phase_io() -> dict:
+    """The native host runtime: its g++ build, the committed fixture frames
+    decoded by it equal byte for byte to the Python decoder, and the host
+    ms of a 375x1242 frame for each decoder (the Python one timed once)."""
+    from stereo_tpu_torch import _native
+    from stereo_tpu_torch.pipeline.camera.kitti import KITTI_PAD
+    from stereo_tpu_torch.utils.png import decode_png, decode_png_python
+
+    _native.library()
+    frames = []
+    python_ms = None
+    for path in FIXTURE_FRAMES:
+        with open(path, "rb") as f:
+            data = f.read()
+        native = _native.decode_png_hwc(data)
+        t0 = time.perf_counter()
+        oracle = decode_png_python(data)
+        if python_ms is None:
+            python_ms = (time.perf_counter() - t0) * 1e3
+        padded = _native.decode_png_padded_chw(path, KITTI_PAD)
+        require(np.array_equal(native, oracle)
+                and np.array_equal(decode_png(data), oracle)
+                and np.array_equal(padded[:, 5:380, 19:1261],
+                                   oracle.transpose(2, 0, 1)),
+                f"native decode of {path} differs from the Python decoder")
+        frames.append(dict(frame=os.path.relpath(path, ROOT),
+                           shape=list(native.shape), bytes=len(data),
+                           equal_to_python=True))
+    with open(FIXTURE_FRAMES[0], "rb") as f:
+        data = f.read()
+
+    def host_ms(fn, reps=20):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    native_ms = host_ms(lambda: _native.decode_png_hwc(data))
+    require(native_ms < 50, f"native decode took {native_ms} ms")
+    return dict(gxx_seconds=round(_native.build_seconds, 3),
+                library=os.path.relpath(_native.library_path(), ROOT),
+                frames=frames, python_decode_ms_once=python_ms,
+                native_decode_ms=native_ms,
+                decode_png_ms=host_ms(lambda: decode_png(data)),
+                native_file_padded_ms=host_ms(
+                    lambda: _native.decode_png_padded_chw(FIXTURE_FRAMES[0],
+                                                          KITTI_PAD)))
+
+
+class plain_versions:
+    """Within the block the pipeline's modules call the kernels' plain
+    versions instead of their wrappers: the same frames through the same
+    pipeline, weights and all, with no kernel."""
+
+    def __enter__(self):
+        import stereo_tpu_torch.models.deep3d as deep3d
+        import stereo_tpu_torch.models.gwcnet as gwcnet
+        import stereo_tpu_torch.ops.classical_fused as classical_fused
+        from stereo_tpu_torch.ops.cuda import (gwc_volume_plain,
+                                               matching_core_plain,
+                                               sampled_window_plain,
+                                               upsample_blend_plain)
+
+        self.swaps = ((classical_fused, "matching_core", matching_core_plain),
+                      (classical_fused, "sampled_window",
+                       sampled_window_plain),
+                      (deep3d, "upsample_blend", upsample_blend_plain),
+                      (gwcnet, "build_gwc_volume", gwc_volume_plain))
+        self.saved = [getattr(m, name) for m, name, _ in self.swaps]
+        for module, name, plain in self.swaps:
+            setattr(module, name, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for (module, name, _), kernel in zip(self.swaps, self.saved):
+            setattr(module, name, kernel)
+
+
+def recording(pipeline) -> list:
+    """Record every disparity map ``pipeline.process`` returns."""
+    maps = []
+    process = pipeline.process
+
+    def process_and_record(left, right=None):
+        result = process(left, right)
+        maps.append(result.disparity_map)
+        return result
+
+    pipeline.process = process_and_record
+    return maps
+
+
+def compare_maps(torch, got: list, want: list) -> dict:
+    diffs = [(a - b).abs() for a, b in zip(got, want)]
+    return dict(frac_within_0p5=min(float((d <= 0.5).float().mean())
+                                    for d in diffs),
+                frac_equal=min(float((d == 0).float().mean())
+                               for d in diffs),
+                max_abs_diff=max(float(d.max()) for d in diffs))
+
+
+def phase_evaluation(torch, dev, synthesis):
+    """``run_depth_estimation_pipeline_evaluation`` on the KITTI fixture
+    drive with the six metrics: classical and GwcNet, each with the real
+    right view (rvs off) and with Deep3D's (rvs on), each held against the
+    same arm with the frames run through the plain versions."""
+    from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from stereo_tpu_torch.pipeline import (DepthEstimationPipeline,
+                                           extract_config_from_camera,
+                                           run_depth_estimation_pipeline_evaluation)
+    from stereo_tpu_torch.pipeline.camera import KittiSingleViewCamera
+    from stereo_tpu_torch.pipeline.metrics import default_metrics
+
+    needed = {("classical", "off"): ("matching_core", "sampled_window"),
+              ("classical", "on"): CLASSICAL_KERNELS,
+              ("gwcnet", "off"): ("gwc_volume",),
+              ("gwcnet", "on"): GWCNET_KERNELS}
+    arms, counts = {}, {}
+    for (backend, rvs), kernels in needed.items():
+        t = time.perf_counter()
+        camera = KittiSingleViewCamera(FIXTURE_DRIVE,
+                                       return_right_view=(rvs == "off"))
+        config = extract_config_from_camera(camera).update(
+            stereo_matching_backend=backend)
+        pipeline = DepthEstimationPipeline(
+            config, synthesis=synthesis if rvs == "on" else None, device=dev)
+        maps = recording(pipeline)
+        reset_launch_counts()
+        metrics = run_depth_estimation_pipeline_evaluation(
+            camera, pipeline, default_metrics(), verbose=False)
+        torch.cuda.synchronize()
+        arm = f"{backend}/rvs_{rvs}"
+        counts[arm] = dict(LAUNCHES)
+        require(all(counts[arm][k] >= 1 for k in kernels),
+                f"evaluation {arm} missed a kernel: {counts[arm]}")
+        kernel_maps = list(maps)
+        maps.clear()
+        with plain_versions():
+            reset_launch_counts()
+            plain = run_depth_estimation_pipeline_evaluation(
+                camera, pipeline, default_metrics(), verbose=False)
+            torch.cuda.synchronize()
+            require(not any(LAUNCHES.values()),
+                    f"plain run of {arm} launched {dict(LAUNCHES)}")
+        require(len(kernel_maps) == len(maps) == len(camera),
+                f"evaluation {arm}: {len(kernel_maps)} frames")
+        require(all(np.isfinite(v) for v in metrics.values()),
+                f"evaluation {arm}: {metrics}")
+        diff = max(abs(metrics[k] - plain[k]) for k in metrics)
+        agreement = compare_maps(torch, kernel_maps, maps)
+        require(diff <= 1e-3 and agreement["frac_within_0p5"] >= 0.99,
+                f"evaluation {arm}: metrics {metrics} against the plain "
+                f"versions' {plain}, disparity {agreement}")
+        arms[arm] = dict(metrics=metrics, plain_metrics=plain,
+                         max_metric_diff=diff, disparity_vs_plain=agreement,
+                         frames=len(camera), launches=counts[arm],
+                         seconds=round(time.perf_counter() - t, 3))
+        del pipeline
+    return counts, arms
+
+
+def phase_runner(torch, dev, synthesis, tmp: str):
+    """``run_depth_estimation_pipeline`` on the fixture drive (classical,
+    rvs on) with every saver, each file read back; then the batched runner
+    at batch 2 against the per-frame run, and the frames/s of both."""
+    from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from stereo_tpu_torch.pipeline import (DepthEstimationPipeline,
+                                           extract_config_from_camera,
+                                           run_depth_estimation_pipeline,
+                                           run_depth_estimation_pipeline_batched)
+    from stereo_tpu_torch.pipeline.camera import KittiSingleViewCamera
+    from stereo_tpu_torch.pipeline.hooks import (ContextFrameSaver,
+                                                 ContextVideoSaver,
+                                                 DisparityMapSaver, LambdaHook,
+                                                 PointCloudSaver)
+    from stereo_tpu_torch.utils.image_io import read_video
+    from stereo_tpu_torch.utils.png import decode_png
+    from stereo_tpu_torch.utils.pointcloud import read_ply
+
+    camera = KittiSingleViewCamera(FIXTURE_DRIVE)
+    config = extract_config_from_camera(camera)
+    pipeline = DepthEstimationPipeline(config, synthesis=synthesis, device=dev)
+    n = len(camera)
+
+    def collector(store):
+        return LambdaHook(lambda ctx: store.__setitem__(
+            ctx.frame_index, ctx.disparity_map.cpu()))
+
+    per_frame = {}
+    video = os.path.join(tmp, "video", "drive.avi")
+    hooks = [collector(per_frame),
+             DisparityMapSaver(os.path.join(tmp, "disparity")),
+             ContextFrameSaver(os.path.join(tmp, "context")),
+             PointCloudSaver.for_camera(camera, os.path.join(tmp, "cloud"),
+                                        config.invalid_disparity),
+             ContextVideoSaver(video, fps=30)]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run_depth_estimation_pipeline(camera, pipeline, hooks)
+    torch.cuda.synchronize()
+    with_savers_s = time.perf_counter() - t0
+    counts = {"runner": dict(LAUNCHES)}
+    require(all(counts["runner"][k] >= 1 for k in CLASSICAL_KERNELS),
+            f"runner missed a kernel: {counts['runner']}")
+
+    files = {}
+    for sub in ("disparity", "context", "cloud"):
+        (folder,) = os.listdir(os.path.join(tmp, sub))
+        files[sub] = sorted(os.path.join(tmp, sub, folder, f)
+                            for f in os.listdir(os.path.join(tmp, sub,
+                                                             folder)))
+        require(len(files[sub]) == n, f"{sub} saver wrote {files[sub]}")
+    h, w = config.image_shape
+    for path in files["disparity"]:
+        shape = decode_png(open(path, "rb").read()).shape
+        require(shape == (h + 20, w + 20, 3), f"{path}: {shape}")
+    grid = (3 * h + 40, w + 20, 3)
+    for path in files["context"]:
+        shape = decode_png(open(path, "rb").read()).shape
+        require(shape == grid, f"{path}: {shape}")
+    for i, path in enumerate(files["cloud"]):
+        valid = int((per_frame[i] != config.invalid_disparity).sum())
+        points = read_ply(path)
+        require(points.shape == (valid, 3),
+                f"{path}: {points.shape}, {valid} valid pixels")
+    frames, fps = read_video(video)
+    require(frames.shape == (n, *grid) and fps == 30,
+            f"video {frames.shape} at {fps} fps")
+
+    # Both runners with one collecting hook, warm: agreement and frames/s.
+    batched = {}
+    reset_launch_counts()
+    run_depth_estimation_pipeline_batched(camera, pipeline, 2,
+                                          [collector(batched)])
+    torch.cuda.synchronize()
+    counts["runner_batched"] = dict(LAUNCHES)
+    require(sorted(batched) == list(range(n)), f"batched frames {batched}")
+    agreement = compare_maps(torch, [batched[i] for i in range(n)],
+                             [per_frame[i] for i in range(n)])
+    require(agreement["frac_within_0p5"] >= 0.99,
+            f"batched runner against per-frame: {agreement}")
+
+    def fps_of(run, reps=3):
+        rates = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            rates.append(n / (time.perf_counter() - t0))
+        return statistics.median(rates)
+
+    # One frame under ``device_trace``: its Chrome trace holds the card's
+    # kernels, the hand-written ones among them.
+    from stereo_tpu_torch.utils.profiling import device_trace
+
+    left, _ = next(camera.stream_image_pairs())
+    with device_trace(os.path.join(tmp, "trace")) as trace_path:
+        pipeline.process(left)
+        torch.cuda.synchronize()
+    with open(trace_path) as f:
+        traced = [e["name"] for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    require(all(any(k in name for name in traced) for k in CLASSICAL_KERNELS),
+            f"device_trace holds no kernel of {CLASSICAL_KERNELS}: "
+            f"{len(traced)} kernel events")
+
+    sink = {}
+    numbers = dict(
+        frames=n, files={k: len(v) for k, v in files.items()},
+        trace_kernel_events=len(traced),
+        video_frames=int(frames.shape[0]),
+        video_bytes=os.path.getsize(video),
+        batched_vs_per_frame=agreement,
+        fps_per_frame_with_savers=n / with_savers_s,
+        fps_per_frame=fps_of(lambda: run_depth_estimation_pipeline(
+            camera, pipeline, [collector(sink)])),
+        fps_batched_2=fps_of(lambda: run_depth_estimation_pipeline_batched(
+            camera, pipeline, 2, [collector(sink)])),
+        launches=counts)
+    return counts, numbers
+
+
+def write_middlebury_scene(scene: str) -> tuple:
+    """``middlebury_pair()`` as ``im0.png``/``im1.png`` with a calib.txt
+    of its size and disparity range."""
+    from stereo_tpu_torch.utils.png import encode_png
+
+    left, right = middlebury_pair()
+    os.makedirs(scene, exist_ok=True)
+    for name, image in (("im0.png", left), ("im1.png", right)):
+        with open(os.path.join(scene, name), "wb") as f:
+            f.write(encode_png(image.transpose(1, 2, 0).astype(np.uint8)))
+    with open(os.path.join(scene, "calib.txt"), "w") as f:
+        f.write(MIDDLEBURY_CALIB)
+    return left, right
+
+
+def phase_middlebury(torch, dev, scene: str, out: str):
+    """The classical pipeline at full Middlebury size through the camera,
+    the config it implies and the runner with the disparity saver, against
+    the same pair through the plain versions."""
+    from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from stereo_tpu_torch.pipeline import (DepthEstimationPipeline,
+                                           extract_config_from_camera,
+                                           run_depth_estimation_pipeline)
+    from stereo_tpu_torch.pipeline.camera import MiddleburyStereoCamera
+    from stereo_tpu_torch.pipeline.hooks import DisparityMapSaver, LambdaHook
+    from stereo_tpu_torch.utils.png import decode_png
+
+    camera = MiddleburyStereoCamera(scene)
+    config = extract_config_from_camera(camera)
+    require((config.image_shape, config.min_disparity, config.max_disparity)
+            == ((1080, 1920), 75, 262), f"Middlebury config {config}")
+    pipeline = DepthEstimationPipeline(config, device=dev)
+    got = {}
+    reset_launch_counts()
+    run_depth_estimation_pipeline(camera, pipeline, [
+        LambdaHook(lambda ctx: got.__setitem__(ctx.frame_index,
+                                               ctx.disparity_map)),
+        DisparityMapSaver(out)])
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    require(counts["matching_core"] >= 1 and counts["sampled_window"] >= 1,
+            f"Middlebury path missed a kernel: {counts}")
+    (left, right), = list(camera.stream_image_pairs())
+    with plain_versions():
+        plain = pipeline.process(left, right).disparity_map
+    agreement = compare_maps(torch, [got[0]], [plain])
+    require(agreement["frac_within_0p5"] >= 0.99,
+            f"Middlebury against the plain versions: {agreement}")
+    median = float(got[0][:, 300:-300].median())
+    require(abs(median - 150.0) <= 0.5,
+            f"Middlebury median disparity {median}, true 150")
+    (folder,) = os.listdir(out)
+    (saved,) = os.listdir(os.path.join(out, folder))
+    shape = decode_png(open(os.path.join(out, folder, saved), "rb").read()
+                       ).shape
+    require(shape == (1100, 1940, 3), f"saved disparity grid {shape}")
+    lt, rt = (torch.from_numpy(x).to(dev) for x in (left, right))
+    return counts, dict(
+        launches=counts, vs_plain=agreement, median_disparity=median,
+        ms_per_frame_median=statistics.median(frame_ms(
+            torch, lambda: pipeline.process(lt, rt), 10)),
+        ms_per_frame_from_host_median=statistics.median(frame_ms(
+            torch, lambda: pipeline.process(left, right), 5)))
+
+
+def phase_scripts(scene_root: str, tmp: str) -> dict:
+    """The three entry points as a user runs them, each in its own process
+    on the card: the evaluation (rvs off, classical and GwcNet), the KITTI
+    run with the real right view and the Middlebury run."""
+    runs = {
+        "evaluate_depth_estimation_pipeline": [
+            "--drive-dirs", FIXTURE_DRIVE, "--backends", "classical",
+            "gwcnet", "--rvs", "off", "--output-dir",
+            os.path.join(tmp, "evaluation")],
+        "run_kitti_pipeline": [
+            "--drive-dir", FIXTURE_DRIVE, "--backends", "classical",
+            "--use-right-view", "--save-dir", os.path.join(tmp, "kitti")],
+        "run_middlebury_pipeline": [
+            "--middlebury-dir", scene_root, "--save-dir",
+            os.path.join(tmp, "middlebury")],
+    }
+    numbers = {}
+    for name, args in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"stereo_tpu_torch.scripts.{name}", *args],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0,
+                f"{name} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        numbers[name] = dict(seconds=round(time.perf_counter() - t0, 3))
+    (written,) = os.listdir(os.path.join(tmp, "evaluation"))
+    with open(os.path.join(tmp, "evaluation", written)) as f:
+        results = json.load(f)
+    require(len(results) == 2 and all(
+        len(m) == 6 and all(np.isfinite(v) for v in m.values())
+        for m in results.values()), f"evaluation script wrote {results}")
+    numbers["evaluate_depth_estimation_pipeline"]["results"] = results
+    from stereo_tpu_torch.utils.image_io import read_video
+
+    frames, _ = read_video(os.path.join(tmp, "kitti", "classical",
+                                        "classical.avi"))
+    require(frames.shape[0] == 2, f"KITTI run's video: {frames.shape}")
+    numbers["run_kitti_pipeline"]["video_frames"] = int(frames.shape[0])
+    saved = [f for _, _, fs in os.walk(os.path.join(tmp, "middlebury"))
+             for f in fs]
+    require(sorted(saved) == ["context_frame_000000.png",
+                              "disparity_map_000000.png"],
+            f"Middlebury run wrote {saved}")
+    return numbers
+
+
+def phase_server_asgi(torch, pipeline):
+    """``create_asgi_app`` around ``pipeline`` driven through ASGI's
+    scope/receive/send: GET, then POSTs of the fixture frame's bytes
+    (375x1242, resized by the server), the same as a multipart upload, and
+    a bad payload."""
+    import asyncio
+
+    from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from stereo_tpu_torch.serve import create_asgi_app
+    from stereo_tpu_torch.utils.png import decode_png
+
+    config = pipeline.get_configuration()
+    app = create_asgi_app(config, pipeline=pipeline, device=pipeline.device)
+    with open(FIXTURE_FRAMES[0], "rb") as f:
+        frame = f.read()
+    boundary = "smokeboundary"
+    form = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\";"
+            f" filename=\"left.png\"\r\nContent-Type: image/png\r\n\r\n"
+            ).encode() + frame + f"\r\n--{boundary}--\r\n".encode()
+    requests = [("GET", b"", None), ("POST", frame, "image/png"),
+                ("POST", form, f"multipart/form-data; boundary={boundary}"),
+                ("POST", b"not a png", "image/png")]
+
+    async def call(method, body, ctype):
+        headers = [(b"content-type", ctype.encode())] if ctype else []
+        sent, messages = [], [{"type": "http.request", "body": body,
+                               "more_body": False}]
+
+        async def receive():
+            return messages.pop(0)
+
+        async def send(message):
+            sent.append(message)
+
+        await app({"type": "http", "method": method, "path": "/",
+                   "headers": headers}, receive, send)
+        return sent[0]["status"], b"".join(m.get("body", b"")
+                                           for m in sent[1:])
+
+    async def drive():
+        return [await call(*r) for r in requests]
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    replies = asyncio.run(drive())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    statuses = [status for status, _ in replies]
+    require(statuses == [200, 200, 200, 400], f"ASGI statuses {statuses}")
+    require(json.loads(replies[0][1])["image_shape"]
+            == list(config.image_shape), f"ASGI GET {replies[0][1]}")
+    for _, body in replies[1:3]:
+        shape = decode_png(body).shape
+        require(shape[:2] == tuple(config.image_shape),
+                f"ASGI reply shape {shape}")
+    require(replies[1][1] == replies[2][1], "raw and multipart replies differ")
+    require(all(counts[k] >= 1 for k in CLASSICAL_KERNELS),
+            f"ASGI path missed a kernel: {counts}")
+    return counts, dict(statuses=statuses, launches=counts,
+                        seconds=round(seconds, 3))
 
 
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -801,6 +1323,9 @@ def main() -> int:
            ptxas=ptxas_summary(build.build_log))
 
     t = time.perf_counter()
+    report("io", t, **phase_io())
+
+    t = time.perf_counter()
     cfg = PipelineConfig().matching_config()
     kernels = phase_kernels(torch, cfg, dev)
     report("kernels", t, kernels=kernels,
@@ -814,9 +1339,7 @@ def main() -> int:
                                  "Middlebury", plain_reps=3)
     for k in middlebury:
         k["name"] += "_middlebury"
-        k["launches"] = None   # no path the smoke counts runs this config
     report("kernels_middlebury", t, kernels=middlebury)
-    kernels += middlebury
 
     t = time.perf_counter()
     golden = np.load(KITTI_GOLDEN)["disparity"].astype(np.float32)
@@ -841,16 +1364,49 @@ def main() -> int:
     report("dnn", t, deep3d_weights=deep3d_weights, **numbers)
     profile(torch, "profile_dnn", dnn_pipeline, dev)
 
+    # Launch counts of every path driven through the user's entry points,
+    # each zeroed just before its run and read just after: the KITTI-size
+    # paths, and the Middlebury path (the kernels at MatchingConfig()).
     counts = {}
+    t = time.perf_counter()
+    arm_counts, arms = phase_evaluation(torch, dev, synthesis)
+    counts.update({f"evaluation/{k}": v for k, v in arm_counts.items()})
+    report("evaluation", t, deep3d_weights=deep3d_weights, arms=arms)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        runner_counts, numbers = phase_runner(torch, dev, synthesis,
+                                              os.path.join(tmp, "runner"))
+        counts.update(runner_counts)
+        report("runner", t, deep3d_weights=deep3d_weights, **numbers)
+
+        t = time.perf_counter()
+        scenes = os.path.join(tmp, "middlebury")
+        write_middlebury_scene(os.path.join(scenes, "seeded"))
+        middlebury_counts, numbers = phase_middlebury(
+            torch, dev, os.path.join(scenes, "seeded"),
+            os.path.join(tmp, "middlebury_out"))
+        report("middlebury", t, **numbers)
+
+        t = time.perf_counter()
+        report("scripts", t, **phase_scripts(scenes,
+                                             os.path.join(tmp, "scripts")))
+
     for label, pipe, needed in (("server", pipeline, CLASSICAL_KERNELS),
                                 ("server_dnn", dnn_pipeline, GWCNET_KERNELS)):
         t = time.perf_counter()
         counts[label], numbers = phase_server(torch, pipe, dev, needed)
         report(label, t, launches=counts[label], **numbers)
 
+    t = time.perf_counter()
+    counts["server_asgi"], numbers = phase_server_asgi(torch, pipeline)
+    report("server_asgi", t, **numbers)
+
     for k in kernels:
-        if "launches" not in k:
-            k["launches"] = sum(c[k["kernel"]] for c in counts.values())
+        k["launches"] = sum(c[k["kernel"]] for c in counts.values())
+    for k in middlebury:
+        k["launches"] = middlebury_counts[k["kernel"]]
+    kernels += middlebury
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}

@@ -31,6 +31,18 @@ class DepthEstimationResult:
     disparity_map: torch.Tensor
 
 
+@dataclasses.dataclass
+class DepthEstimationPipelineContext:
+    """Per-frame context handed to hooks; the tensors lie on the
+    pipeline's device."""
+
+    disparity_map: torch.Tensor
+    left_image: torch.Tensor
+    right_image: torch.Tensor
+    config: PipelineConfig
+    frame_index: int
+
+
 class DepthEstimationPipeline:
     """The pipeline on one device (default ``"cuda"``; raises when CUDA is
     unavailable unless ``device="cpu"`` is passed).  ``synthesis``: an

@@ -1,12 +1,14 @@
-"""REST serving: single-view depth estimation over HTTP
-(port of the stdlib server and ``MicroBatcher`` of ``stereo_tpu/serve/api.py``).
+"""REST serving: single-view depth estimation over HTTP (port of
+``stereo_tpu/serve/api.py``: the stdlib server, ``MicroBatcher`` and the
+ASGI 3 application ``create_asgi_app``).
 
 ``POST /`` takes a PNG (multipart ``file`` field or raw body), runs the
 single-view pipeline (right-view synthesis + the configured backend) and
 answers with the disparity map as an 8-bit PNG; ``GET /`` returns the
-configuration.  Uploads travel to the device as uint8 and are upcast
-there; the disparity is quantised to uint8 on the device before it comes
-back.  Uploads at the pipeline shape go in unresized; other sizes are
+configuration.  Both surfaces share ``DepthEstimationServer.run_pipeline``
+and the native PNG decoder.  Uploads travel to the device as uint8 and are
+upcast there; the disparity is quantised to uint8 on the device before it
+comes back.  Uploads at the pipeline shape go in unresized; other sizes are
 resized on the device.
 """
 
@@ -211,6 +213,14 @@ class DepthEstimationServer:
             result = self.pipeline.process(device_upcast_f32(left, self.device))
             return encode_disparity_png(result.disparity_map)
 
+    def info(self) -> bytes:
+        """The ``GET /`` reply: backend, image shape and device as JSON."""
+        return json.dumps({
+            "backend": self.config.stereo_matching_backend,
+            "image_shape": list(self.config.image_shape),
+            "device": str(self.device),
+        }).encode()
+
     def make_handler(self):
         server = self
 
@@ -242,12 +252,7 @@ class DepthEstimationServer:
                 self._reply(200, "image/png", png)
 
             def do_GET(self):
-                info = json.dumps({
-                    "backend": server.config.stereo_matching_backend,
-                    "image_shape": list(server.config.image_shape),
-                    "device": str(server.device),
-                }).encode()
-                self._reply(200, "application/json", info)
+                self._reply(200, "application/json", server.info())
 
             def log_message(self, fmt, *args):  # quiet
                 pass
@@ -283,6 +288,68 @@ class DepthEstimationServer:
             pass
         finally:
             self.shutdown()
+
+
+def create_asgi_app(config: PipelineConfig = PipelineConfig(),
+                    pipeline: Optional[DepthEstimationPipeline] = None,
+                    micro_batch: int = 1, device="cuda"):
+    """An ASGI 3 application with the HTTP server's contract: ``POST /``
+    with a PNG (multipart ``file`` field or raw body) -> disparity PNG,
+    ``GET /`` -> configuration JSON; 400 for a bad payload, 405 for another
+    method, 500 for a fault of the server.  Any ASGI server (uvicorn,
+    hypercorn) can mount it.  The pipeline runs in the event loop's
+    default executor, so device work never blocks the loop."""
+    import asyncio
+
+    server = DepthEstimationServer(config, pipeline=pipeline,
+                                   micro_batch=micro_batch, device=device)
+
+    async def read_body(receive) -> bytes:
+        chunks = []
+        while True:
+            message = await receive()
+            chunks.append(message.get("body", b""))
+            if not message.get("more_body"):
+                return b"".join(chunks)
+
+    async def respond(send, status: int, content_type: bytes, body: bytes):
+        await send({"type": "http.response.start", "status": status,
+                    "headers": [(b"content-type", content_type),
+                                (b"content-length",
+                                 str(len(body)).encode())]})
+        await send({"type": "http.response.body", "body": body})
+
+    async def app(scope, receive, send):
+        if scope["type"] != "http":
+            raise RuntimeError(f"unsupported scope type {scope['type']!r}")
+        if scope["method"] == "GET":
+            await respond(send, 200, b"application/json", server.info())
+            return
+        if scope["method"] != "POST":
+            await respond(send, 405, b"application/json",
+                          b'{"error": "POST a PNG to /"}')
+            return
+        try:
+            body = await read_body(receive)
+            ctype = dict(scope.get("headers") or {}).get(
+                b"content-type", b"").decode()
+            if ctype.startswith("multipart/form-data"):
+                payload = _extract_multipart_file(body, ctype)
+                if payload is None:
+                    raise BadRequestError("no file field in upload")
+            else:
+                payload = body
+            loop = asyncio.get_running_loop()
+            png = await loop.run_in_executor(None, server.run_pipeline,
+                                             payload)
+        except Exception as exc:  # noqa: BLE001 — report to client
+            status = 400 if isinstance(exc, BadRequestError) else 500
+            await respond(send, status, b"application/json",
+                          json.dumps({"error": str(exc)}).encode())
+            return
+        await respond(send, 200, b"image/png", png)
+
+    return app
 
 
 def parse_args(argv=None):

@@ -1,9 +1,14 @@
-"""A small PNG codec on the standard library (``zlib``, ``struct``) and numpy.
+"""The port's PNG codec: the server's uploads and the cameras share its
+decoder, the hooks its encoder.
 
-Decodes 8-bit grey, RGB and RGBA, non-interlaced, with all five filter
-types; anything else raises ``BadRequestError``.  Encodes 8-bit grey and
-RGB.  The serving path needs nothing more, and the card's machine has no
-imaging library.
+``decode_png`` checks the chunks (CRCs, header) here and decodes the
+pixels with the native host runtime (``stereo_tpu_torch._native``, zlib
+in C++): 8-bit grey, RGB and RGBA, non-interlaced, all five filter types;
+anything else raises ``BadRequestError``.  ``decode_png_python`` is the
+same decode with the rows unfiltered in Python, byte by byte for the
+Average and Paeth filters: the native decoder's test oracle.
+``encode_png`` writes 8-bit grey and RGB with the standard library
+(``zlib``, ``struct``).  The card's machine has no imaging library.
 """
 
 from __future__ import annotations
@@ -76,8 +81,9 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return rows
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, C) uint8 with C = 1, 3 or 4."""
+def _parse(data: bytes):
+    """Check the signature, chunks and header of PNG bytes: returns
+    ``(height, width, channels, idat_chunks)``."""
     if not data.startswith(_SIGNATURE):
         raise BadRequestError("not a PNG file")
     header, idat = None, []
@@ -98,7 +104,25 @@ def decode_png(data: bytes) -> np.ndarray:
         raise BadRequestError(
             f"unsupported PNG (bit depth {depth}, colour type {color}, "
             f"interlace {interlace}); 8-bit grey, RGB or RGBA only")
-    channels = _CHANNELS[color]
+    return height, width, _CHANNELS[color], idat
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, C) uint8 with C = 1, 3 or 4, decoded by the
+    native host runtime."""
+    from .. import _native
+
+    height, width, channels, _ = _parse(data)
+    try:
+        return _native.decode_png_hwc(data).reshape(height, width, channels)
+    except ValueError as exc:   # inflate, size or filter-type failure
+        raise BadRequestError(f"corrupt PNG data ({exc})") from exc
+
+
+def decode_png_python(data: bytes) -> np.ndarray:
+    """``decode_png`` with zlib and the row filters in Python: the test
+    oracle of the native decoder."""
+    height, width, channels, idat = _parse(data)
     stride = width * channels
     try:
         raw = zlib.decompress(b"".join(idat))

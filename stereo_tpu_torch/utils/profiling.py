@@ -5,12 +5,14 @@ so they measure device time without a synchronisation inside the timed
 code.  Each new stage folds the stages whose events have completed into
 the totals, so the pending events stay few however long the timer runs;
 the rest are read (one synchronisation) when a summary is asked for.  On
-the CPU they are host clocks.
+the CPU they are host clocks.  ``device_trace`` records a ``torch.profiler``
+trace of a block as a Chrome trace file.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Iterator, Optional
 
@@ -98,3 +100,21 @@ class StageTimer:
         self.summary()
         self.totals.clear()
         self.counts.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[str]:
+    """Trace the block with ``torch.profiler`` (host activity, and the
+    card's kernels when CUDA is available) and write it as a Chrome trace
+    (``chrome://tracing``, Perfetto) into ``log_dir``; yields the file's
+    path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(path)

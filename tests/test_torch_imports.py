@@ -55,6 +55,7 @@ print("median", float(disp[:, 8:-8].median()))
 import torch
 from stereo_tpu_torch.models import build_stereo_model, init_params
 from stereo_tpu_torch.ops.cuda import build
+from stereo_tpu_torch import _native
 for name in ("gwcnet", "msnet2d", "msnet3d"):
     net = build_stereo_model(name, 32)
     init_params(net, 0)
@@ -62,6 +63,7 @@ for name in ("gwcnet", "msnet2d", "msnet3d"):
         out = net.eval()(torch.zeros(1, 3, 32, 64), torch.zeros(1, 3, 32, 64))
     print(name, tuple(out.shape))
 assert build._library is None        # importing and running built nothing
+assert _native._library is None
 """
 
 
