@@ -1,7 +1,7 @@
 """ctypes bindings of the port's native host runtime (``stereo_native.cc``).
 
-A copy of ``stereo_tpu/_native`` for the port: a zlib PNG decoder (from
-bytes in memory or from a file), layout conversions (HWC uint8 -> padded
+A copy of ``stereo_tpu/_native`` for the port: a zlib PNG decoder (8- or
+16-bit, from bytes in memory or from a file), layout conversions (HWC uint8 -> padded
 CHW float32, bilinear resize, mean pool, RGB -> luma) and a threaded frame
 prefetcher.  Unlike the JAX package's copy it has no NumPy or imaging
 fallback: the library is built with one ``g++ ... -lz`` call on first use
@@ -37,8 +37,8 @@ _F = ctypes.c_float
 _SIZE = ctypes.c_size_t
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "sn_png_info_mem": ((_P, _SIZE, _IP, _IP, _IP), _I),
-    "sn_decode_png_hwc_mem": ((_P, _SIZE, _P, _I, _I, _I), _I),
+    "sn_png_info_mem": ((_P, _SIZE, _IP, _IP, _IP, _IP), _I),
+    "sn_decode_png_hwc_mem": ((_P, _SIZE, _P, _I, _I, _I, _I), _I),
     "sn_png_shape": ((ctypes.c_char_p, _IP, _IP, _IP), _I),
     "sn_decode_png_chw": ((ctypes.c_char_p, _I, _I, _I, _I, _F, _P, _I, _I),
                           _I),
@@ -109,22 +109,24 @@ def _f32(arr: np.ndarray) -> np.ndarray:
 
 
 def png_info(data: bytes):
-    """(H, W, C) of PNG bytes from their header, or the decoder's error
-    code (a negative int) for one it does not take."""
-    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    """(H, W, C, bit depth) of PNG bytes from their header, or the
+    decoder's error code (a negative int) for one it does not take."""
+    h, w, c, d = (ctypes.c_int() for _ in range(4))
     rc = library().sn_png_info_mem(data, len(data), ctypes.byref(h),
-                                   ctypes.byref(w), ctypes.byref(c))
-    return rc if rc else (h.value, w.value, c.value)
+                                   ctypes.byref(w), ctypes.byref(c),
+                                   ctypes.byref(d))
+    return rc if rc else (h.value, w.value, c.value, d.value)
 
 
 def decode_png_hwc(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, C) uint8, C = 1 (grey), 2 (grey + alpha), 3 or
-    4; raises ``ValueError`` with the decoder's code for bytes it does not
-    take."""
+    """PNG bytes -> (H, W, C), C = 1 (grey), 2 (grey + alpha), 3 or 4:
+    uint8 for bit depth 8, uint16 for 16; raises ``ValueError`` with the
+    decoder's code for bytes it does not take."""
     info = png_info(data)
     if isinstance(info, int):
         raise ValueError(f"native PNG decoder: error {info}")
-    out = np.empty(info, np.uint8)
+    *shape, depth = info
+    out = np.empty(shape, np.uint16 if depth == 16 else np.uint8)
     rc = library().sn_decode_png_hwc_mem(data, len(data), _ptr(out), *info)
     if rc:
         raise ValueError(f"native PNG decoder: error {rc}")
@@ -132,7 +134,8 @@ def decode_png_hwc(data: bytes) -> np.ndarray:
 
 
 def png_shape(path: str):
-    """(H, W, C) of a PNG file, or None for one the decoder does not take."""
+    """(H, W, C) of a PNG file, or None for one the decoder does not
+    take."""
     h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     if library().sn_png_shape(os.fsencode(path), ctypes.byref(h),
                               ctypes.byref(w), ctypes.byref(c)):
@@ -142,9 +145,10 @@ def png_shape(path: str):
 
 def decode_png_padded_chw(path: str, pad: Sequence[int] = (0, 0, 0, 0),
                           scale: float = 1.0) -> np.ndarray:
-    """PNG file -> (3, top+H+bottom, left+W+right) float32 times ``scale``
-    (grey replicated, alpha dropped); ``pad`` is (left, top, right,
-    bottom).  Raises ``ValueError`` for a file the decoder does not take."""
+    """PNG file -> (3, top+H+bottom, left+W+right) float32 samples times
+    ``scale`` (grey replicated, alpha dropped); ``pad`` is (left, top,
+    right, bottom).  Raises ``ValueError`` for a file the decoder does not
+    take."""
     shape = png_shape(path)
     if shape is None:
         raise ValueError(f"native PNG decoder cannot read {path!r}")

@@ -3,10 +3,11 @@
 //
 // What it owns is the host's input pipeline, which the device never sees:
 //
-//   * a zlib-based PNG decoder (8-bit grey/grey+alpha/RGB/RGBA,
-//     non-interlaced: the KITTI and Middlebury formats and what image
-//     libraries write by default, every filter type) from bytes in memory
-//     or a file, straight to HWC uint8 or padded planar float32;
+//   * a zlib-based PNG decoder (8- and 16-bit grey/grey+alpha/RGB/RGBA,
+//     non-interlaced: the KITTI and Middlebury formats, KITTI's 16-bit
+//     disparity maps and what image libraries write by default, every
+//     filter type) from bytes in memory or a file, straight to HWC
+//     uint8/uint16 or padded planar float32;
 //   * fused layout conversions (HWC uint8 -> padded CHW float32, bilinear
 //     resize, kxk mean pool, RGB -> luma) used by the cameras;
 //   * a multi-threaded frame prefetcher over a ring of preallocated,
@@ -41,7 +42,13 @@ struct Image {
   int height = 0;
   int width = 0;
   int channels = 0;
-  std::vector<uint8_t> pixels;  // HWC, 8-bit
+  int depth = 8;                // bits per sample: 8 or 16 (big-endian)
+  std::vector<uint8_t> pixels;  // HWC samples as stored, unfiltered
+
+  int sample(size_t i) const {  // the i-th sample (HWC order)
+    return depth == 16 ? (int(pixels[2 * i]) << 8) | pixels[2 * i + 1]
+                       : pixels[i];
+  }
 };
 
 uint32_t read_be32(const uint8_t* p) {
@@ -58,13 +65,14 @@ int paeth(int a, int b, int c) {
 }
 
 struct Header {
-  int width = 0, height = 0, channels = 0;
+  int width = 0, height = 0, channels = 0, depth = 8;
   std::vector<uint8_t> idat;
 };
 
 // Walks the chunks; fills the header and, when `idat` is set, the
-// concatenated IDAT payload.  Returns 0 for a supported PNG: bit depth 8,
-// colour types 0 (grey), 2 (RGB), 4 (grey+alpha), 6 (RGBA), non-interlaced.
+// concatenated IDAT payload.  Returns 0 for a supported PNG: bit depth 8
+// or 16, colour types 0 (grey), 2 (RGB), 4 (grey+alpha), 6 (RGBA),
+// non-interlaced.
 int parse_png(const uint8_t* data, size_t size, Header* hdr, bool idat) {
   static const uint8_t kSig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
   if (size < 8 || std::memcmp(data, kSig, 8) != 0) return -1;
@@ -90,7 +98,8 @@ int parse_png(const uint8_t* data, size_t size, Header* hdr, bool idat) {
     }
     pos += 12 + size_t(len);
   }
-  if (width <= 0 || height <= 0 || bit_depth != 8 || interlace != 0)
+  if (width <= 0 || height <= 0 || (bit_depth != 8 && bit_depth != 16) ||
+      interlace != 0)
     return -4;
   switch (color_type) {
     case 0: hdr->channels = 1; break;
@@ -101,6 +110,7 @@ int parse_png(const uint8_t* data, size_t size, Header* hdr, bool idat) {
   }
   hdr->width = width;
   hdr->height = height;
+  hdr->depth = bit_depth;
   return 0;
 }
 
@@ -111,8 +121,10 @@ int decode_png(const uint8_t* data, size_t size, Image* out) {
   if (rc) return rc;
   const int width = hdr.width, height = hdr.height, channels = hdr.channels;
   const std::vector<uint8_t>& idat = hdr.idat;
+  // Filters work on bytes, a pixel's bytes apart.
+  const int bpp = channels * hdr.depth / 8;
 
-  const size_t stride = size_t(width) * channels;
+  const size_t stride = size_t(width) * bpp;
   std::vector<uint8_t> raw((stride + 1) * height);
   uLongf raw_len = raw.size();
   if (uncompress(raw.data(), &raw_len, idat.data(), idat.size()) != Z_OK ||
@@ -122,8 +134,8 @@ int decode_png(const uint8_t* data, size_t size, Image* out) {
   out->height = height;
   out->width = width;
   out->channels = channels;
+  out->depth = hdr.depth;
   out->pixels.resize(stride * height);
-  const int bpp = channels;  // bytes per pixel (8-bit)
   for (int y = 0; y < height; ++y) {
     const uint8_t filter = raw[(stride + 1) * y];
     const uint8_t* src = raw.data() + (stride + 1) * y + 1;
@@ -163,7 +175,8 @@ int decode_png(const uint8_t* data, size_t size, Image* out) {
   return 0;
 }
 
-// HWC 8-bit (any of 1/2/3/4 channels) -> padded planar CHW float32 * scale.
+// HWC samples (any of 1/2/3/4 channels) -> padded planar CHW float32 *
+// scale.
 // Output: 3 x (top+h+bottom) x (left+w+right); gray replicates channels;
 // alpha is dropped.
 void to_padded_chw(const Image& im, int left, int top, int right, int bottom,
@@ -177,10 +190,10 @@ void to_padded_chw(const Image& im, int left, int top, int right, int bottom,
     const int src_c = in_c >= 3 ? c : 0;
     float* dst_plane = out + plane * c;
     for (int y = 0; y < im.height; ++y) {
-      const uint8_t* src = im.pixels.data() +
-                           (size_t(y) * im.width) * in_c + src_c;
+      const size_t row = size_t(y) * im.width * in_c + src_c;
       float* dst = dst_plane + size_t(y + top) * ow + left;
-      for (int x = 0; x < im.width; ++x) dst[x] = float(src[x * in_c]) * scale;
+      for (int x = 0; x < im.width; ++x)
+        dst[x] = float(im.sample(row + size_t(x) * in_c)) * scale;
     }
   }
 }
@@ -201,29 +214,39 @@ bool read_file(const char* path, std::vector<uint8_t>* buf) {
 
 extern "C" {
 
-// (H, W, C) of PNG bytes in memory, from the header alone: returns 0 for
-// a PNG the decoder takes, else its error code.
+// (H, W, C) and bit depth of PNG bytes in memory, from the header alone:
+// returns 0 for a PNG the decoder takes, else its error code.
 int sn_png_info_mem(const uint8_t* data, size_t size, int* h, int* w,
-                    int* c) {
+                    int* c, int* depth) {
   Header hdr;
   int rc = parse_png(data, size, &hdr, false);
   if (rc) return rc;
   *h = hdr.height;
   *w = hdr.width;
   *c = hdr.channels;
+  *depth = hdr.depth;
   return 0;
 }
 
-// PNG bytes in memory -> HWC uint8 `out` of h * w * c bytes (the shape
+// PNG bytes in memory -> HWC samples in `out`: h * w * c uint8 for bit
+// depth 8, uint16 (native byte order) for 16 (the shape and depth that
 // sn_png_info_mem gives).  Returns 0, or a negative error code.
-int sn_decode_png_hwc_mem(const uint8_t* data, size_t size, uint8_t* out,
-                          int h, int w, int c) {
+int sn_decode_png_hwc_mem(const uint8_t* data, size_t size, void* out,
+                          int h, int w, int c, int depth) {
   try {
     Image im;
     int rc = decode_png(data, size, &im);
     if (rc) return rc;
-    if (im.height != h || im.width != w || im.channels != c) return -11;
-    std::memcpy(out, im.pixels.data(), im.pixels.size());
+    if (im.height != h || im.width != w || im.channels != c ||
+        im.depth != depth)
+      return -11;
+    const size_t n = size_t(h) * w * c;
+    if (depth == 8) {
+      std::memcpy(out, im.pixels.data(), n);
+    } else {
+      uint16_t* dst = static_cast<uint16_t*>(out);
+      for (size_t i = 0; i < n; ++i) dst[i] = uint16_t(im.sample(i));
+    }
     return 0;
   } catch (const std::exception&) {  // a size no allocation can hold
     return -12;
@@ -252,7 +275,8 @@ int sn_decode_png_chw_mem(const uint8_t* data, size_t size, int left,
 int sn_png_shape(const char* path, int* h, int* w, int* c) {
   std::vector<uint8_t> buf;
   if (!read_file(path, &buf)) return -10;
-  return sn_png_info_mem(buf.data(), buf.size(), h, w, c);
+  int depth = 0;
+  return sn_png_info_mem(buf.data(), buf.size(), h, w, c, &depth);
 }
 
 int sn_decode_png_chw(const char* path, int left, int top, int right,

@@ -15,9 +15,9 @@ from .cost_volumes import (build_concat_volume, build_gwc_volume,
                            build_interlaced_volume, disparity_regression,
                            groupwise_correlation, upsampled_soft_argmin)
 from .deep3d import Deep3D
-from .gwcnet import GwcNet
+from .gwcnet import GWCNET_LOSS_WEIGHTS, GwcNet, gwcnet_loss
 from .layers import BatchNorm, Conv, _PackedDeconv
-from .msnet import MSNet2D, MSNet3D
+from .msnet import MSNET_LOSS_WEIGHTS, MSNet2D, MSNet3D, msnet_loss
 
 _NPZ_META_PREFIX = "__meta__"
 
@@ -127,6 +127,87 @@ def load_stereo_npz(path: str) -> Dict[str, torch.Tensor]:
     return stereo_state_dict_from_flax(arrays)
 
 
+def flax_arrays_from_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of ``deep3d_state_dict_from_flax`` and
+    ``stereo_state_dict_from_flax``: ``model``'s parameters and BatchNorm
+    statistics as float32 numpy arrays keyed and laid out as the Flax
+    variables (``"['params'][...]['kernel']"``, ``"['batch_stats'][...]
+    ['mean']"``)."""
+    arrays = {}
+    for key, t in model.state_dict().items():
+        *path, name = key.split(".")
+        module = model.get_submodule(".".join(path))
+        t = t.detach().float().cpu()
+        if isinstance(module, BatchNorm):
+            collection, leaf = {"weight": ("params", "scale"),
+                                "bias": ("params", "bias"),
+                                "running_mean": ("batch_stats", "mean"),
+                                "running_var": ("batch_stats", "var")}[name]
+        elif name == "weight":
+            collection, leaf = "params", "kernel"
+            if path[-1].startswith("Dense_"):
+                t = t.t()
+            elif not path[-1].startswith("ConvTranspose_"):
+                t = t.permute(*range(2, t.dim()), 1, 0)
+        elif name == "bias":
+            collection, leaf = "params", "bias"
+        else:
+            raise ValueError(f"unexpected state_dict entry {key!r}")
+        flax_key = "".join(f"['{p}']" for p in [collection, *path, leaf])
+        arrays[flax_key] = np.ascontiguousarray(t.numpy())
+    return arrays
+
+
+def save_params_npz(model: nn.Module, npz_path: str, meta=None) -> None:
+    """Write ``model`` in the committed checkpoint format, which both
+    packages load (``stereo_tpu.models.load_params_npz``): the Flax
+    variables (``flax_arrays_from_state_dict``), parameters stored as
+    float16 and BatchNorm statistics as float32, zip-compressed, with
+    ``meta`` (small arrays, e.g. the resolution Deep3D was trained at)
+    under ``__meta__`` keys."""
+    flat = {}
+    for key, arr in flax_arrays_from_state_dict(model).items():
+        flat[key] = arr if key.startswith("['batch_stats']") else \
+            arr.astype(np.float16)
+    for name, value in (meta or {}).items():
+        flat[_NPZ_META_PREFIX + name] = np.asarray(value)
+    os.makedirs(os.path.dirname(os.path.abspath(npz_path)), exist_ok=True)
+    np.savez_compressed(npz_path, **flat)
+
+
+def load_params_npz(npz_path: str) -> Dict[str, np.ndarray]:
+    """A ``save_params_npz`` file (the port's or the JAX package's) ->
+    its variables as float32 arrays keyed as in the file; the meta
+    entries are left out (``load_npz_meta``)."""
+    with np.load(npz_path) as data:
+        return {k: data[k].astype(np.float32) for k in data.files
+                if not k.startswith(_NPZ_META_PREFIX)}
+
+
+def load_npz_meta(npz_path: str) -> dict:
+    """The ``meta`` dict stored by ``save_params_npz`` (may be empty)."""
+    with np.load(npz_path) as data:
+        return {k[len(_NPZ_META_PREFIX):]: np.asarray(data[k])
+                for k in data.files if k.startswith(_NPZ_META_PREFIX)}
+
+
+def adopt_matching_leaves(model: nn.Module,
+                          donor: Dict[str, torch.Tensor]) -> int:
+    """Warm start: copy into ``model`` every entry of the ``donor``
+    state_dict whose name exists in ``model`` with the same shape; the
+    rest (say Deep3D's resolution-tied first dense layer) keeps its fresh
+    values.  Returns the number adopted."""
+    state = model.state_dict()
+    n = 0
+    with torch.no_grad():
+        for key, fresh in state.items():
+            old = donor.get(key)
+            if old is not None and tuple(old.shape) == tuple(fresh.shape):
+                fresh.copy_(old)
+                n += 1
+    return n
+
+
 def init_params(model: nn.Module, seed: int = 0) -> None:
     """Seeded random parameters from a ``torch.Generator``: convolution
     kernels normal with std fan_in^-1/2 (Flax's LeCun normal, untruncated),
@@ -146,6 +227,31 @@ def init_params(model: nn.Module, seed: int = 0) -> None:
                 module.bias.zero_()
                 module.running_mean.zero_()
                 module.running_var.fill_(1.0)
+
+
+def init_deep3d_params(model: nn.Module, seed: int = 0) -> None:
+    """Seeded Deep3D parameters with the JAX model's initializers, drawn
+    from a ``torch.Generator`` (untruncated normals): 3x3 convolutions
+    He-normal (std (2 / fan_in)^1/2), the 1x1 convolution and the
+    transposed ones LeCun-normal (std fan_in^-1/2), the dense layers
+    normal with std 0.01, biases 0."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, nn.Conv2d):
+                w = module.weight
+                gain = 2.0 if w.shape[-1] > 1 else 1.0
+                std = (gain / w[0].numel()) ** 0.5
+            elif isinstance(module, nn.Linear):
+                w, std = module.weight, 0.01
+            elif isinstance(module, _PackedDeconv):
+                w = module.weight
+                std = (w.numel() // w.shape[-1]) ** -0.5
+            else:
+                continue
+            w.copy_(torch.randn(w.shape, generator=gen) * std)
+            if getattr(module, "bias", None) is not None:
+                module.bias.zero_()
 
 
 def init_stereo_params(model: nn.Module, image_shape: Tuple[int, int],
@@ -200,6 +306,10 @@ def load_or_init_params(model: nn.Module, name: str,
 
 
 __all__ = ["Deep3D", "GwcNet", "MSNet2D", "MSNet3D", "build_stereo_model",
+           "GWCNET_LOSS_WEIGHTS", "MSNET_LOSS_WEIGHTS", "gwcnet_loss",
+           "msnet_loss", "flax_arrays_from_state_dict", "save_params_npz",
+           "load_params_npz", "load_npz_meta", "adopt_matching_leaves",
+           "init_deep3d_params",
            "deep3d_state_dict_from_flax", "load_deep3d_npz",
            "stereo_state_dict_from_flax", "load_stereo_npz", "init_params",
            "init_stereo_params", "load_or_init_params", "build_concat_volume",

@@ -9,7 +9,7 @@ tensor and its plain version on a CPU tensor.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -109,3 +109,31 @@ def upsampled_soft_argmin(logits: torch.Tensor, out_dhw: Tuple[int, int, int],
                                              disp[sl]) * scale_blk
         m = m_new
     return acc / s
+
+
+def regress_full(logits: torch.Tensor, out_dhw: Tuple[int, int, int]
+                 ) -> torch.Tensor:
+    """Training mode's regression, differentiable: (N, 1, D_l, H_l, W_l)
+    logits -> trilinear upsample (half-pixel centres) to ``out_dhw``,
+    softmax over D, expectation -> (N, H, W)."""
+    from .layers import upsample_trilinear
+
+    prob = torch.softmax(upsample_trilinear(logits, out_dhw)[:, 0], dim=1)
+    return disparity_regression(prob, int(out_dhw[0]))
+
+
+def masked_huber_loss(outputs: Sequence[torch.Tensor],
+                      weights: Sequence[float], gt: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """``sum_i w_i * sum(huber(out_i - gt) * m) / max(sum(m), 1)`` with
+    the Huber loss of delta 1 (``optax.huber_loss``): 0.5 e^2 up to |e| =
+    1, then |e| - 0.5."""
+    m = mask.to(gt.dtype)
+    denom = torch.clamp(m.sum(), min=1.0)
+    total = gt.new_zeros(())
+    for w, out in zip(weights, outputs):
+        err = (out - gt).abs()
+        quadratic = torch.clamp(err, max=1.0)
+        huber = 0.5 * quadratic * quadratic + (err - quadratic)
+        total = total + w * (huber * m).sum() / denom
+    return total

@@ -2,8 +2,12 @@
 
 A VGG16 encoder over the 4x-downscaled left view, per-pool-stage branches
 each predicting a 65-channel disparity distribution, a fully connected
-global branch, branch summation, a softmax upconvolution, and the fused
-x4 upsample + 65-way shifted-view blend (``ops.cuda.upsample_blend``).
+global branch, branch summation, a softmax upconvolution, and the x4
+upsample + 65-way shifted-view blend.  The mode is ``module.training``:
+eval mode runs the fused ``ops.cuda.upsample_blend`` kernel (which has no
+gradient); training mode runs the differentiable upsample and shifted
+blend and the global branch's dropout, as the JAX package does with
+``train=True``.
 
 Submodules carry the Flax module names (``VggBlock_0.Conv_1`` ...) so the
 committed Flax checkpoint maps onto ``state_dict`` keys by name
@@ -21,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.cuda import upsample_blend
+from ..ops.shift_stack import weighted_shift_sum
 from .layers import Deconv2dParity
 
 NUM_DISPARITY_CHANNELS = 65
@@ -77,9 +82,12 @@ class FeedForwardBranch(nn.Module):
     """Global branch: fc (h*w*512 -> 4096) -> relu -> fc (-> h*w*65),
     reshaped NHWC to (h, w, 65) and deconvolved x16.
 
-    ``dense_dtype=torch.bfloat16`` runs the two fc products in bf16 (their
-    weights are then stored in bf16 too); the branch output is cast back
-    to the input dtype before summation.  Dropout is inference-off.
+    ``dense_dtype=torch.bfloat16`` runs the two fc products in bf16 in
+    eval mode (their weights are then stored in bf16 too); the branch
+    output is cast back to the input dtype before summation.  Training
+    keeps them in float32 and drops half the hidden units (scaling the
+    rest by 2, Flax's ``Dropout(0.5)``), drawing the mask from the
+    ``generator`` passed to ``forward``; without one, no dropout.
     """
 
     def __init__(self, grid: Tuple[int, int], in_channels: int = 512,
@@ -96,15 +104,19 @@ class FeedForwardBranch(nn.Module):
 
     def _dense(self, layer: nn.Linear, x):
         # Product, then bias, each rounded in the working dtype.
-        dtype = self.dense_dtype or x.dtype
-        return F.linear(x, layer.weight.to(dtype)) + layer.bias.to(dtype)
+        return F.linear(x, layer.weight.to(x.dtype)) + layer.bias.to(x.dtype)
 
-    def forward(self, x_nchw):
+    def forward(self, x_nchw, generator: Optional[torch.Generator] = None):
         n = x_nchw.shape[0]
         x = x_nchw.permute(0, 2, 3, 1).reshape(n, -1)
-        if self.dense_dtype is not None:
-            x = x.to(self.dense_dtype)
+        dtype = torch.float32 if self.training else self.dense_dtype
+        if dtype is not None:
+            x = x.to(dtype)
         x = F.relu(self._dense(self.Dense_0, x))
+        if self.training and generator is not None:
+            keep = torch.rand(x.shape, generator=generator,
+                              device=x.device) < 0.5
+            x = torch.where(keep, x / 0.5, torch.zeros_like(x))
         x = self._dense(self.Dense_1, x).to(x_nchw.dtype)
         gh, gw = self.grid
         x = x.reshape(n, gh, gw, NUM_DISPARITY_CHANNELS).permute(0, 3, 1, 2)
@@ -154,13 +166,14 @@ class DisparityEstimationNetwork(nn.Module):
         self.DisparityUpconvSoftmax_0 = DisparityUpconvSoftmax(
             1 + (prob_volume_scale == 2))
 
-    def forward(self, left_down_nchw):
+    def forward(self, left_down_nchw,
+                generator: Optional[torch.Generator] = None):
         predictions = []
         features = left_down_nchw
         for idx in range(len(VGG16_BLOCKS)):
             features = getattr(self, f"VggBlock_{idx}")(features)
             predictions.append(getattr(self, f"DeconvBranch_{idx}")(features))
-        predictions.append(self.FeedForwardBranch_0(features))
+        predictions.append(self.FeedForwardBranch_0(features, generator))
         summed = sum(predictions)
         return self.DisparityUpconvSoftmax_0(summed)
 
@@ -179,11 +192,37 @@ class Deep3D(nn.Module):
         self.DisparityEstimationNetwork_0 = DisparityEstimationNetwork(
             down_shape, deconv_filters, prob_volume_scale, ff_dense_dtype)
 
-    def prob_volume_low(self, left_down_nchw):
-        """Softmax volume at its computed resolution, (N, 65, H/s, W/s)."""
-        return self.DisparityEstimationNetwork_0(left_down_nchw)
+    def prob_volume_low(self, left_down_nchw,
+                        generator: Optional[torch.Generator] = None):
+        """Softmax volume at its computed resolution, (N, 65, H/s, W/s);
+        ``generator`` drives the dropout in training mode."""
+        return self.DisparityEstimationNetwork_0(left_down_nchw, generator)
 
-    def forward(self, left_full_nchw, left_down_nchw):
+    def disparity_probabilities(self, left_down_nchw,
+                                generator: Optional[torch.Generator] = None):
+        """The softmax volume upsampled x ``prob_volume_scale`` (bilinear,
+        half-pixel centres): (N, 65, H, W) in right-frame coordinates."""
+        prob = self.prob_volume_low(left_down_nchw, generator)
+        s = self.prob_volume_scale
+        return F.interpolate(prob, scale_factor=s, mode="bilinear",
+                             align_corners=False)
+
+    def synthesize_with_probabilities(
+            self, left_full_nchw, left_down_nchw,
+            generator: Optional[torch.Generator] = None):
+        """One differentiable forward -> ``(right_view, prob (N, 65, H,
+        W))``: the upsampled volume and the shifted-view blend written out
+        (the JAX package's unfused path).  Output pixel y blends
+        ``left[y + d]``, so the volume's soft-argmax is the right-frame
+        disparity."""
+        prob = self.disparity_probabilities(left_down_nchw, generator)
+        return weighted_shift_sum(prob, left_full_nchw), prob
+
+    def forward(self, left_full_nchw, left_down_nchw,
+                generator: Optional[torch.Generator] = None):
+        if self.training:
+            return self.synthesize_with_probabilities(
+                left_full_nchw, left_down_nchw, generator)[0]
         prob = self.prob_volume_low(left_down_nchw)
         return upsample_blend(prob.float().contiguous(),
                               left_full_nchw.float().contiguous(),

@@ -1,22 +1,31 @@
 """GwcNet, the group-wise correlation stereo network (Guo et al., CVPR 2019)
-(port of ``stereo_tpu/models/gwcnet.py``, inference).
+(port of ``stereo_tpu/models/gwcnet.py``).
 
 ResNet-like siamese features at 1/4 resolution (320 channels), a 40-group
-correlation volume (the ``gwc_volume`` kernel on CUDA), pre-hourglass 3-D
-convolutions, three stacked 3-D hourglasses and a soft-argmin regression
-from the upsampled last classifier.  ``classif0..2`` are built so that the
-committed checkpoint loads with ``strict=True``; inference runs only
-``classif3``.
+correlation volume, pre-hourglass 3-D convolutions, three stacked 3-D
+hourglasses and soft-argmin regressions.  The mode is ``module.training``.
+Eval mode builds the volume with the ``gwc_volume`` kernel (on CUDA; it
+has no gradient) and regresses ``classif3`` with the streaming head.
+Training mode builds it with the differentiable composition the JAX model
+runs at all times (``gwc_volume_plain``) and returns the four classifiers'
+regressions, each a full trilinear upsample, a softmax over D and the
+expectation (``gwcnet_loss`` weighs them 0.5/0.5/0.7/1.0).
 """
 
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .cost_volumes import build_gwc_volume, upsampled_soft_argmin
+from ..ops.cuda import gwc_volume_plain
+from .cost_volumes import (build_gwc_volume, masked_huber_loss,
+                           regress_full, upsampled_soft_argmin)
 from .layers import BasicResBlock, Conv, ConvBnAct, DeconvBn
+
+GWCNET_LOSS_WEIGHTS: Tuple[float, ...] = (0.5, 0.5, 0.7, 1.0)
 
 
 class GwcFeatureExtractor(nn.Module):
@@ -105,14 +114,27 @@ class GwcNet(nn.Module):
 
     def forward(self, left, right):
         n, _, height, width = left.shape
+        out_dhw = (self.max_disparity, height, width)
         # One application over the stacked pair (shared weights).
         both = self.GwcFeatureExtractor_0(torch.cat([left, right], dim=0))
-        volume = build_gwc_volume(both[:n].contiguous(),
-                                  both[n:].contiguous(),
-                                  self.max_disparity // 4, self.num_groups)
+        build = gwc_volume_plain if self.training else build_gwc_volume
+        volume = build(both[:n].contiguous(), both[n:].contiguous(),
+                       self.max_disparity // 4, self.num_groups)
         x = self.ConvBnAct_1(self.ConvBnAct_0(volume))
         x = x + self.ConvBnAct_3(self.ConvBnAct_2(x))
+        if not self.training:
+            for i in range(3):
+                x = getattr(self, f"Hourglass3D_{i}")(x)
+            return upsampled_soft_argmin(self.classif3(x), out_dhw)
+        outputs = [self.classif0(x)]
         for i in range(3):
             x = getattr(self, f"Hourglass3D_{i}")(x)
-        return upsampled_soft_argmin(self.classif3(x),
-                                     (self.max_disparity, height, width))
+            outputs.append(getattr(self, f"classif{i + 1}")(x))
+        return tuple(regress_full(o, out_dhw) for o in outputs)
+
+
+def gwcnet_loss(outputs: Sequence[torch.Tensor], gt_disparity: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """Smooth-L1 multi-output loss (paper eq. 5): the masked Huber losses
+    (delta 1) of the four outputs weighed 0.5/0.5/0.7/1.0."""
+    return masked_huber_loss(outputs, GWCNET_LOSS_WEIGHTS, gt_disparity, mask)

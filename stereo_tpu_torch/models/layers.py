@@ -3,8 +3,9 @@
 Submodules carry the Flax module names (``Conv_0``, ``BatchNorm_0``, ...)
 so the committed Flax checkpoints map onto ``state_dict`` keys by name
 (``models.stereo_state_dict_from_flax``).  Tensors are NCHW / NCDHW.
-Convolutions pad as Flax's SAME does (``ops.conv3d.same_padding``);
-BatchNorm runs on its running statistics (inference only).
+Convolutions pad as Flax's SAME does (``ops.conv3d.same_padding``).
+BatchNorm follows ``module.training``: batch statistics and Flax's update
+of the running ones in training, the running statistics in eval.
 """
 
 from __future__ import annotations
@@ -145,11 +146,19 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Flax ``nn.BatchNorm(use_running_average=True)`` over axis 1: scale
-    and bias are ``weight`` and ``bias``, the batch statistics
-    ``running_mean`` and ``running_var``; eps 1e-5 as in Flax."""
+    """Flax ``nn.BatchNorm`` over axis 1 (eps 1e-5, momentum 0.99): scale
+    and bias are ``weight`` and ``bias``, the running statistics
+    ``running_mean`` and ``running_var``.
+
+    Eval mode (Flax's ``use_running_average=True``) normalises with the
+    running statistics.  Training mode normalises with the batch's mean
+    and its biased variance, taken as Flax does (``mean(x^2) - mean(x)^2``,
+    clipped at 0), and updates the running statistics with Flax's rule
+    ``0.99 * running + 0.01 * batch``, written out: torch's own update
+    would store the unbiased variance."""
 
     eps = 1e-5
+    momentum = 0.99
 
     def __init__(self, channels: int):
         super().__init__()
@@ -159,8 +168,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        dims = [0] + list(range(2, x.dim()))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(self.momentum * self.running_mean
+                                    + (1.0 - self.momentum) * mean)
+            self.running_var.copy_(self.momentum * self.running_var
+                                   + (1.0 - self.momentum) * var)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class ConvBnAct(nn.Module):

@@ -1,26 +1,31 @@
 """MobileStereoNet, MSNet2D and MSNet3D (Shamsafar et al., WACV 2022)
-(port of ``stereo_tpu/models/msnet.py``, inference).
+(port of ``stereo_tpu/models/msnet.py``).
 
 A MobileNetV2-style siamese extractor (1/4 resolution, 320 channels)
 compressed to 32 channels; MSNet2D builds the interlaced volume, encoding
 each disparity's interleaved pair to one score channel, and aggregates in
 2-D separable convolutions; MSNet3D builds a concatenation volume and
-aggregates in 3-D inverted-residual blocks.  Both regress with the
-streaming soft-argmin.  The heads of all three hourglasses are built so
-the committed checkpoints load with ``strict=True``; inference runs the
-last.
+aggregates in 3-D inverted-residual blocks.  The mode is
+``module.training``: eval mode regresses the last hourglass's head with
+the streaming soft-argmin; training mode returns the three heads'
+regressions (full trilinear upsample, softmax over D, expectation), which
+``msnet_loss`` weighs 0.5/0.7/1.0.
 """
 
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .cost_volumes import (build_concat_volume, interlace,
-                           upsampled_soft_argmin)
+from .cost_volumes import (build_concat_volume, interlace, masked_huber_loss,
+                           regress_full, upsampled_soft_argmin)
 from .layers import (Conv, ConvBnAct, DeconvBn, MobileV2Block2D,
                      MobileV2Block3D, SeparableConvBn2D)
+
+MSNET_LOSS_WEIGHTS: Tuple[float, ...] = (0.5, 0.7, 1.0)
 
 
 class MobileFeatureExtractor(nn.Module):
@@ -146,6 +151,20 @@ class _MSNet(nn.Module):
             torch.cat([left, right], dim=0)))
         return both[:n], both[n:]
 
+    def regress(self, x, hourglass: str, volume_of, out_dhw):
+        """Run the three hourglasses from ``x``; eval mode regresses the
+        last head's logits streaming, training mode all three in full.
+        ``volume_of`` turns a head's logits into (N, 1, D_l, H_l, W_l)."""
+        outputs = []
+        for i in range(3):
+            x = getattr(self, f"{hourglass}_{i}")(x)
+            if self.training or i == 2:
+                head = getattr(self, f"head{i}")(x)
+                outputs.append(volume_of(getattr(self, f"classif{i}")(head)))
+        if not self.training:
+            return upsampled_soft_argmin(outputs[-1], out_dhw)
+        return tuple(regress_full(o, out_dhw) for o in outputs)
+
 
 class MSNet2D(_MSNet):
     """2-D MobileStereoNet: (N, 3, H, W) normalised views -> (N, H, W)
@@ -167,11 +186,8 @@ class MSNet2D(_MSNet):
         fl, fr = self.features(left, right)
         volume = self.InterlacedVolume2D_0(fl, fr)          # (N, D4, H4, W4)
         x = self.SeparableConvBn2D_1(self.SeparableConvBn2D_0(volume)) + volume
-        for i in range(3):
-            x = getattr(self, f"Hourglass2D_{i}")(x)
-        logits = self.classif2(self.head2(x))
-        return upsampled_soft_argmin(logits[:, None],
-                                     (self.max_disparity, height, width))
+        return self.regress(x, "Hourglass2D", lambda logits: logits[:, None],
+                            (self.max_disparity, height, width))
 
 
 class MSNet3D(_MSNet):
@@ -193,8 +209,12 @@ class MSNet3D(_MSNet):
         fl, fr = self.features(left, right)
         volume = build_concat_volume(fl, fr, self.max_disparity // 4)
         x = self.MobileV2Block3D_0(self.ConvBnAct_0(volume))
-        for i in range(3):
-            x = getattr(self, f"Hourglass3DSeparable_{i}")(x)
-        logits = self.classif2(self.head2(x))
-        return upsampled_soft_argmin(logits,
-                                     (self.max_disparity, height, width))
+        return self.regress(x, "Hourglass3DSeparable", lambda logits: logits,
+                            (self.max_disparity, height, width))
+
+
+def msnet_loss(outputs: Sequence[torch.Tensor], gt_disparity: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Smooth-L1 multi-output loss over the three hourglass outputs: the
+    masked Huber losses (delta 1) weighed 0.5/0.7/1.0."""
+    return masked_huber_loss(outputs, MSNET_LOSS_WEIGHTS, gt_disparity, mask)

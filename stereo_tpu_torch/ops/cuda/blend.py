@@ -8,7 +8,8 @@ import torch.nn.functional as F
 
 from ..shift_stack import weighted_shift_sum
 from . import build
-from .launch import LAUNCHES, check_cuda, require, use_kernel
+from .launch import (LAUNCHES, check_cuda, refuse_autograd, require,
+                     use_kernel)
 
 
 def upsample_blend_plain(prob_low_ndhw: torch.Tensor, view_nchw: torch.Tensor,
@@ -35,6 +36,7 @@ def upsample_blend(prob_low_ndhw: torch.Tensor, view_nchw: torch.Tensor,
              f"{tuple(prob_low_ndhw.shape)} at scale {scale}")
     if not use_kernel(prob_low_ndhw, "upsample_blend"):
         return upsample_blend_plain(prob_low_ndhw, view_nchw, scale)
+    refuse_autograd("upsample_blend", prob_low_ndhw, view_nchw)
     h, w = scale * hl, scale * wl
     dev = prob_low_ndhw.device
     check_cuda("prob_low", prob_low_ndhw, dev, (n, num_d, hl, wl))

@@ -7,7 +7,8 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .launch import LAUNCHES, check_cuda, require, use_kernel
+from .launch import (LAUNCHES, check_cuda, refuse_autograd, require,
+                     use_kernel)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_CPG = 8   # channels per group the kernel is built for (GwcNet: 320 / 40)
@@ -42,6 +43,7 @@ def gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disparity: int,
                                f"{max_disparity}")
     if not use_kernel(left, "gwc_volume"):
         return gwc_volume_plain(left, right, max_disparity, num_groups)
+    refuse_autograd("gwc_volume", left, right)
     dev = left.device
     dtypes = tuple(_DTYPE_CODES)
     check_cuda("left", left, dev, (n, c, h, w), dtypes)

@@ -27,6 +27,18 @@ def use_kernel(t: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: unsupported device {t.device}")
 
 
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` when grad mode is on and an input requires a
+    gradient: a kernel launched through ctypes records no ``grad_fn``, so
+    its output would cut the gradient without a word.  The modules'
+    training mode runs differentiable plain versions instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(
+            f"{name}: the CUDA kernel has no gradient, but an input requires "
+            f"one; train in the module's training mode (module.train()), "
+            f"which does not launch it, or run under torch.no_grad()")
+
+
 def require(cond: bool, message: str) -> None:
     if not cond:
         raise ValueError(message)

@@ -20,7 +20,7 @@ from ..gather import take_lane, take_window_lanes
 from ..refinement import sampled_sad_volume
 from ..wta import wta_disparity
 from . import build
-from .launch import LAUNCHES, check_cuda, use_kernel
+from .launch import LAUNCHES, check_cuda, refuse_autograd, use_kernel
 
 
 def matching_core_plain(left_down: torch.Tensor, right_down: torch.Tensor,
@@ -52,6 +52,7 @@ def matching_core(left_down: torch.Tensor, right_down: torch.Tensor,
     """
     if not use_kernel(left_down, "matching_core"):
         return matching_core_plain(left_down, right_down, config)
+    refuse_autograd("matching_core", left_down, right_down)
     c = config
     h, w = left_down.shape[-2:]
     dev = left_down.device
@@ -97,6 +98,7 @@ def sampled_window(left_gray: torch.Tensor, right_gray: torch.Tensor,
     if not use_kernel(left_gray, "sampled_window"):
         return sampled_window_plain(left_gray, right_gray, disparity_down,
                                     config)
+    refuse_autograd("sampled_window", left_gray, right_gray, disparity_down)
     c = config
     k = c.k
     h, w = left_gray.shape[-2:]

@@ -6,9 +6,10 @@ drives (port of ``scripts/evaluate_depth_estimation_pipeline.py``).
 
 Grid over drives x {rvs off, rvs on} x backends; the six metrics (D1,
 Threshold_1/2/3/5, MAE) against Velodyne ground truth, dumped as JSON to a
-timestamped file in ``--output-dir``.  ``--synthetic`` (held-out generated
-scenes) needs the training package's scene generator, which is not ported
-yet.
+timestamped file in ``--output-dir``.  ``--synthetic`` evaluates on
+held-out generated scenes with exact ground truth instead
+(``SyntheticStereoCamera``; the defaults are the JAX package's accuracy
+record's protocol: seed 20260817, 8 frames at 384x1280).
 """
 
 from __future__ import annotations
@@ -20,22 +21,18 @@ import os
 from stereo_tpu_torch.pipeline import (DepthEstimationPipeline,
                                        extract_config_from_camera,
                                        run_depth_estimation_pipeline_evaluation)
-from stereo_tpu_torch.pipeline.camera import KittiSingleViewCamera
+from stereo_tpu_torch.pipeline.camera import (KittiSingleViewCamera,
+                                              SyntheticStereoCamera)
 from stereo_tpu_torch.pipeline.metrics import default_metrics
 from stereo_tpu_torch.utils.paths import timestamp_folder_name
-
-SYNTHETIC_NOT_PORTED = (
-    "--synthetic needs the synthetic stereo camera, which draws its scenes "
-    "with the training package's generator; it is ported with training "
-    "(ROADMAP.md, section 1, item 4: Training). Pass --drive-dirs.")
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--drive-dirs", nargs="+", default=None)
     parser.add_argument("--synthetic", action="store_true",
-                        help="held-out generated scenes with exact GT (not "
-                             "ported yet: raises)")
+                        help="evaluate on held-out generated scenes with "
+                             "exact GT (no KITTI data needed)")
     parser.add_argument("--n-frames", type=int, default=8,
                         help="synthetic mode: frames per evaluation")
     parser.add_argument("--image-shape", nargs=2, type=int,
@@ -60,24 +57,35 @@ def parse_args(argv=None):
                         help="one frame per drive (smoke run)")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    if args.synthetic:
-        parser.error(SYNTHETIC_NOT_PORTED)
-    if not args.drive_dirs:
-        parser.error("--drive-dirs is required")
+    if not args.synthetic and not args.drive_dirs:
+        parser.error("--drive-dirs is required without --synthetic")
     return args
+
+
+def make_camera(args, drive, rvs):
+    if args.synthetic:
+        # The rvs-on arms run on depth-prior scenes (appearance predicts
+        # depth, as on KITTI); random-disparity scenes cannot be solved
+        # from one view.
+        return SyntheticStereoCamera(
+            n_frames=(1 if args.only_one else args.n_frames),
+            height=args.image_shape[0], width=args.image_shape[1],
+            return_right_view=(rvs == "off"), seed=args.seed,
+            depth_prior=(rvs == "on"), device=args.device)
+    return KittiSingleViewCamera(drive, return_right_view=(rvs == "off"),
+                                 only_one=args.only_one)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
     results = {}
     shared_synthesis = None     # one Deep3D for the whole rvs_on grid
-    for drive in args.drive_dirs:
+    drives = ["synthetic"] if args.synthetic else args.drive_dirs
+    for drive in drives:
         drive_key = os.path.basename(os.path.normpath(drive))
         for rvs in args.rvs:
             for backend in args.backends:
-                camera = KittiSingleViewCamera(
-                    drive, return_right_view=(rvs == "off"),
-                    only_one=args.only_one)
+                camera = make_camera(args, drive, rvs)
                 config = extract_config_from_camera(camera).update(
                     stereo_matching_backend=backend,
                     rvs_checkpoint=args.rvs_checkpoint,

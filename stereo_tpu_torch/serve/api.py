@@ -41,6 +41,9 @@ def decode_png_to_pipeline_image(data: bytes, image_shape,
     antialiased) and rounded back to uint8, as an image library's resize
     would."""
     arr = decode_png(data)
+    if arr.dtype != np.uint8:
+        raise BadRequestError("16-bit PNG uploads are not supported; send "
+                              "8-bit grey, RGB or RGBA")
     if arr.shape[2] == 1:
         arr = np.repeat(arr, 3, axis=2)
     chw = torch.from_numpy(np.ascontiguousarray(arr[..., :3].transpose(2, 0, 1)))

@@ -3,10 +3,11 @@ decoder, the hooks its encoder.
 
 ``decode_png`` checks the chunks (CRCs, header) here and decodes the
 pixels with the native host runtime (``stereo_tpu_torch._native``, zlib
-in C++): 8-bit grey, RGB and RGBA, non-interlaced, all five filter types;
-anything else raises ``BadRequestError``.  ``decode_png_python`` is the
-same decode with the rows unfiltered in Python, byte by byte for the
-Average and Paeth filters: the native decoder's test oracle.
+in C++): 8- and 16-bit grey, RGB and RGBA (16-bit grey is KITTI's
+disparity format), non-interlaced, all five filter types; anything else
+raises ``BadRequestError``.  ``decode_png_python`` is the same decode with
+the rows unfiltered in Python, byte by byte for the Average and Paeth
+filters: the native decoder's test oracle.
 ``encode_png`` writes 8-bit grey and RGB with the standard library
 (``zlib``, ``struct``).  The card's machine has no imaging library.
 """
@@ -83,7 +84,7 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
 
 def _parse(data: bytes):
     """Check the signature, chunks and header of PNG bytes: returns
-    ``(height, width, channels, idat_chunks)``."""
+    ``(height, width, channels, bit_depth, idat_chunks)``."""
     if not data.startswith(_SIGNATURE):
         raise BadRequestError("not a PNG file")
     header, idat = None, []
@@ -100,19 +101,19 @@ def _parse(data: bytes):
     if header is None:
         raise BadRequestError("PNG has no IHDR chunk")
     width, height, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace != 0:
+    if depth not in (8, 16) or color not in _CHANNELS or interlace != 0:
         raise BadRequestError(
             f"unsupported PNG (bit depth {depth}, colour type {color}, "
-            f"interlace {interlace}); 8-bit grey, RGB or RGBA only")
-    return height, width, _CHANNELS[color], idat
+            f"interlace {interlace}); 8- or 16-bit grey, RGB or RGBA only")
+    return height, width, _CHANNELS[color], depth, idat
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, C) uint8 with C = 1, 3 or 4, decoded by the
-    native host runtime."""
+    """PNG bytes -> (H, W, C) with C = 1, 3 or 4, uint8 for bit depth 8
+    and uint16 for 16, decoded by the native host runtime."""
     from .. import _native
 
-    height, width, channels, _ = _parse(data)
+    height, width, channels, _, _ = _parse(data)
     try:
         return _native.decode_png_hwc(data).reshape(height, width, channels)
     except ValueError as exc:   # inflate, size or filter-type failure
@@ -122,16 +123,19 @@ def decode_png(data: bytes) -> np.ndarray:
 def decode_png_python(data: bytes) -> np.ndarray:
     """``decode_png`` with zlib and the row filters in Python: the test
     oracle of the native decoder."""
-    height, width, channels, idat = _parse(data)
-    stride = width * channels
+    height, width, channels, depth, idat = _parse(data)
+    bpp = channels * depth // 8          # the filters' byte distance
+    stride = width * bpp
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as exc:
         raise BadRequestError(f"corrupt PNG data: {exc}") from exc
     if len(raw) != height * (stride + 1):
         raise BadRequestError("PNG data does not match its size")
-    return _unfilter(raw, height, stride, channels).reshape(height, width,
-                                                            channels)
+    rows = _unfilter(raw, height, stride, bpp)
+    if depth == 16:
+        rows = rows.view(">u2").astype(np.uint16)
+    return rows.reshape(height, width, channels)
 
 
 def encode_png(image: np.ndarray) -> bytes:

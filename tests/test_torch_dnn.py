@@ -133,8 +133,8 @@ def test_block_matches_flax(name):
     want = np.asarray(module.apply(variables, jnp.asarray(x)))
     block = make_port()
     block.load_state_dict(stereo_state_dict_from_flax(flat), strict=True)
-    with torch.no_grad():
-        got = block(channels_first(x))
+    with torch.no_grad():   # eval mode: Flax's use_running_average=True
+        got = block.eval()(channels_first(x))
     got = np.moveaxis(got.numpy(), 1, -1)
     assert got.shape == want.shape
     # Float32 sums of up to a few hundred terms in another order.

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``stereo_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, Flax, PIL, OpenCV or ``stereo_tpu`` (the
+``chip_smoke.py`` imports JAX, Flax, optax, PIL, OpenCV or ``stereo_tpu`` (the
 card's machine has none of them), and its entry points never fall back to
 the CPU on their own."""
 
@@ -15,7 +15,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "stereo_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "cv2", "stereo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "cv2", "stereo_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

@@ -5,6 +5,7 @@ native host runtime, and the PNG decoder on every filter type."""
 import io
 import os
 import struct
+import time
 import zlib
 
 import numpy as np
@@ -127,7 +128,24 @@ def test_video_round_trip_keeps_frames_and_order(tmp_path):
 
 # --- the native host runtime -----------------------------------------------
 
+def jax_native_loaded(timeout: float = 60.0):
+    """The JAX package's native library, loaded.  It builds in place under
+    a fixed name without a lock, so a test process that runs beside
+    others building it can find a half-written file, record a build error
+    and fall back to NumPy.  Wait for the racing build and load again,
+    bounded; then insist on the native code, so that native is compared
+    with native and never quietly with the fallback."""
+    deadline = time.monotonic() + timeout
+    while not jax_native.available() and time.monotonic() < deadline:
+        time.sleep(1.0)
+        jax_native._build_error = None        # forget the failed attempt
+    assert jax_native.available(), (
+        f"stereo_tpu._native did not load: {jax_native.build_error()}")
+    return jax_native
+
+
 def test_native_resize_pool_gray_equal_jax_native():
+    jax_native_loaded()
     rng = np.random.default_rng(4)
     chw = rng.uniform(0, 255, (3, 16, 24)).astype(np.float32)
     for shape in ((8, 12), (21, 37), (16, 24)):

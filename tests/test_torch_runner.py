@@ -439,9 +439,29 @@ def test_asgi_reply_equals_http_server_reply():
 # --- entry points ----------------------------------------------------------
 
 def test_synthetic_evaluation_names_the_roadmap_item(capsys):
+    """``--synthetic`` is ported (ROADMAP section 1, item 4, training): it
+    parses with the JAX script's defaults, the accuracy record's protocol;
+    without it the drives are required."""
+    args = evaluate_depth_estimation_pipeline.parse_args(["--synthetic"])
+    assert (args.seed, args.n_frames, args.image_shape) == (
+        20260817, 8, [384, 1280])
+    assert args.backends == ["classical", "gwcnet", "msnet3d"]
     with pytest.raises(SystemExit):
-        evaluate_depth_estimation_pipeline.parse_args(["--synthetic"])
-    assert "ROADMAP.md" in capsys.readouterr().err
+        evaluate_depth_estimation_pipeline.parse_args([])
+    assert "--synthetic" in capsys.readouterr().err
+
+
+def test_synthetic_evaluation_runs_on_the_cpu(tmp_path):
+    """One generated frame at 64x128 through the classical arm with the
+    real right view: the six metrics, finite, written as JSON."""
+    results = evaluate_depth_estimation_pipeline.main(
+        ["--synthetic", "--n-frames", "1", "--image-shape", "64", "128",
+         "--backends", "classical", "--rvs", "off", "--output-dir",
+         str(tmp_path), "--device", "cpu"])
+    assert set(results) == {"synthetic/rvs_off/classical"}
+    metrics = results["synthetic/rvs_off/classical"]
+    assert len(metrics) == 6 and all(np.isfinite(v) for v in metrics.values())
+    assert 0.0 <= metrics["D1"] <= 1.0
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
