@@ -80,16 +80,37 @@ Phases, each ending in one flushed JSON line with its name and seconds:
    server_asgi: ``create_asgi_app`` around the classical pipeline, driven
              through ASGI's scope/receive/send: GET, a raw and a multipart
              POST of the fixture frame, and a bad payload (400).
+9. the mesh, virtual: every mesh names cuda:0 n times
+   (``mesh_devices=[cuda:0] * n``), so its shards run in turn on the card:
+   mesh_kernels: the row-halo mode (``rows_prepadded``) of
+             ``matching_core`` and ``sampled_window`` against their plain
+             versions bit for bit on the row shards of KITTI (tile 2 and
+             4) and ``MatchingConfig()`` (tile 4): the integer pairs, the
+             real pair and the four winner maps, with times and bounds;
+   mesh:     ``ShardedClassicalEngine`` through the pipeline against the
+             single-device engine: KITTI on (1,4,1), (2,2,1) and (1,1,3),
+             Middlebury on (1,4,1) and (1,2,5); equal on the integer pairs,
+             >= 99% within 0.5 px on the real ones; ms/frame of each;
+   mesh_single_view: the single view on (2,2,1), batch 4
+             (``ShardedSingleViewEngine``), against the single-device
+             pipeline's ``process_batch``;
+   mesh_dnn: GwcNet (committed weights) on (2,2,2), batch 4, against the
+             single-device backend frame by frame within 5e-3 px;
+   mesh_server: a server on a classical (2,1,1) mesh pipeline,
+             micro-batch 2, and ``check_devices`` over the mesh.
 
-The kernel launch counts are zeroed just before each path of phases 7-8
+The kernel launch counts are zeroed just before each path of phases 7-9
 (the exported networks' inference included) is driven and read just
-after; every kernel of that path must have launched.  Training launches
+after; every kernel of that path must have launched, and the mesh phases
+together must launch all four kernels and both row-halo modes.  Training launches
 none: the networks train in their training mode, which runs the
 differentiable plain compositions, as the JAX package trains through XLA.
 A line ``{"training": ...}`` gives each trainer's ms/step and peak
 memory.  Then a JSON line with every kernel's numbers (its launches
 summed over those paths; the Middlebury entries' over the ``middlebury``
-phase), the ``nvidia-smi`` line, and last
+phase and the Middlebury meshes; the row-halo entries,
+``matching_core[rows_prepadded]`` and ``sampled_window[rows_prepadded]``,
+timed at shard 1 of KITTI's tile 4), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and the script
 exits non-zero without that last line; so does a machine without CUDA.
 Every network loads its committed checkpoint (``data/checkpoints/*.npz``)
@@ -1703,6 +1724,332 @@ def phase_server_asgi(torch, pipeline):
                         seconds=round(seconds, 3))
 
 
+# The virtual mesh: every phase below names one card n times
+# (``mesh_devices=[cuda:0] * n``), so the shards run in turn on it.  That
+# shows each sharded path right and each shard's kernels at their shapes;
+# it does not show copies between cards or shards overlapping.
+ROW_HALO = "[rows_prepadded]"
+
+
+def virtual_mesh(torch, n: int) -> list:
+    return [torch.device("cuda", 0)] * n
+
+
+def shard_rows(torch, full, ti: int, local_h: int, halo: int):
+    """Rows ``ti*local_h - halo .. (ti+1)*local_h + halo`` of ``full``,
+    wrapped at the global borders: shard ``ti``'s rows after the ring
+    exchange of ``halo`` rows."""
+    idx = torch.arange(ti * local_h - halo, (ti + 1) * local_h + halo,
+                       device=full.device) % full.shape[-2]
+    return full.index_select(-2, idx).contiguous()
+
+
+def check_row_halo(torch, cfg, dev, rng, pair, tile: int, label: str) -> list:
+    """The row-halo mode of ``matching_core`` and ``sampled_window`` on the
+    row shards of ``tile`` at ``cfg``, against their plain versions, bit for
+    bit: ``matching_core`` on every shard of the real pair's luma and on
+    shard 0 (which wraps at the top) of every integer pair of
+    ``integer_pairs``; ``sampled_window`` on every shard at the kernel's
+    winners and at the smallest, largest and seeded winners.  Returns the
+    two kernels' rows at shard 1 of the real pair, with their times."""
+    from stereo_tpu_torch.ops import mean_pool, rgb_to_grayscale
+    from stereo_tpu_torch.ops.cuda import (matching_core, matching_core_plain,
+                                           sampled_window,
+                                           sampled_window_plain)
+
+    k = cfg.k
+    pad, sad_r = cfg.large_mbm_radius + cfg.cost_patch_radius, \
+        cfg.sad_patch_radius
+    local_hd = cfg.down_height // tile
+    local_h = k * local_hd
+    lo, num_d = cfg.min_disparity_down, cfg.num_disparities_down
+    shape = (f"{cfg.height}x{cfg.width}, disparity {cfg.min_disparity}.."
+             f"{cfg.max_disparity}, tile {tile}: {local_hd} rows of "
+             f"{cfg.down_width} + 2x{pad}")
+
+    def equal(a, b):
+        return bool(torch.equal(a, b))
+
+    mc_equal, cases = True, 0
+    for _, _, left_i, right_i in integer_pairs(cfg, rng):
+        ld = shard_rows(torch, torch.from_numpy(left_i).to(dev), 0, local_hd,
+                        pad)
+        rd = shard_rows(torch, torch.from_numpy(
+            np.ascontiguousarray(right_i)).to(dev), 0, local_hd, pad)
+        got = matching_core(ld, rd, cfg, rows_prepadded=True)
+        want = matching_core_plain(ld, rd, cfg, rows_prepadded=True)
+        mc_equal &= equal(got[0], want[0]) and equal(got[1], want[1])
+        cases += 1
+    require(mc_equal, f"matching_core{ROW_HALO} {label}: an integer pair "
+                      f"differs from the plain version")
+
+    left, right = pair
+    lg = rgb_to_grayscale(torch.from_numpy(left).to(dev)).contiguous()
+    rg = rgb_to_grayscale(torch.from_numpy(right).to(dev)).contiguous()
+    errs = dict(matching_core=0.0, sampled_window=0.0)
+    shards = []
+    for ti in range(tile):
+        ld, rd = (shard_rows(torch, mean_pool(x, k), ti, local_hd, pad)
+                  for x in (lg, rg))
+        disp, mbm = matching_core(ld, rd, cfg, rows_prepadded=True)
+        disp_p, mbm_p = matching_core_plain(ld, rd, cfg, rows_prepadded=True)
+        errs["matching_core"] = max(
+            errs["matching_core"], float((disp - disp_p).abs().max()),
+            float((mbm - mbm_p).abs().max()))
+        lgs, rgs = (shard_rows(torch, x, ti, local_h, sad_r)
+                    for x in (lg, rg))
+        for winners in (disp, torch.full_like(disp, float(lo)),
+                        torch.full_like(disp, float(lo + num_d - 1)),
+                        torch.from_numpy(rng.integers(
+                            lo, lo + num_d, tuple(disp.shape)).astype(
+                                np.float32)).to(dev)):
+            win = sampled_window(lgs, rgs, winners, cfg, rows_prepadded=True)
+            win_p = sampled_window_plain(lgs, rgs, winners, cfg,
+                                         rows_prepadded=True)
+            errs["sampled_window"] = max(errs["sampled_window"],
+                                         float((win - win_p).abs().max()))
+        shards.append((ld, rd, lgs, rgs, disp))
+    require(errs == dict(matching_core=0.0, sampled_window=0.0),
+            f"row-halo kernels {label} differ from the plain versions: {errs}")
+
+    # Times at shard 1 (shard 0 when the mesh has one).
+    ld, rd, lgs, rgs, disp = shards[min(1, tile - 1)]
+    hd, wd = disp.shape
+    r, s, m, L = (cfg.cost_patch_radius, cfg.small_mbm_radius,
+                  cfg.mid_mbm_radius, cfg.large_mbm_radius)
+    per = 2 + 4 * r + 1 + 4 * (L + s + m) + 2 + 1
+    mc_bound = bound(4 * (2 * ld.numel() + 4 * hd * wd), per * num_d * hd * wd)
+    win_n, patch = 2 * k + 3, 2 * sad_r + 1
+    sw_bound = bound(4 * (2 * lgs.numel() + hd * wd + win_n * hd * wd),
+                     3 * win_n * patch * patch * hd * wd)
+    common = dict(config=shape, route="cuda", library_ms=None)
+    return [
+        dict(name=f"matching_core{ROW_HALO}", kernel=f"matching_core{ROW_HALO}",
+             source="stereo_tpu_torch/csrc/matching_core.cu",
+             replaces="stereo_tpu/ops/pallas/kernels.py:210",
+             max_abs_err=errs["matching_core"], integer_cases=cases,
+             integer_cases_equal=mc_equal,
+             **timings(lambda: matching_core(ld, rd, cfg,
+                                             rows_prepadded=True)),
+             plain_ms=cuda_ms(lambda: matching_core_plain(
+                 ld, rd, cfg, rows_prepadded=True), 3),
+             bound_ms=mc_bound[0], bound_by=mc_bound[1], **common),
+        dict(name=f"sampled_window{ROW_HALO}",
+             kernel=f"sampled_window{ROW_HALO}",
+             source="stereo_tpu_torch/csrc/sampled_window.cu",
+             replaces="stereo_tpu/ops/pallas/kernels.py:394",
+             max_abs_err=errs["sampled_window"],
+             **timings(lambda: sampled_window(lgs, rgs, disp, cfg,
+                                              rows_prepadded=True)),
+             plain_ms=cuda_ms(lambda: sampled_window_plain(
+                 lgs, rgs, disp, cfg, rows_prepadded=True), 3),
+             bound_ms=sw_bound[0], bound_by=sw_bound[1], **common)]
+
+
+def phase_mesh_kernels(torch, dev, kitti, middlebury) -> dict:
+    """``check_row_halo`` at the shards of the KITTI config (tile 2 and 4)
+    and of the Middlebury one (tile 4)."""
+    rng = np.random.default_rng(6)
+    cases = {}
+    for label, cfg, pair, tile in (
+            ("kitti_tile2", kitti, kitti_pair(), 2),
+            ("kitti_tile4", kitti, kitti_pair(), 4),
+            ("middlebury_tile4", middlebury, middlebury_pair(), 4)):
+        cases[label] = check_row_halo(torch, cfg, dev, rng, pair, tile, label)
+    return cases
+
+
+def real_pair(shape, seed: int, shift: int):
+    """A seeded real-valued RGB pair (no value is an integer) and its roll
+    by -``shift`` columns."""
+    rng = np.random.default_rng(seed)
+    left = rng.uniform(0, 255, (3, *shape)).astype(np.float32)
+    return left, np.roll(left, -shift, axis=-1)
+
+
+def phase_mesh(torch, dev, kitti, middlebury):
+    """``ShardedClassicalEngine`` through ``DepthEstimationPipeline``'s
+    ``process_batch`` with the right views given, against the single-device
+    engine on the same frames: KITTI on (1,4,1), (2,2,1) and (1,1,3) (33
+    planes over 3 shards: the blockwise path), Middlebury on (1,4,1) and
+    (1,2,5) (95 planes over 5).  Equal on the integer pairs; on the real
+    pairs at least 99% of pixels within 0.5 px.  Returns the launch counts
+    of the KITTI and of the Middlebury runs, and each mesh's ms/frame
+    beside the single device's."""
+    from stereo_tpu_torch.core.config import MeshConfig, PipelineConfig
+    from stereo_tpu_torch.matching.classical import ClassicalStereoEngine
+    from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from stereo_tpu_torch.pipeline import DepthEstimationPipeline
+
+    runs = (("kitti", kitti, kitti_pair(), ((1, 4, 1), (2, 2, 1), (1, 1, 3))),
+            ("middlebury", middlebury, middlebury_pair(),
+             ((1, 4, 1), (1, 2, 5))))
+    counts = {"kitti": {k: 0 for k in LAUNCHES},
+              "middlebury": {k: 0 for k in LAUNCHES}}
+    numbers = {}
+    for label, cfg, integer, meshes in runs:
+        shape = (cfg.height, cfg.width)
+        pairs = {"integer": integer, "real": real_pair(shape, 8, 20)}
+        single = ClassicalStereoEngine(cfg, device=dev)
+        for name, (left, right) in pairs.items():
+            lefts = torch.from_numpy(np.stack([left, left[:, ::-1]])).to(dev)
+            rights = torch.from_numpy(np.stack([right, right[:, ::-1]])
+                                      ).to(dev)
+            want = single.compute_disparity_maps(lefts, rights)
+            single_ms = frame_ms(torch, lambda: single.compute_disparity_maps(
+                lefts[:1], rights[:1]), 5)
+            numbers[f"{label}/single/{name}"] = dict(
+                ms_per_frame_median=statistics.median(single_ms))
+            for mesh in meshes:
+                mc = MeshConfig(*mesh)
+                pipeline = DepthEstimationPipeline(
+                    PipelineConfig(image_shape=shape,
+                                   min_disparity=cfg.min_disparity,
+                                   max_disparity=cfg.max_disparity,
+                                   matching=cfg, mesh=mc), device=dev,
+                    mesh_devices=virtual_mesh(torch, mc.num_devices))
+                n = mc.data
+                reset_launch_counts()
+                got = pipeline.process_batch(lefts[:n], rights[:n])
+                torch.cuda.synchronize()
+                run_counts = dict(LAUNCHES)
+                for k, v in run_counts.items():
+                    counts[label][k] += v
+                got = got.disparity_map
+                diff = (got - want[:n]).abs()
+                equal = bool(torch.equal(got, want[:n]))
+                frac = float((diff <= 0.5).float().mean())
+                engine = pipeline.stereo_matching.engine
+                kernels = ("matching_core" + ROW_HALO,
+                           "sampled_window" + ROW_HALO)
+                require(all(run_counts[k] >= 1 for k in kernels)
+                        == engine.use_kernels,
+                        f"mesh {label} {mesh}: kernel path "
+                        f"{engine.use_kernels}, launches {run_counts}")
+                require(equal if name == "integer" else frac >= 0.99,
+                        f"mesh {label} {mesh} {name}: {frac} within 0.5 "
+                        f"px, max {float(diff.max())}")
+                times = frame_ms(torch, lambda: pipeline.process_batch(
+                    lefts[:n], rights[:n]), 3)
+                numbers[f"{label}/{'x'.join(map(str, mesh))}/{name}"] = dict(
+                    kernel_path=engine.use_kernels, equal=equal,
+                    frac_within_0p5=frac, max_abs_diff=float(diff.max()),
+                    ms_per_frame_median=statistics.median(times) / n,
+                    launches=run_counts)
+                del pipeline
+        del single
+        torch.cuda.empty_cache()
+    return counts, numbers
+
+
+def phase_mesh_single_view(torch, dev, config, synthesis):
+    """The single view of ``config`` on a (2,2,1) virtual mesh
+    (``process_batch(left)`` dispatches to ``ShardedSingleViewEngine``:
+    Deep3D and the classical matcher per frame on its device) against the
+    single-device pipeline's ``process_batch`` of the same 4 frames."""
+    from stereo_tpu_torch.core.config import MeshConfig
+    from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from stereo_tpu_torch.pipeline import DepthEstimationPipeline
+
+    shape = tuple(config.image_shape)
+    frames = torch.stack(seeded_frames(torch, dev, shape, 9))
+    single = DepthEstimationPipeline(config, synthesis=synthesis, device=dev)
+    want = single.process_batch(frames)
+    mc = MeshConfig(data=2, tile=2, disp=1)
+    pipeline = DepthEstimationPipeline(
+        config.replace(mesh=mc), synthesis=synthesis, device=dev,
+        mesh_devices=virtual_mesh(torch, mc.num_devices))
+    reset_launch_counts()
+    got = pipeline.process_batch(frames)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    require(all(counts[k] >= 1 for k in CLASSICAL_KERNELS),
+            f"mesh single view missed a kernel: {counts}")
+    require(tuple(got.disparity_map.shape) == (4, *shape)
+            and tuple(got.right_image.shape) == (4, 3, *shape),
+            f"mesh single view shapes {tuple(got.disparity_map.shape)}")
+    diff = (got.disparity_map - want.disparity_map).abs()
+    view_diff = float((got.right_image - want.right_image).abs().max())
+    equal = bool(torch.equal(got.disparity_map, want.disparity_map))
+    frac = float((diff <= 0.5).float().mean())
+    # Bit-equal, or JAX's gate (tests/test_parallel_synthesis.py): Deep3D
+    # runs each frame at batch 1 on the mesh and the batch of 4 on the
+    # single device, and cuDNN may round those in other places.
+    require(equal or (frac >= 0.99 and float(diff.mean()) < 0.1),
+            f"mesh single view: {frac} within 0.5 px, mean "
+            f"{float(diff.mean())}")
+    times = frame_ms(torch, lambda: pipeline.process_batch(frames), 3)
+    single_times = frame_ms(torch, lambda: single.process_batch(frames), 3)
+    return counts, dict(equal=equal, frac_within_0p5=frac,
+                        mean_abs_diff=float(diff.mean()),
+                        max_abs_diff=float(diff.max()),
+                        right_view_max_abs_diff=view_diff, launches=counts,
+                        ms_per_frame_median=statistics.median(times) / 4,
+                        single_ms_per_frame_median=statistics.median(
+                            single_times) / 4)
+
+
+def phase_mesh_dnn(torch, dev, config):
+    """GwcNet (committed weights, float32) at ``config``'s shape on a
+    (2,2,2) virtual mesh through the pipeline's ``process_batch`` with the
+    right views given, against the single-device backend frame by frame
+    (within 5e-3 px)."""
+    from stereo_tpu_torch.core.config import MeshConfig
+    from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from stereo_tpu_torch.pipeline import (DepthEstimationPipeline,
+                                           DnnStereoMatchingBackend)
+
+    shape = tuple(config.image_shape)
+    left = torch.stack(seeded_frames(torch, dev, shape, 10))
+    right = torch.roll(left, -7, dims=-1)
+    mc = MeshConfig(data=2, tile=2, disp=2)
+    pipeline = DepthEstimationPipeline(
+        config.replace(stereo_matching_backend="gwcnet", mesh=mc), device=dev,
+        mesh_devices=virtual_mesh(torch, mc.num_devices))
+    reset_launch_counts()
+    got = pipeline.process_batch(left, right).disparity_map
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    require(counts["gwc_volume"] >= 1, f"mesh GwcNet missed gwc_volume: "
+                                       f"{counts}")
+    backend = pipeline.stereo_matching.engine.replicas[dev].model
+    single = DnnStereoMatchingBackend("gwcnet", shape,
+                                      max_disparity=backend.max_disparity,
+                                      device=dev)
+    want = torch.stack([single.process(l, r) for l, r in zip(left, right)])
+    diff = float((got - want).abs().max())
+    require(diff <= 5e-3, f"mesh GwcNet off by {diff} px")
+    times = frame_ms(torch, lambda: pipeline.process_batch(left, right), 3)
+    single_times = frame_ms(torch, lambda: single.process_batch(left, right),
+                            3)
+    return counts, dict(weights=pipeline.stereo_matching.weights,
+                        max_abs_diff=diff, equal=bool(torch.equal(got, want)),
+                        launches=counts,
+                        ms_per_frame_median=statistics.median(times) / 4,
+                        single_batch_ms_per_frame_median=statistics.median(
+                            single_times) / 4)
+
+
+def phase_mesh_server(torch, dev, config, synthesis):
+    """A server on a classical (2,1,1) virtual-mesh pipeline of ``config``,
+    micro-batch 2, answers PNG uploads (``phase_server``), and
+    ``check_devices`` over the mesh's devices is healthy."""
+    from stereo_tpu_torch.core.config import MeshConfig
+    from stereo_tpu_torch.parallel.health import check_devices
+    from stereo_tpu_torch.pipeline import DepthEstimationPipeline
+
+    mc = MeshConfig(data=2)
+    pipeline = DepthEstimationPipeline(
+        config.replace(mesh=mc), synthesis=synthesis, device=dev,
+        mesh_devices=virtual_mesh(torch, mc.num_devices))
+    counts, numbers = phase_server(torch, pipeline, dev, CLASSICAL_KERNELS)
+    report = check_devices(timeout_s=60, devices=list(pipeline.mesh.devices.flat))
+    require(report.healthy, f"mesh health: {report}")
+    return counts, dict(numbers, health=dict(
+        healthy=report.healthy, latency_s=report.latency_s,
+        num_devices=report.num_devices))
+
+
 def main() -> int:
     import tempfile
 
@@ -1836,11 +2183,43 @@ def main() -> int:
     t = time.perf_counter()
     counts["server_asgi"], numbers = phase_server_asgi(torch, pipeline)
     report("server_asgi", t, **numbers)
+    del pipeline, dnn_pipeline
+    torch.cuda.empty_cache()
 
+    # The mesh phases, on a virtual mesh of cuda:0.
+    t = time.perf_counter()
+    row_halo = phase_mesh_kernels(torch, dev, cfg, MatchingConfig())
+    report("mesh_kernels", t, mesh="virtual: cuda:0 named n times",
+           cases=row_halo)
+
+    t = time.perf_counter()
+    mesh_counts, numbers = phase_mesh(torch, dev, cfg, MatchingConfig())
+    counts["mesh"] = mesh_counts["kitti"]
+    report("mesh", t, **numbers)
+    for label, phase, args in (
+            ("mesh_single_view", phase_mesh_single_view,
+             (PipelineConfig(), synthesis)),
+            ("mesh_dnn", phase_mesh_dnn, (PipelineConfig(),)),
+            ("mesh_server", phase_mesh_server,
+             (PipelineConfig(), synthesis))):
+        t = time.perf_counter()
+        counts[label], numbers = phase(torch, dev, *args)
+        report(label, t, **numbers)
+        torch.cuda.empty_cache()
+    mesh_launches = {k: sum(c[k] for label, c in counts.items()
+                            if label.startswith("mesh"))
+                     for k in counts["mesh"]}
+    require(all(v >= 1 for v in mesh_launches.values()),
+            f"the mesh phases missed a kernel: {mesh_launches}")
+
+    kernels += row_halo["kitti_tile4"]
     for k in kernels:
         k["launches"] = sum(c[k["kernel"]] for c in counts.values())
+    middlebury += [dict(k, name=k["name"] + "_middlebury")
+                   for k in row_halo["middlebury_tile4"]]
     for k in middlebury:
-        k["launches"] = middlebury_counts[k["kernel"]]
+        k["launches"] = (middlebury_counts[k["kernel"]]
+                         + mesh_counts["middlebury"][k["kernel"]])
     kernels += middlebury
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1872,14 +2251,14 @@ def launch_classical(torch, lib, cfg, left_down, right_down, disparity,
             mbm.data_ptr(), hd, wd, cfg.min_disparity_down,
             cfg.num_disparities_down, cfg.cost_patch_radius,
             cfg.small_mbm_radius, cfg.mid_mbm_radius, cfg.large_mbm_radius,
-            stream), "matching_core")
+            0, stream), "matching_core")
 
     def run_sampled_window():
         stream = torch.cuda.current_stream().cuda_stream
         build.check(lib.stereo_sampled_window(
             left_gray.data_ptr(), right_gray.data_ptr(), disparity.data_ptr(),
             win.data_ptr(), h, w, hd, wd, cfg.k, cfg.sad_patch_radius,
-            cfg.min_disparity_down, cfg.num_disparities_down, stream),
+            cfg.min_disparity_down, cfg.num_disparities_down, 0, stream),
             "sampled_window")
 
     return run_matching_core, run_sampled_window, (disp, mbm, win)

@@ -45,6 +45,11 @@
 // launcher splits a tile only into as many chunks as leave every block on
 // the card at once (cluster_size): 2 at the KITTI main path, where the
 // 120 tiles would leave SM slots empty, and 1 at Middlebury, 510 tiles.
+//
+// Row-halo mode (the TPU kernel's rows_prepadded, run per row shard by the
+// sharded engine): the inputs carry pad extra rows above and below, taken
+// from the neighbouring shards, and only the columns wrap.  It is the same
+// kernel: the staging reads row i + pad instead of row i mod h.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -106,6 +111,16 @@ __device__ __forceinline__ int wrap_index(int i, int n) {
     return r < 0 ? r + n : r;
 }
 
+// The input row that holds image row i (-pad <= i < h + pad for every row
+// an output row of the image reads).  pad == 0: the input is the image, and
+// rows wrap mod h.  pad > 0: the input carries pad more rows above and
+// below (a row shard extended by its neighbours' rows), and nothing wraps;
+// the rows of a tile's outputs past h, which are not stored, are clamped.
+__device__ __forceinline__ int input_row(int i, int h, int pad) {
+    if (pad == 0) return wrap_index(i, h);
+    return min(max(i + pad, 0), h + 2 * pad - 1);
+}
+
 // This thread's items of a grid with `cols` columns, row-major, in steps
 // of kThreads: set up once, then stepped without a division.
 struct Walk {
@@ -139,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 matching_core_kernel(const float* __restrict__ left,
                      const float* __restrict__ right,
                      float* __restrict__ disp, float* __restrict__ mbm,
-                     int h, int w, int min_dd, int num_d,
+                     int h, int w, int min_dd, int num_d, int pad,
                      Shape<kR, kS, kM, kL> g) {
     using G = Shape<kR, kS, kM, kL>;
     extern __shared__ float smem[];
@@ -162,9 +177,10 @@ matching_core_kernel(const float* __restrict__ left,
     const int tid = threadIdx.x;
     const int x0 = (blockIdx.x / cl) * kTileW, y0 = blockIdx.y * kTileH;
 
-    // Stage the left tile and the right band, wrapping once, column by
-    // column (pixel (py, px) at px * PHS + py): every row and column offset
-    // a thread reads below is then a constant.  sR column c holds right
+    // Stage the left tile and the right band, wrapping once (rows only
+    // without a row pad, see input_row), column by column (pixel (py, px)
+    // at px * PHS + py): every row and column offset a thread reads below
+    // is then a constant.  sR column c holds right
     // column x0 - halo - r - (min_dd + d1 - 1) + c, so plane d reads it at
     // offset d1 - 1 - d from the left tile's column.
     const int top = y0 - halo - r, lcol = x0 - halo - r;
@@ -172,12 +188,12 @@ matching_core_kernel(const float* __restrict__ left,
     for (Walk it(PW); it.row < PH; it.next())
         __pipeline_memcpy_async(
             sL + it.col * PHS + it.row,
-            left + wrap_index(top + it.row, h) * w + wrap_index(lcol + it.col, w),
+            left + input_row(top + it.row, h, pad) * w + wrap_index(lcol + it.col, w),
             sizeof(float));
     for (Walk it(RW); it.row < PH; it.next())
         __pipeline_memcpy_async(
             sR + it.col * PHS + it.row,
-            right + wrap_index(top + it.row, h) * w + wrap_index(rcol + it.col, w),
+            right + input_row(top + it.row, h, pad) * w + wrap_index(rcol + it.col, w),
             sizeof(float));
     __pipeline_commit();
     __pipeline_wait_prior(0);
@@ -360,8 +376,8 @@ int cluster_size(int tiles, int num_d, int blocks_per_sm) {
 
 template <int kR, int kS, int kM, int kL>
 int launch(const float* left, const float* right, float* disp, float* mbm,
-           int h, int w, int min_dd, int num_d, Shape<kR, kS, kM, kL> g,
-           cudaStream_t stream) {
+           int h, int w, int min_dd, int num_d, int pad,
+           Shape<kR, kS, kM, kL> g, cudaStream_t stream) {
     auto kernel = matching_core_kernel<kR, kS, kM, kL>;
     const int tiles_x = (w + kTileW - 1) / kTileW, tiles_y = (h + kTileH - 1) / kTileH;
     // The most shared memory a block takes (no split) bounds every size.
@@ -391,21 +407,27 @@ int launch(const float* left, const float* right, float* disp, float* mbm,
     config.attrs = &attr;
     config.numAttrs = 1;
     err = cudaLaunchKernelEx(&config, kernel, left, right, disp, mbm, h, w,
-                             min_dd, num_d, g);
+                             min_dd, num_d, pad, g);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// h is the output's row count.  pad == 0: the inputs are (h, w) and rows
+// wrap.  pad > 0: they are (h + 2 * pad, w), pad >= max(s, m, L) + r, and
+// row y of the output reads input rows y + pad - (max(s, m, L) + r) ..
+// y + pad + max(s, m, L) + r.
 extern "C" int stereo_matching_core(const float* left, const float* right,
                                     float* disp, float* mbm, int h, int w,
                                     int min_dd, int num_d, int r, int s, int m,
-                                    int L, void* stream) {
+                                    int L, int pad, void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
+    if (pad != 0 && pad < imax(s, imax(m, L)) + r)
+        return (int)cudaErrorInvalidValue;
     if (r == 1 && s == 1 && m == 4 && L == 10)   // MatchingConfig's defaults
-        return launch(left, right, disp, mbm, h, w, min_dd, num_d,
+        return launch(left, right, disp, mbm, h, w, min_dd, num_d, pad,
                       Shape<1, 1, 4, 10>{r, s, m, L}, st);
-    return launch(left, right, disp, mbm, h, w, min_dd, num_d,
+    return launch(left, right, disp, mbm, h, w, min_dd, num_d, pad,
                   Shape<kAny, kAny, kAny, kAny>{r, s, m, L}, st);
 }

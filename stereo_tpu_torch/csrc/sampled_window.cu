@@ -31,6 +31,11 @@
 // reads 11*11 + 17*11 values from shared memory instead of 2*7*11*11.  Each
 // tap still sums a column's rows in index order, then the columns in index
 // order: the plain version's order, so results agree bit for bit.
+//
+// Row-halo mode (the TPU kernel's rows_prepadded, run per row shard by the
+// sharded engine): the inputs carry pad = r extra full-res rows above and
+// below, from the neighbouring shards, and only the columns wrap.  It is
+// the same kernel: the staging reads row i + pad instead of row i mod H.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -69,19 +74,28 @@ __device__ __forceinline__ int wrap_index(int i, int n) {
     return r < 0 ? r + n : r;
 }
 
+// The input row that holds image row i.  pad == 0: the input is the image,
+// and rows wrap mod H.  pad > 0: the input carries pad more rows above and
+// below, and nothing wraps; rows staged only for the outputs past the last
+// row, which are not stored, are clamped.
+__device__ __forceinline__ int input_row(int i, int H, int pad) {
+    if (pad == 0) return wrap_index(i, H);
+    return min(max(i + pad, 0), H + 2 * pad - 1);
+}
+
 // Copy image rows top.. and columns col0.. (`rows` x `cols`, wrapped) into
 // `dst`, split into the k column phases and stored column by column:
 // column c, row y at dst[((c % k) * pw + c / k) * rows + y].  A warp then
 // reads a patch row at a stride of `rows` words (odd, so no bank
 // conflicts), and every row and column offset of a thread is a constant.
 __device__ __forceinline__ void stage(float* dst, const float* src, int H,
-                                      int W, int top, int col0, int rows,
-                                      int cols, int k, int pw) {
+                                      int W, int pad, int top, int col0,
+                                      int rows, int cols, int k, int pw) {
     const int drow = kThreads / cols, dc = kThreads - drow * cols;
     for (int y = threadIdx.x / cols, c = threadIdx.x % cols; y < rows;) {
         __pipeline_memcpy_async(
             dst + ((c % k) * pw + c / k) * rows + y,
-            src + (size_t)wrap_index(top + y, H) * W + wrap_index(col0 + c, W),
+            src + (size_t)input_row(top + y, H, pad) * W + wrap_index(col0 + c, W),
             sizeof(float));
         y += drow;
         c += dc;
@@ -98,7 +112,7 @@ sampled_window_kernel(const float* __restrict__ left,
                       const float* __restrict__ right,
                       const float* __restrict__ disp, float* __restrict__ out,
                       int H, int W, int hd, int wd, int min_dd, int num_d,
-                      Shape<kK, kR> g) {
+                      int pad, Shape<kK, kR> g) {
     extern __shared__ float smem[];
     const int k = g.k(), patch = g.patch(), win = 2 * k + 3;
     const int rows = g.rows();
@@ -113,8 +127,9 @@ sampled_window_kernel(const float* __restrict__ left,
     const int q0 = blockIdx.x * kTQ, x0 = blockIdx.y * kTX;
     const int top = k * x0 - g.r(), lcol = k * q0 - g.r();
     const int dhi = k * (min_dd - 1) - 1 + k * (num_d + 1) + 2;
-    stage(sL, left, H, W, top, lcol, rows, g.left_cols(), k, lpw);
-    stage(sR, right, H, W, top, lcol - dhi, rows, g.right_cols(num_d), k, rpw);
+    stage(sL, left, H, W, pad, top, lcol, rows, g.left_cols(), k, lpw);
+    stage(sR, right, H, W, pad, top, lcol - dhi, rows, g.right_cols(num_d), k,
+          rpw);
     __pipeline_commit();
     __pipeline_wait_prior(0);
     __syncthreads();
@@ -207,7 +222,7 @@ sampled_window_kernel(const float* __restrict__ left,
 template <int kK, int kR>
 int launch(const float* left, const float* right, const float* disp,
            float* out, int H, int W, int hd, int wd, int min_dd, int num_d,
-           Shape<kK, kR> g, cudaStream_t stream) {
+           int pad, Shape<kK, kR> g, cudaStream_t stream) {
     const size_t smem = sizeof(float) * (g.left_floats() + g.right_floats(num_d));
     auto kernel = sampled_window_kernel<kK, kR>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -215,20 +230,24 @@ int launch(const float* left, const float* right, const float* disp,
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((wd + kTQ - 1) / kTQ, (hd + kTX - 1) / kTX);
     kernel<<<grid, kThreads, smem, stream>>>(left, right, disp, out, H, W, hd,
-                                             wd, min_dd, num_d, g);
+                                             wd, min_dd, num_d, pad, g);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// H is the image's row count.  pad == 0: the images are (H, W) and rows
+// wrap.  pad > 0: they are (H + 2 * pad, W), H == k * hd and pad >= r.
 extern "C" int stereo_sampled_window(const float* left, const float* right,
                                      const float* disp, float* out, int H,
                                      int W, int hd, int wd, int k, int r,
-                                     int min_dd, int num_d, void* stream) {
+                                     int min_dd, int num_d, int pad,
+                                     void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
+    if (pad != 0 && (pad < r || H != k * hd)) return (int)cudaErrorInvalidValue;
     if (k == 2 && r == 5)   // MatchingConfig's defaults
-        return launch(left, right, disp, out, H, W, hd, wd, min_dd, num_d,
+        return launch(left, right, disp, out, H, W, hd, wd, min_dd, num_d, pad,
                       Shape<2, 5>{k, r}, st);
-    return launch(left, right, disp, out, H, W, hd, wd, min_dd, num_d,
+    return launch(left, right, disp, out, H, W, hd, wd, min_dd, num_d, pad,
                   Shape<kAny, kAny>{k, r}, st);
 }

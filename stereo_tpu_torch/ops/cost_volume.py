@@ -24,13 +24,17 @@ def sad_similarity_plane(left: torch.Tensor, right: torch.Tensor,
 
 def sad_cost_volume(left: torch.Tensor, right: torch.Tensor,
                     min_disparity: int, max_disparity: int,
-                    patch_radius: int) -> torch.Tensor:
+                    patch_radius: int,
+                    rows_prepadded: bool = False) -> torch.Tensor:
     """(H, W, D) similarity volume; ``volume[..., i]`` is the cost at
-    disparity ``min_disparity + i``."""
+    disparity ``min_disparity + i``.  With ``rows_prepadded`` the inputs
+    carry ``patch_radius`` more rows above and below, which do not wrap:
+    (H + 2r, W) -> (H, W, D)."""
     num_d = max_disparity - min_disparity + 1
     rolled = torch.stack([torch.roll(right, min_disparity + i, dims=-1)
                           for i in range(num_d)], dim=0)
     diff = torch.abs(left[None] - rolled)
     area = (2 * patch_radius + 1) ** 2
-    cost = area * MAX_INTENSITY - box_sum_2d(diff, patch_radius, patch_radius)
+    cost = area * MAX_INTENSITY - box_sum_2d(diff, patch_radius, patch_radius,
+                                             rows_prepadded=rows_prepadded)
     return torch.movedim(cost, 0, -1)

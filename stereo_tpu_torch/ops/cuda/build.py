@@ -32,9 +32,10 @@ _I = ctypes.c_int
 # C signature of each kernel's launcher: every pointer and the stream are
 # void*, every size an int; each returns its cudaGetLastError() code.
 _SIGNATURES = {
-    "stereo_matching_core": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "stereo_matching_core": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P),
     "stereo_sampled_window": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _P),
+                              _I, _P),
     "stereo_upsample_blend": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "stereo_gwc_volume": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }

@@ -8,8 +8,12 @@ from typing import Tuple
 import torch
 
 # Kernel launches by kernel name; a wrapper adds one where it launches.
+# "matching_core[rows_prepadded]" and "sampled_window[rows_prepadded]"
+# count the launches in the row-halo mode, which the kernel's own count
+# includes.
 LAUNCHES = {"matching_core": 0, "sampled_window": 0, "upsample_blend": 0,
-            "gwc_volume": 0}
+            "gwc_volume": 0, "matching_core[rows_prepadded]": 0,
+            "sampled_window[rows_prepadded]": 0}
 
 
 def reset_launch_counts() -> None:

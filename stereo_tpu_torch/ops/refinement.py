@@ -40,11 +40,13 @@ def _have_same_sign(a, b):
 
 
 def sampled_sad_volume(left: torch.Tensor, right: torch.Tensor, k: int,
-                       patch_radius: int, d_start: int,
-                       num_d: int) -> torch.Tensor:
+                       patch_radius: int, d_start: int, num_d: int,
+                       rows_prepadded: bool = False) -> torch.Tensor:
     """Dense inverted-SAD similarity at full resolution, sampled on the
     stride-``k`` grid of downscaled pixel centres: (ceil(H/k), ceil(W/k),
-    num_d); entry ``t`` is at full-res disparity ``d_start + t``.
+    num_d); entry ``t`` is at full-res disparity ``d_start + t``.  With
+    ``rows_prepadded`` the images carry ``patch_radius`` more rows above
+    and below, which do not wrap.
 
     Rows are summed first (then sampled), then columns, each in index
     order: the order the CUDA kernel ``sampled_window`` follows.
@@ -53,7 +55,8 @@ def sampled_sad_volume(left: torch.Tensor, right: torch.Tensor, k: int,
     planes = []
     for t in range(num_d):
         diff = torch.abs(left - torch.roll(right, d_start + t, dims=-1))
-        rows = box_sum_1d(diff, patch_radius, axis=-2)[..., ::k, :]
+        rows = box_sum_1d(diff, patch_radius, axis=-2,
+                          prepadded=rows_prepadded)[..., ::k, :]
         cols = box_sum_1d(rows, patch_radius, axis=-1)[..., ::k]
         planes.append(area * MAX_INTENSITY - cols)
     return torch.stack(planes, dim=-1)

@@ -2,11 +2,14 @@
 
 * ``ClassicalStereoBackend``: the classical multi-block-matching engine;
 * ``DnnStereoMatchingBackend``: the stereo networks GwcNet, MSNet2D and
-  MSNet3D on ImageNet-normalised input.
+  MSNet3D on ImageNet-normalised input;
+* ``ShardedClassicalBackend``, ``ShardedDnnBackend``: the same over a
+  (data, tile, disp) device mesh (``stereo_tpu_torch.parallel``).
 """
 
 from __future__ import annotations
 
+import copy
 from abc import ABC, abstractmethod
 from typing import Optional, Tuple
 
@@ -44,6 +47,54 @@ class ClassicalStereoBackend(StereoMatchingBackend):
 
     def process_batch(self, left_batch, right_batch) -> torch.Tensor:
         return self.engine.compute_disparity_maps(left_batch, right_batch)
+
+
+class ShardedClassicalBackend(StereoMatchingBackend):
+    """The classical engine over a device mesh (``mesh``, from
+    ``parallel.make_mesh``) — selected when the pipeline config carries a
+    multi-device :class:`~stereo_tpu_torch.core.config.MeshConfig`."""
+
+    def __init__(self, config: MatchingConfig, mesh_config, mesh):
+        from ..parallel import ShardedClassicalEngine
+
+        self.engine = ShardedClassicalEngine(config, mesh_config, mesh=mesh)
+        self._single_ok = mesh_config.data == 1
+
+    def process(self, left_image, right_image) -> torch.Tensor:
+        if not self._single_ok:
+            raise RuntimeError("single-frame process() needs data axis == 1; "
+                               "use process_batch")
+        return self.engine.compute_disparity_maps(
+            torch.as_tensor(left_image)[None],
+            torch.as_tensor(right_image)[None])[0]
+
+    def process_batch(self, left_batch, right_batch) -> torch.Tensor:
+        return self.engine.compute_disparity_maps(left_batch, right_batch)
+
+
+class ShardedDnnBackend(StereoMatchingBackend):
+    """A stereo network over a device mesh (``parallel.dnn``) — selected
+    when the pipeline config carries a multi-device ``MeshConfig`` and a
+    DNN backend name.  Batches must be divisible by the batch group.  A
+    single frame runs once on the mesh's first device: the JAX package
+    broadcasts it over the batch group and keeps frame 0, which is the same
+    result."""
+
+    def __init__(self, model_name: str, image_shape, mesh_config, mesh,
+                 max_disparity: int = 192, compute_dtype: str = "float32"):
+        from ..parallel import ShardedDnnEngine
+
+        self.engine = ShardedDnnEngine(model_name, image_shape, mesh_config,
+                                       mesh=mesh, max_disparity=max_disparity,
+                                       compute_dtype=compute_dtype)
+        self.weights = self.engine.weights
+
+    def process(self, left_image, right_image) -> torch.Tensor:
+        return self.engine.replicas[self.engine.mesh.first_device].process(
+            left_image, right_image)
+
+    def process_batch(self, left_batch, right_batch) -> torch.Tensor:
+        return self.engine.process_batch(left_batch, right_batch)
 
 
 def normalize_imagenet(images: torch.Tensor) -> torch.Tensor:
@@ -98,6 +149,14 @@ class DnnStereoMatchingBackend(StereoMatchingBackend):
         ).to(self.compute_dtype) for x in (left_batch, right_batch))
         with torch.no_grad():
             return self.model(left, right).float()
+
+    def to(self, device) -> "DnnStereoMatchingBackend":
+        """This backend on ``device``: its weights copied there, not
+        loaded or converted again."""
+        other = copy.copy(self)
+        other.device = resolve_device(device)
+        other.model = copy.deepcopy(self.model).to(other.device)
+        return other
 
     def warmup(self) -> None:
         x = torch.zeros((1, 3, *self.image_shape), device=self.device)

@@ -2,8 +2,11 @@
 
 ``DepthEstimationPipeline.process(left, right=None)`` synthesizes the right
 view with Deep3D when it is not given, then runs the stereo-matching
-backend: the classical matcher or a DNN (GwcNet, MSNet2D, MSNet3D).  The
-multi-device mesh is not ported yet and raises.
+backend: the classical matcher or a DNN (GwcNet, MSNet2D, MSNet3D).  A
+config with a multi-device ``MeshConfig`` runs the sharded engines of
+``stereo_tpu_torch.parallel`` and dispatches as the JAX package does: the
+sharded backends, and ``process_batch(left, None)`` with the classical
+backend through ``ShardedSingleViewEngine``.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from ..core.config import PipelineConfig
 from ..core.device import resolve_device
 from ..utils.profiling import StageTimer, perf_clock
 from .backends import (AVAILABLE_DNN_BACKENDS, ClassicalStereoBackend,
-                       DnnStereoMatchingBackend, StereoMatchingBackend)
+                       DnnStereoMatchingBackend, ShardedClassicalBackend,
+                       ShardedDnnBackend, StereoMatchingBackend)
 from .single_view import SingleViewEngine
 
 
@@ -47,16 +51,28 @@ class DepthEstimationPipeline:
     """The pipeline on one device (default ``"cuda"``; raises when CUDA is
     unavailable unless ``device="cpu"`` is passed).  ``synthesis``: an
     already built ``RightViewSynthesis`` to use instead of loading the
-    committed checkpoint on the first single-view frame."""
+    committed checkpoint on the first single-view frame.
+
+    Under a multi-device ``config.mesh`` the mesh's devices are
+    ``mesh_devices`` when given (a list may repeat a device: a virtual
+    mesh), else ``["cpu"] * n`` for ``device="cpu"`` and the first n cards
+    for ``device="cuda"``, which raises when there are fewer.  Results are
+    delivered on the mesh's first device.
+    """
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
-                 synthesis=None, device="cuda"):
+                 synthesis=None, device="cuda", mesh_devices=None):
         self._config = config
         self.device = resolve_device(device)
+        self.mesh = None
         if config.mesh is not None and config.mesh.num_devices > 1:
-            raise NotImplementedError("multi-device meshes are not ported yet")
+            from ..parallel import make_mesh
+            if mesh_devices is None and self.device.type == "cpu":
+                mesh_devices = [self.device] * config.mesh.num_devices
+            self.mesh = make_mesh(config.mesh, mesh_devices)
         self._right_view_synthesis = synthesis
         self._single_view = None
+        self._sharded_sv_engine = None
         self._timer = StageTimer(self.device)
         self._stereo_matching = self._build_backend()
         print(f"Using '{config.stereo_matching_backend}' as stereo matching "
@@ -80,13 +96,18 @@ class DepthEstimationPipeline:
         too (its upload), as in the reference."""
         log, dev = self._config.log_perf_time, self.device
         left = self._as_tensor(left_image)
-        if right_image is None:
+        if right_image is None and self.mesh is None:
             with perf_clock("Depth estimation", log, dev):
                 disparity, right = self._single_view_engine().process(left)
         else:
+            # Under a mesh a single view is synthesized here and matched by
+            # the sharded backend's single-frame process(), as in the JAX
+            # package.
             with self._timer.stage("right_view_generation"):
                 with perf_clock("Right view generation", log, dev):
-                    right = self._as_tensor(right_image)
+                    right = (self._synthesis().process(left)
+                             if right_image is None
+                             else self._as_tensor(right_image))
             with self._timer.stage("stereo_matching"):
                 with perf_clock("Stereo matching", log, dev):
                     disparity = self._stereo_matching.process(left, right)
@@ -94,9 +115,17 @@ class DepthEstimationPipeline:
                                      disparity_map=disparity)
 
     def process_batch(self, left_batch, right_batch=None) -> DepthEstimationResult:
-        """(N, 3, H, W) -> (N, H, W) disparities."""
+        """(N, 3, H, W) -> (N, H, W) disparities.
+
+        Under a multi-device mesh with the classical backend the
+        single-view path (``right_batch=None``) runs Deep3D and the matcher
+        frame-parallel on the mesh (``parallel.synthesis``)."""
         left = self._as_tensor(left_batch)
-        if right_batch is None:
+        if (right_batch is None and self.mesh is not None
+                and self._config.stereo_matching_backend == "classical"):
+            disparity, right = self._sharded_single_view().process_batch(
+                left, return_right=True)
+        elif right_batch is None:
             disparity, right = self._single_view_engine().process_batch(left)
         else:
             right = self._as_tensor(right_batch)
@@ -119,10 +148,18 @@ class DepthEstimationPipeline:
             # The 1/4-resolution volume follows the disparity range, in
             # steps of 4; the networks are fully convolutional.
             model_d = max(32, -(-int(cfg.max_disparity) // 4) * 4)
+            if self.mesh is not None:
+                return ShardedDnnBackend(
+                    cfg.stereo_matching_backend, cfg.image_shape, cfg.mesh,
+                    self.mesh, max_disparity=model_d,
+                    compute_dtype=cfg.compute_dtype)
             return DnnStereoMatchingBackend(
                 cfg.stereo_matching_backend, image_shape=cfg.image_shape,
                 max_disparity=model_d, compute_dtype=cfg.compute_dtype,
                 device=self.device)
+        if self.mesh is not None:
+            return ShardedClassicalBackend(cfg.matching_config(), cfg.mesh,
+                                           self.mesh)
         return ClassicalStereoBackend(cfg.matching_config(),
                                       device=self.device)
 
@@ -135,6 +172,19 @@ class DepthEstimationPipeline:
                 checkpoint_dir=self._config.rvs_checkpoint,
                 device=self.device)
         return self._right_view_synthesis
+
+    def _sharded_single_view(self):
+        if self._sharded_sv_engine is None:
+            from ..parallel import ShardedSingleViewEngine
+            cfg = self._config
+            self._sharded_sv_engine = ShardedSingleViewEngine(
+                cfg.matching_config(), cfg.mesh, mesh=self.mesh,
+                synthesis=self._right_view_synthesis,
+                checkpoint_dir=cfg.rvs_checkpoint,
+                compute_dtype=cfg.compute_dtype)
+            self._right_view_synthesis = self._sharded_sv_engine.synthesis
+            self._check_disparity_coverage(self._right_view_synthesis)
+        return self._sharded_sv_engine
 
     def _single_view_engine(self) -> SingleViewEngine:
         if self._single_view is None:

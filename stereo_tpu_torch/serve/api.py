@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.config import PipelineConfig
+from ..core.config import MeshConfig, PipelineConfig
 from ..core.device import resolve_device
 from ..pipeline.depth_pipeline import DepthEstimationPipeline
 from ..synthesis.right_view_synthesis import resize_nchw
@@ -189,14 +189,22 @@ class DepthEstimationServer:
     """Owns the pipeline and the HTTP server.
 
     ``micro_batch > 1`` coalesces concurrent uploads into one device batch
-    instead of serialising them on a lock.  ``start()`` serves from a
-    daemon thread and ``shutdown()`` stops it; ``serve()`` blocks.
+    instead of serialising them on a lock.  Under a multi-device mesh a
+    micro-batch must be a multiple of the mesh's batch group (data x disp),
+    which every batch of the sharded engines must be.  ``start()`` serves
+    from a daemon thread and ``shutdown()`` stops it; ``serve()`` blocks.
     """
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
                  pipeline: Optional[DepthEstimationPipeline] = None,
                  micro_batch: int = 1, device="cuda"):
         self.config = config
+        mesh = config.mesh
+        if (mesh is not None and mesh.num_devices > 1 and micro_batch > 1
+                and micro_batch % (mesh.data * mesh.disp)):
+            raise ValueError(f"micro_batch {micro_batch} is not a multiple "
+                             f"of the mesh's batch group "
+                             f"{mesh.data * mesh.disp} (data x disp)")
         self.pipeline = pipeline or DepthEstimationPipeline(config,
                                                             device=device)
         self.device = resolve_device(self.pipeline.device)
@@ -373,15 +381,24 @@ def parse_args(argv=None):
                         choices=["float32", "bfloat16"],
                         help="precision of the neural paths (DNN backend and "
                              "right-view synthesis)")
+    parser.add_argument("--mesh", default=None, metavar="DATA,TILE,DISP",
+                        help="serve through the mesh-sharded engines, e.g. "
+                             "'2,2,1'; needs data*tile*disp cards with "
+                             "--device cuda (with --device cpu the mesh's "
+                             "devices are the CPU)")
     parser.add_argument("--device", default="cuda")
     return parser.parse_args(argv)
 
 
 def config_from_args(args) -> PipelineConfig:
+    mesh = None
+    if args.mesh:
+        data, tile, disp = (int(v) for v in args.mesh.split(","))
+        mesh = MeshConfig(data=data, tile=tile, disp=disp)
     return PipelineConfig(image_shape=(args.height, args.width),
                           min_disparity=0, max_disparity=args.max_disparity,
                           stereo_matching_backend=args.backend,
-                          compute_dtype=args.compute_dtype)
+                          compute_dtype=args.compute_dtype, mesh=mesh)
 
 
 def main(argv=None) -> None:

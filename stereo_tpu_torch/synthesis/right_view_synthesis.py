@@ -11,6 +11,7 @@ shape.  Bilinear resizes antialias when they downscale, as
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Optional, Tuple
 
@@ -85,6 +86,14 @@ class RightViewSynthesis:
         ff.Dense_0.to(ff_dtype)
         ff.Dense_1.to(ff_dtype)
         self.model = model
+
+    def to(self, device) -> "RightViewSynthesis":
+        """This synthesis on ``device``: its weights copied there, not
+        loaded or converted again."""
+        other = copy.copy(self)
+        other.device = resolve_device(device)
+        other.model = copy.deepcopy(self.model).to(other.device)
+        return other
 
     def process(self, left_image) -> torch.Tensor:
         """(3, H, W) 0..255 -> (3, *output_shape) 0..255."""

@@ -113,3 +113,33 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+PARALLEL_MODULES = ("mesh", "classical", "dnn", "synthesis", "health")
+
+
+@pytest.mark.parametrize("name", PARALLEL_MODULES)
+def test_parallel_module_stands_alone(name):
+    """Each module of the mesh package exists and imports none of JAX,
+    Flax or ``stereo_tpu`` (the blocked run above imports them all)."""
+    path = PORT / "parallel" / f"{name}.py"
+    assert path in SOURCES
+    assert not imported_roots(path) & set(FORBIDDEN)
+
+
+def test_parallel_exports_what_the_jax_package_exports(monkeypatch):
+    import stereo_tpu.parallel as jax_parallel
+    import stereo_tpu_torch.parallel as parallel
+    from stereo_tpu_torch.core.config import MeshConfig, PipelineConfig
+    from stereo_tpu_torch.parallel import make_mesh
+    from stereo_tpu_torch.pipeline import DepthEstimationPipeline
+
+    assert sorted(parallel.__all__) == sorted(jax_parallel.__all__)
+    assert all(hasattr(parallel, name) for name in parallel.__all__)
+    # Without a card the default mesh and a mesh pipeline raise.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="wants 2 devices"):
+        make_mesh(MeshConfig(data=2))
+    with pytest.raises(RuntimeError, match="is_available"):
+        DepthEstimationPipeline(PipelineConfig(mesh=MeshConfig(data=2)))

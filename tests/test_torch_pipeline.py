@@ -79,11 +79,19 @@ def test_stereo_pair_and_stage_times(pipelines):
 
 
 def test_unported_backends_raise():
+    """Every backend is ported, the multi-device mesh included: a mesh
+    builds on the CPU when asked for it, and a mesh on cards that are not
+    there raises instead of falling back to the CPU."""
     from stereo_tpu_torch.core.config import MeshConfig
+    from stereo_tpu_torch.pipeline.backends import ShardedClassicalBackend
 
-    with pytest.raises(NotImplementedError, match="not ported"):
+    pipe = DepthEstimationPipeline(
+        PipelineConfig(mesh=MeshConfig(data=2)), device="cpu")
+    assert isinstance(pipe.stereo_matching, ShardedClassicalBackend)
+    with pytest.raises(RuntimeError, match="wants 2 devices"):
         DepthEstimationPipeline(
-            PipelineConfig(mesh=MeshConfig(data=2)), device="cpu")
+            PipelineConfig(mesh=MeshConfig(data=2)), device="cpu",
+            mesh_devices=["cpu"])
 
 
 def test_coverage_guard_warns():
