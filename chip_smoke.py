@@ -12,7 +12,10 @@ Phases, each ending in one flushed JSON line with its name and seconds:
    io:       one ``g++`` call builds the native host runtime
              (``stereo_tpu_torch/_native``); the committed KITTI fixture
              frames decoded by it equal the Python decoder's bytes, and the
-             host ms of a 375x1242 frame for each decoder;
+             host ms of a 375x1242 frame for each decoder; the other PNG
+             kinds (low-bit grey, palettes, grey+alpha, 16-bit colour, each
+             plain and Adam7) against the Python decoder; a probe for
+             libjpeg's header and library;
 3. kernels:  each kernel against its plain PyTorch version at the shapes of
              the single-view paths (384x1280, disparity 1..64; GwcNet's
              volume also at disparity 192 and in bf16), with its median
@@ -20,7 +23,8 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              ``host_us``: launch alone), the plain version's time and its
              bound; the classical kernels also on adversarial integer
              pairs (every plane a winner, all planes tied) and windows
-             (smallest and largest disparity, across the wrap), and
+             (smallest and largest disparity, across the wrap),
+             ``gwc_volume`` at 4, 8 and 16 channels per group, and
              ``upsample_blend`` also at the servers' batch of 2, at scale 2,
              at widths that are not a multiple of its tile or are under D,
              and at a scale (8) it takes at run time;
@@ -28,16 +32,28 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              ``MatchingConfig()``, 1080x1920 / disparity 75..262;
 4. golden:   the classical matcher on the synthetic KITTI pair against the
              committed golden (>= 99% of pixels within 0.5 px);
-5. pipeline: ``DepthEstimationPipeline`` on single views at full width,
-             the result against the same frame through the plain versions,
-             and its ms/frame with the per-stage times;
+5. pipeline: ``DepthEstimationPipeline`` on single views at full width
+             (the fused route: two CUDA graphs), the result against the
+             same frame through the plain versions, and its ms/frame with
+             the per-stage times;
    profile:  device time by kernel over a few frames (``torch.profiler``)
-             and the device's busy share of the wall time;
+             and the device's busy share of the wall time, and the
+             device's time per frame by CUDA events, which see the kernels
+             of a replayed graph;
+   fused_single_view: ``FusedSingleViewEngine`` against the unfused
+             ``SingleViewEngine`` on the same frames at batch 1 and 2:
+             disparities and right views, launches per frame (equal),
+             ms/frame of both, device time and busy share, graphs captured;
+   fresh_deep3d: ``RightViewSynthesis()`` with its defaults (fresh weights
+             and a warning where the checkout has no ``deep3d.npz``), one
+             frame;
 6. dnn:      the same pipeline with the GwcNet backend: single views
              (ms/frame, stages, the disparity against the same frame
              through ``gwc_volume_plain``), the synthetic KITTI pair, GwcNet
-             at disparity 192 and its feature extractor alone, and a few
-             forwards each of MSNet2D, MSNet3D and GwcNet in bf16;
+             at disparity 192 and its feature extractor alone, a few
+             forwards each of MSNet2D, MSNet3D and GwcNet in bf16, and a
+             seeded GwcNet at 4 channels per group against its plain
+             volume;
    profile_dnn: the GwcNet single view's device time by kernel;
 7. evaluation: ``run_depth_estimation_pipeline_evaluation`` with the six
              metrics on the KITTI fixture drive (``KittiSingleViewCamera``,
@@ -99,7 +115,7 @@ Phases, each ending in one flushed JSON line with its name and seconds:
    mesh_server: a server on a classical (2,1,1) mesh pipeline,
              micro-batch 2, and ``check_devices`` over the mesh.
 
-The kernel launch counts are zeroed just before each path of phases 7-9
+The kernel launch counts are zeroed just before each path of phases 5-9
 (the exported networks' inference included) is driven and read just
 after; every kernel of that path must have launched, and the mesh phases
 together must launch all four kernels and both row-halo modes.  Training launches
@@ -202,13 +218,14 @@ def require(cond: bool, message: str) -> None:
         raise RuntimeError(message)
 
 
-def cuda_ms(fn, reps: int, device_only: bool = False) -> float:
+def cuda_ms(fn, reps: int, device_only: bool = False,
+            spin_cycles: int = 1_000_000) -> float:
     """Median milliseconds of ``fn`` over ``reps`` calls (CUDA events around
     each call on an idle device), after one warm-up call.  The time counts
     the host's launch of the call's kernels as well as their run.  With
-    ``device_only`` the device first spins for about half a millisecond, so
-    the host has queued the launches before the start event is reached:
-    the time is then the device's alone."""
+    ``device_only`` the device first spins for ``spin_cycles`` (by default
+    about half a millisecond), so the host has queued the launches before
+    the start event is reached: the time is then the device's alone."""
     import torch
 
     fn()
@@ -218,7 +235,7 @@ def cuda_ms(fn, reps: int, device_only: bool = False) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if device_only:
-            torch.cuda._sleep(1_000_000)
+            torch.cuda._sleep(spin_cycles)
         start.record()
         fn()
         end.record()
@@ -507,32 +524,41 @@ def check_blend_cases(torch, dev) -> list:
 
 def check_gwc_volume(torch, rng, dev) -> dict:
     """``gwc_volume`` at GwcNet's width on the 384x1280 path (features
-    (1, 320, 96, 320), 40 groups): D=16 planes (disparity 64) and 48
-    (disparity 192) in float32, 16 in bf16.  Float32 must agree with the
-    plain version within 1e-5 * max|vol|, bf16 (compared in bf16) within
-    one bf16 ulp of max|vol|.  The kernel's entry is the path's shape
-    (D=16, float32); the others go in ``variants``."""
+    (1, 320, 96, 320)): at 40 groups (8 channels per group, the kernel's
+    compile-time instance) D=16 planes (disparity 64) and 48 (disparity
+    192) in float32, 16 in bf16; at 80 and 20 groups (4 and 16 channels
+    per group, taken at run time) D=16 in float32 and bf16, and at 64 and
+    10 groups (5 and 32 channels, two more run-time sizes) in
+    float32.  Float32 must
+    agree with the plain version within 1e-5 * max|vol|, bf16 (compared in
+    bf16) within one bf16 ulp of max|vol|; each variant also says how many
+    elements differ at all.  The kernel's entry is the path's shape (D=16,
+    float32, 40 groups); the others go in ``variants``."""
     from stereo_tpu_torch.ops.cuda import gwc_volume, gwc_volume_plain
 
-    n, c, h, w, g = 1, 320, 96, 320, 40
+    n, c, h, w = 1, 320, 96, 320
     # ReLU'd like real features.
     left, right = (torch.from_numpy(np.maximum(rng.standard_normal(
         (n, c, h, w)), 0).astype(np.float32)).to(dev) for _ in range(2))
     variants = []
-    for d, dtype in ((16, torch.float32), (48, torch.float32),
-                     (16, torch.bfloat16)):
+    for d, dtype, g in ((16, torch.float32, 40), (48, torch.float32, 40),
+                        (16, torch.bfloat16, 40), (16, torch.float32, 80),
+                        (16, torch.bfloat16, 80), (16, torch.float32, 20),
+                        (16, torch.bfloat16, 20), (16, torch.float32, 64),
+                        (16, torch.float32, 10)):
         lt, rt = left.to(dtype), right.to(dtype)
         vol_k = gwc_volume(lt, rt, d, g)
         vol_p = gwc_volume_plain(lt, rt, d, g)
         torch.cuda.synchronize()
         err = float((vol_k.float() - vol_p.float()).abs().max())
+        differing = int((vol_k != vol_p).sum())
         peak = float(vol_p.float().abs().max())
         if dtype == torch.float32:
             limit = 1e-5 * peak
         else:
             limit = 2.0 ** (np.floor(np.log2(peak)) - 7)   # 1 bf16 ulp
-        require(err <= limit, f"gwc_volume D={d} {dtype}: off by {err} "
-                              f"(limit {limit})")
+        require(err <= limit, f"gwc_volume D={d} {dtype} G={g}: off by "
+                              f"{err} (limit {limit})")
         times = timings(lambda: gwc_volume(lt, rt, d, g))
         plain_ms = cuda_ms(lambda: gwc_volume_plain(lt, rt, d, g), 5)
         # Each input read once, the volume written once; one multiply and
@@ -542,7 +568,9 @@ def check_gwc_volume(torch, rng, dev) -> dict:
                            * (2 * n * c * h * w + n * g * d * h * w),
                            2 * c * live)
         variants.append(dict(planes=d, dtype=str(dtype).split(".")[-1],
-                             max_abs_err=err, limit=limit, max_abs_vol=peak,
+                             groups=g, channels_per_group=c // g,
+                             max_abs_err=err, elements_differing=differing,
+                             limit=limit, max_abs_vol=peak,
                              **times, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by))
     main = variants[0]
@@ -610,6 +638,13 @@ def frame_ms(torch, fn, reps: int) -> list:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return times
+
+
+def frame_device_ms(torch, fn, reps: int = 10) -> float:
+    """Median device milliseconds of one call of ``fn``: ``cuda_ms`` with
+    the device first spun for about 20 ms, so that the host has queued a
+    whole frame (gaps between its kernels counted, launches not)."""
+    return cuda_ms(fn, reps, device_only=True, spin_cycles=40_000_000)
 
 
 def seeded_frames(torch, dev, shape, seed: int, n: int = 4) -> list:
@@ -683,6 +718,177 @@ def phase_pipeline(torch, dev, synthesis, reference_check: bool):
                           ms_per_frame_median=statistics.median(times),
                           ms_per_frame_min=min(times),
                           stage_ms=stages)
+
+
+def phase_fused_single_view(torch, dev, synthesis):
+    """``FusedSingleViewEngine`` (two CUDA graphs per batch size) against
+    the unfused ``SingleViewEngine`` on the same frames, at the main path's
+    full width (384x1280, disparity 0..64, Deep3D 384x1280 / 96x320) at
+    batch 1 and 2: the disparities (JAX's gate, at least 0.99 within
+    0.5 px) and right views (within 0.05), the launches per frame (equal
+    to the unfused path's), ms/frame medians of 20 calls of each engine
+    (host clock, synchronized), the device's time per frame by CUDA events
+    and its busy share, and the graphs captured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stereo_tpu_torch.core.config import PipelineConfig
+    from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from stereo_tpu_torch.pipeline import ClassicalStereoBackend
+    from stereo_tpu_torch.pipeline.single_view import (FusedSingleViewEngine,
+                                                       SingleViewEngine)
+
+    config = PipelineConfig()
+    matching = config.matching_config()
+    require(synthesis.split_inference, "the synthesis has no split inference")
+    fused = FusedSingleViewEngine(matching, synthesis)
+    unfused = SingleViewEngine(ClassicalStereoBackend(matching, device=dev),
+                               synthesis)
+    t0 = time.perf_counter()
+    fused.warmup()
+    warmup_s = time.perf_counter() - t0
+    require(fused.graphs_captured == 2, f"warmup captured "
+                                        f"{fused.graphs_captured} graphs")
+    batches, counts = {}, {k: 0 for k in LAUNCHES}
+    for n in (1, 2):
+        frames = torch.stack(seeded_frames(torch, dev, config.image_shape,
+                                           20 + n, n))
+        if n > 1:
+            t0 = time.perf_counter()
+            fused.process_batch(frames)          # captures this batch size
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+        reset_launch_counts()
+        disp_u, right_u = unfused.process_batch(frames)
+        torch.cuda.synchronize()
+        launches_u = dict(LAUNCHES)
+        reset_launch_counts()
+        disp_f, right_f = fused.process_batch(frames)
+        torch.cuda.synchronize()
+        launches_f = dict(LAUNCHES)
+        require(launches_f == launches_u
+                and all(launches_f[k] >= 1 for k in CLASSICAL_KERNELS),
+                f"fused launches {launches_f}, unfused {launches_u}")
+        for k in counts:
+            counts[k] += launches_f[k]
+        diff = (disp_f - disp_u).abs()
+        share = float((diff <= 0.5).float().mean())
+        right_diff = float((right_f - right_u).abs().max())
+        require(share >= 0.99 and right_diff <= 0.05,
+                f"fused vs unfused at batch {n}: {share} within 0.5 px, "
+                f"right views {right_diff} apart")
+        ms_f = frame_ms(torch, lambda: fused.process_batch(frames), 20)
+        ms_u = frame_ms(torch, lambda: unfused.process_batch(frames), 20)
+        dev_f = frame_device_ms(torch, lambda: fused.process_batch(frames))
+        dev_u = frame_device_ms(torch, lambda: unfused.process_batch(frames))
+        med_f, med_u = statistics.median(ms_f), statistics.median(ms_u)
+        batches[f"batch{n}"] = dict(
+            disparity_equal=bool(torch.equal(disp_f, disp_u)),
+            disparity_max_abs_diff=float(diff.max()),
+            share_within_0p5=share, right_view_max_abs_diff=right_diff,
+            launches_per_frame={k: v / n for k, v in launches_f.items()},
+            unfused_launches_per_frame={k: v / n
+                                        for k, v in launches_u.items()},
+            fused_ms_per_frame_median=med_f / n,
+            unfused_ms_per_frame_median=med_u / n,
+            fused_device_ms_per_frame=dev_f / n,
+            unfused_device_ms_per_frame=dev_u / n,
+            fused_device_busy_share=dev_f / med_f,
+            unfused_device_busy_share=dev_u / med_u,
+            **({"capture_s": capture_s} if n > 1 else {}))
+    # The profiler over a few replays: whether it sees the graphs' kernels.
+    one = torch.stack(seeded_frames(torch, dev, config.image_shape, 21, 1))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fused.process_batch(one)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    seen = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    prof_ms = sum(e.self_device_time_total for e in seen) / 1e3 / 3
+    profiler = dict(sees_graph_kernels=bool(seen), wall_ms_per_frame=wall_ms,
+                    device_ms_per_frame=prof_ms if seen else None,
+                    device_busy_share=prof_ms / wall_ms if seen else None,
+                    note=None if seen else "the profiler sees no kernel "
+                    "inside the replayed graphs; the CUDA-event device "
+                    "times above stand for it")
+    # A capture that fails raises and keeps nothing; the card goes on.
+    failures = check_capture_failure(torch, matching, synthesis, one)
+    disp_after, _ = fused.process_batch(one)
+    disp_before, _ = unfused.process_batch(one)
+    require(torch.equal(disp_after, disp_before),
+            "the fused engine differs after the failed captures")
+    return counts, dict(warmup_s=warmup_s,
+                        graphs_captured=fused.graphs_captured,
+                        capture_failure=failures,
+                        weights="committed" if os.path.isfile(DEEP3D_NPZ)
+                        else "seeded", profiler=profiler, **batches)
+
+
+def check_capture_failure(torch, matching, synthesis, frames) -> dict:
+    """A capture that fails raises out of ``process_batch``, keeps no graph
+    (nothing runs eagerly in its place) and leaves the thread on its
+    stream: once with an exception raised inside the capture, once with a
+    device synchronization, which CUDA refuses while the stream captures
+    (the capture then fails to end)."""
+    from stereo_tpu_torch.pipeline.single_view import FusedSingleViewEngine
+
+    results = {}
+    stream = torch.cuda.current_stream()
+    for label in ("exception", "synchronize"):
+        engine = FusedSingleViewEngine(matching, synthesis)
+        net = engine._net
+
+        def failing(left, label=label, net=net):
+            if torch.cuda.is_current_stream_capturing():
+                if label == "exception":
+                    raise RuntimeError("injected failure")
+                torch.cuda.synchronize()
+            return net(left)
+
+        engine._net = failing
+        try:
+            engine.process_batch(frames)
+        except Exception as exc:  # noqa: BLE001 — the failure is the result
+            results[label] = f"{type(exc).__name__}: {str(exc)[:160]}"
+        else:
+            require(False, f"a capture with a {label} did not raise")
+        require(engine.graphs_captured == 0,
+                f"a failed capture ({label}) kept a graph")
+        require(torch.cuda.current_stream() == stream,
+                f"a failed capture ({label}) left the thread on another "
+                f"stream")
+    torch.cuda.synchronize()
+    return results
+
+
+def phase_fresh_deep3d(torch, dev) -> dict:
+    """``RightViewSynthesis()`` with its defaults: the committed Deep3D
+    checkpoint when the checkout has it, else fresh weights with a
+    warning (as the JAX package); one frame through it either way."""
+    import warnings
+
+    from stereo_tpu_torch.synthesis import RightViewSynthesis
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rvs = RightViewSynthesis()
+    said = [str(w.message) for w in caught
+            if issubclass(w.category, RuntimeWarning)]
+    frame = seeded_frames(torch, dev, (384, 1280), 40, 1)[0]
+    right = rvs.process(frame)
+    torch.cuda.synchronize()
+    require(tuple(right.shape) == (3, 384, 1280)
+            and bool(torch.isfinite(right).all())
+            and float(right.min()) >= 0 and float(right.max()) <= 255,
+            "RightViewSynthesis() gave no view")
+    committed = os.path.isfile(DEEP3D_NPZ)
+    require(committed or said, "fresh weights without a warning")
+    return dict(checkpoint_present=committed,
+                weights="committed" if committed else "fresh",
+                warning=said[0] if said else None,
+                device=str(rvs.device), split_inference=rvs.split_inference)
 
 
 def phase_dnn(torch, dev, synthesis):
@@ -793,10 +999,50 @@ def phase_dnn(torch, dev, synthesis):
         others[f"{name}_{dtype}"] = dict(weights=net.weights, **pair_numbers(
             lambda: net.process(left, right), 3))
         del net
+    others["gwcnet_groups80"] = check_gwcnet_groups(torch, dev, left, right)
     return pipeline, dict(single_view=single,
                           single_view_bfloat16=single_bf16, pair_d64=pair,
                           pair_d192=pair192,
                           gwcnet_features_ms=features_ms, **others)
+
+
+def check_gwcnet_groups(torch, dev, left, right, groups: int = 80) -> dict:
+    """A seeded GwcNet with 4 channels per group (80 groups of its 320
+    features; its aggregation's weights depend on the group count, so no
+    committed weights) in eval mode at 384x1280 / disparity 64: the
+    ``gwc_volume`` kernel at a group size it takes at run time, held
+    against the same forward with the plain volume."""
+    import stereo_tpu_torch.models.gwcnet as gwcnet_module
+    from stereo_tpu_torch.models import init_params
+    from stereo_tpu_torch.ops.cuda import (LAUNCHES, gwc_volume_plain,
+                                           reset_launch_counts)
+    from stereo_tpu_torch.pipeline.backends import normalize_imagenet
+
+    net = gwcnet_module.GwcNet(max_disparity=64, num_groups=groups)
+    init_params(net, 0)
+    net = net.to(dev).eval()
+    lt, rt = (normalize_imagenet(x)[None] for x in (left, right))
+    reset_launch_counts()
+    with torch.no_grad():
+        disp = net(lt, rt)
+    torch.cuda.synchronize()
+    launched = LAUNCHES["gwc_volume"]
+    require(launched >= 1, f"GwcNet at {groups} groups missed gwc_volume")
+    build_gwc_volume = gwcnet_module.build_gwc_volume
+    gwcnet_module.build_gwc_volume = gwc_volume_plain
+    try:
+        with torch.no_grad():
+            disp_plain = net(lt, rt)
+    finally:
+        gwcnet_module.build_gwc_volume = build_gwc_volume
+    diff = (disp - disp_plain).abs()
+    frac = float((diff <= 0.5).float().mean())
+    require(bool(torch.isfinite(disp).all()) and frac >= 0.99,
+            f"GwcNet at {groups} groups vs the plain volume: {frac}")
+    return dict(groups=groups, channels_per_group=320 // groups,
+                weights="seeded", gwc_volume_launches=launched,
+                frac_within_0p5_of_plain=frac,
+                max_abs_diff_to_plain=float(diff.max()))
 
 
 def phase_profile(torch, pipeline, dev, frames: int = 3) -> dict:
@@ -819,9 +1065,15 @@ def phase_profile(torch, pipeline, dev, frames: int = 3) -> dict:
                if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # The device's own time for a frame by CUDA events, which also see the
+    # kernels of a replayed CUDA graph.
+    events_ms = frame_device_ms(torch, lambda: pipeline.process(left))
     return dict(frames=frames, wall_ms_per_frame=wall_ms / frames,
                 device_ms_per_frame=device_ms / frames,
                 device_busy_share=device_ms / wall_ms,
+                profiler_sees_kernels=bool(kernels),
+                event_device_ms_per_frame=events_ms,
+                event_device_busy_share=events_ms * frames / wall_ms,
                 top=[dict(name=e.key[:90], calls=e.count // frames,
                           ms_per_frame=e.self_device_time_total / 1e3 / frames)
                      for e in kernels[:12]])
@@ -945,12 +1197,129 @@ def phase_io() -> dict:
     require(native_ms < 50, f"native decode took {native_ms} ms")
     return dict(gxx_seconds=round(_native.build_seconds, 3),
                 library=os.path.relpath(_native.library_path(), ROOT),
+                native_available=_native.available(),
+                build_error=_native.build_error(),
+                png_cases=check_png_cases(), jpeg_probe=probe_jpeg(),
                 frames=frames, python_decode_ms_once=python_ms,
                 native_decode_ms=native_ms,
                 decode_png_ms=host_ms(lambda: decode_png(data)),
                 native_file_padded_ms=host_ms(
                     lambda: _native.decode_png_padded_chw(FIXTURE_FRAMES[0],
                                                           KITTI_PAD)))
+
+
+# Adam7's passes: (first column, first row, column step, row step).
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def encode_test_png(samples, depth: int, color: int, interlace: bool,
+                    palette=None, trns=None) -> bytes:
+    """PNG bytes of the stored ``samples`` (H, W, S) at ``depth`` bits,
+    plain or Adam7, row r of each pass filtered with type r % 3 (none, Sub,
+    Up): an encoder of its own, since the card's machine has no imaging
+    library."""
+    import struct
+    import zlib
+
+    def chunk(ctype, body):
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body)))
+
+    h, w, s = samples.shape
+    bpp = max(1, s * depth // 8)
+    raw = bytearray()
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        prior = None
+        for r, row in enumerate(sub):
+            vals = row.reshape(-1).astype(np.int64)
+            if depth == 16:
+                packed = vals.astype(">u2").tobytes()
+            elif depth == 8:
+                packed = vals.astype(np.uint8).tobytes()
+            else:
+                packed = np.packbits(((vals[:, None] >> np.arange(
+                    depth - 1, -1, -1)) & 1).reshape(-1).astype(
+                        np.uint8)).tobytes()
+            cur = np.frombuffer(packed, np.uint8).astype(np.int64)
+            up = np.zeros_like(cur) if prior is None else prior
+            left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
+            pred = (np.zeros_like(cur), left, up)[r % 3]
+            raw.append(r % 3)
+            raw += ((cur - pred) % 256).astype(np.uint8).tobytes()
+            prior = cur
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, int(interlace))
+    body = chunk(b"IHDR", ihdr)
+    if palette is not None:
+        body += chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+    if trns is not None:
+        body += chunk(b"tRNS", trns.astype(np.uint8).tobytes())
+    return (b"\x89PNG\r\n\x1a\n" + body + chunk(b"IDAT", zlib.compress(
+        bytes(raw))) + chunk(b"IEND", b""))
+
+
+def check_png_cases() -> dict:
+    """The PNG kinds the decoders take besides 8-bit grey/RGB/RGBA (grey at
+    1, 2, 4 and 16 bits, palettes with and without tRNS, grey+alpha, 16-bit
+    RGB and RGBA), plain and Adam7: the native samples equal the Python
+    oracle's, and the native padded RGB (a file, as the cameras read it)
+    equals the oracle's samples mapped as PIL's ``convert("RGB")`` maps
+    them (the CPU tests hold that mapping to PIL itself)."""
+    import tempfile
+
+    from stereo_tpu_torch import _native
+    from stereo_tpu_torch.utils.png import decode_png_python, rgb_like_pil
+
+    rng = np.random.default_rng(30)
+    cases = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "case.png")
+        for color, depth, trns in ((0, 1, False), (0, 2, False),
+                                   (0, 4, False), (0, 16, False),
+                                   (3, 4, False), (3, 8, True),
+                                   (4, 8, False), (4, 16, False),
+                                   (2, 16, False), (6, 16, False)):
+            for interlace in (False, True):
+                samples_per_pixel = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+                palette = alpha = None
+                top = 2 ** depth
+                if color == 3:
+                    top = min(top, 40)
+                    palette = rng.integers(0, 256, (top, 3))
+                    alpha = rng.integers(0, 256, top // 2) if trns else None
+                elif color == 0 and depth == 16:
+                    top = 400                   # PIL clips 16-bit grey
+                samples = rng.integers(0, top, (37, 45, samples_per_pixel))
+                data = encode_test_png(samples, depth, color, interlace,
+                                       palette, alpha)
+                oracle = decode_png_python(data)
+                native = _native.decode_png_hwc(data)
+                with open(path, "wb") as f:
+                    f.write(data)
+                padded = _native.decode_png_padded_chw(path)
+                require(np.array_equal(native, oracle)
+                        and np.array_equal(padded, rgb_like_pil(oracle)
+                                           .transpose(2, 0, 1)),
+                        f"PNG colour type {color}, depth {depth}, tRNS "
+                        f"{trns}, interlace {interlace}: native differs "
+                        f"from the Python decoder")
+                cases += 1
+    return dict(cases=cases, equal_to_python=True)
+
+
+def probe_jpeg() -> dict:
+    """Whether this machine has libjpeg's header and library (the port
+    decodes no JPEG; the JAX package reads it through PIL)."""
+    import ctypes.util
+
+    headers = [p for p in ("/usr/include/jpeglib.h",
+                           "/usr/include/x86_64-linux-gnu/jpeglib.h",
+                           "/usr/local/include/jpeglib.h")
+               if os.path.isfile(p)]
+    return dict(jpeglib_h=headers, libjpeg=ctypes.util.find_library("jpeg"))
 
 
 class plain_versions:
@@ -962,16 +1331,23 @@ class plain_versions:
         import stereo_tpu_torch.models.deep3d as deep3d
         import stereo_tpu_torch.models.gwcnet as gwcnet
         import stereo_tpu_torch.ops.classical_fused as classical_fused
+        import stereo_tpu_torch.synthesis.right_view_synthesis as rvs
         from stereo_tpu_torch.ops.cuda import (gwc_volume_plain,
                                                matching_core_plain,
                                                sampled_window_plain,
                                                upsample_blend_plain)
+        from stereo_tpu_torch.pipeline import DepthEstimationPipeline
 
+        # The fused engine replays graphs captured with the kernels, so the
+        # plain run takes the pipeline's unfused route: the same stages.
         self.swaps = ((classical_fused, "matching_core", matching_core_plain),
                       (classical_fused, "sampled_window",
                        sampled_window_plain),
                       (deep3d, "upsample_blend", upsample_blend_plain),
-                      (gwcnet, "build_gwc_volume", gwc_volume_plain))
+                      (rvs, "upsample_blend", upsample_blend_plain),
+                      (gwcnet, "build_gwc_volume", gwc_volume_plain),
+                      (DepthEstimationPipeline, "_fused_single_view",
+                       lambda pipeline: None))
         self.saved = [getattr(m, name) for m, name, _ in self.swaps]
         for module, name, plain in self.swaps:
             setattr(module, name, plain)
@@ -2116,6 +2492,16 @@ def main() -> int:
     report("pipeline", t, weights=deep3d_weights, **numbers)
     profile(torch, "profile", pipeline, dev)
 
+    # The main path of this slice: the fused single view, its launch counts
+    # zeroed just before each batch's run and read just after.
+    t = time.perf_counter()
+    fused_counts, numbers = phase_fused_single_view(torch, dev, synthesis)
+    report("fused_single_view", t, **numbers)
+
+    t = time.perf_counter()
+    report("fresh_deep3d", t, **phase_fresh_deep3d(torch, dev))
+    torch.cuda.empty_cache()
+
     t = time.perf_counter()
     dnn_pipeline, numbers = phase_dnn(torch, dev, synthesis)
     report("dnn", t, deep3d_weights=deep3d_weights, **numbers)
@@ -2124,7 +2510,7 @@ def main() -> int:
     # Launch counts of every path driven through the user's entry points,
     # each zeroed just before its run and read just after: the KITTI-size
     # paths, and the Middlebury path (the kernels at MatchingConfig()).
-    counts = {}
+    counts = {"fused_single_view": fused_counts}
     t = time.perf_counter()
     arm_counts, arms = phase_evaluation(torch, dev, synthesis)
     counts.update({f"evaluation/{k}": v for k, v in arm_counts.items()})

@@ -1,13 +1,16 @@
 """ctypes bindings of the port's native host runtime (``stereo_native.cc``).
 
-A copy of ``stereo_tpu/_native`` for the port: a zlib PNG decoder (8- or
-16-bit, from bytes in memory or from a file), layout conversions (HWC uint8 -> padded
+A copy of ``stereo_tpu/_native`` for the port: a zlib PNG decoder (every
+colour type, bit depth and interlace, from bytes in memory or from a
+file), layout conversions (HWC uint8 -> padded
 CHW float32, bilinear resize, mean pool, RGB -> luma) and a threaded frame
 prefetcher.  Unlike the JAX package's copy it has no NumPy or imaging
 fallback: the library is built with one ``g++ ... -lz`` call on first use
 into ``stereo_tpu_torch/_build/`` (named by a hash of the source and the
 flags, so a later process reuses it), and a failed build raises with the
-compiler's log.  Importing this module builds nothing.
+compiler's log.  Importing this module builds nothing.  ``available()``
+and ``build_error()`` report the build's state (they build on first call);
+with no fallback, nothing switches on them.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import os
 import subprocess
 import threading
 import time
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -29,6 +32,7 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _library = None
+_build_error: Optional[str] = None   # why the last build or load failed
 build_seconds = 0.0   # wall time of this process's g++ call, 0 on a cache hit
 
 _P = ctypes.c_void_p
@@ -85,19 +89,38 @@ def _build(path: str) -> None:
 
 def library() -> ctypes.CDLL:
     """The loaded native library (built on first use)."""
-    global _library
+    global _library, _build_error
     with _lock:
         if _library is None:
             path = library_path()
-            if not os.path.isfile(path):
-                _build(path)
-            lib = ctypes.CDLL(path)
+            try:
+                if not os.path.isfile(path):
+                    _build(path)
+                lib = ctypes.CDLL(path)
+            except (RuntimeError, OSError) as exc:
+                _build_error = str(exc)
+                raise
             for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = restype
             _library = lib
     return _library
+
+
+def available() -> bool:
+    """True when the native library builds (on first call) and loads."""
+    try:
+        library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def build_error() -> Optional[str]:
+    """The build's or the load's error message, or None when the library
+    loads."""
+    return None if available() else _build_error
 
 
 def _ptr(arr: np.ndarray) -> int:
@@ -119,9 +142,10 @@ def png_info(data: bytes):
 
 
 def decode_png_hwc(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, C), C = 1 (grey), 2 (grey + alpha), 3 or 4:
-    uint8 for bit depth 8, uint16 for 16; raises ``ValueError`` with the
-    decoder's code for bytes it does not take."""
+    """PNG bytes -> (H, W, C), C = 1 (grey), 2 (grey + alpha), 3 (RGB or
+    a palette) or 4 (RGBA or a palette with tRNS): uint16 for bit depth
+    16, else uint8 (grey below 8 bits scaled to 0..255); raises
+    ``ValueError`` with the decoder's code for bytes it does not take."""
     info = png_info(data)
     if isinstance(info, int):
         raise ValueError(f"native PNG decoder: error {info}")
@@ -145,10 +169,11 @@ def png_shape(path: str):
 
 def decode_png_padded_chw(path: str, pad: Sequence[int] = (0, 0, 0, 0),
                           scale: float = 1.0) -> np.ndarray:
-    """PNG file -> (3, top+H+bottom, left+W+right) float32 samples times
-    ``scale`` (grey replicated, alpha dropped); ``pad`` is (left, top,
-    right, bottom).  Raises ``ValueError`` for a file the decoder does not
-    take."""
+    """PNG file -> (3, top+H+bottom, left+W+right) float32 RGB times
+    ``scale``, the values of PIL's ``convert("RGB")`` (grey replicated,
+    alpha dropped, 16-bit samples by their high byte but 16-bit grey
+    clipped to 255); ``pad`` is (left, top, right, bottom).  Raises
+    ``ValueError`` for a file the decoder does not take."""
     shape = png_shape(path)
     if shape is None:
         raise ValueError(f"native PNG decoder cannot read {path!r}")
@@ -271,6 +296,7 @@ class FramePrefetcher:
         self.close()
 
 
-__all__ = ["FramePrefetcher", "decode_png_hwc", "decode_png_padded_chw",
-           "hwc_to_padded_chw", "library", "mean_pool", "png_info",
+__all__ = ["FramePrefetcher", "available", "build_error", "decode_png_hwc",
+           "decode_png_padded_chw", "hwc_to_padded_chw", "library",
+           "mean_pool", "png_info",
            "png_shape", "resize_bilinear_chw", "rgb_to_gray"]

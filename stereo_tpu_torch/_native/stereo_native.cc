@@ -3,11 +3,11 @@
 //
 // What it owns is the host's input pipeline, which the device never sees:
 //
-//   * a zlib-based PNG decoder (8- and 16-bit grey/grey+alpha/RGB/RGBA,
-//     non-interlaced: the KITTI and Middlebury formats, KITTI's 16-bit
-//     disparity maps and what image libraries write by default, every
-//     filter type) from bytes in memory or a file, straight to HWC
-//     uint8/uint16 or padded planar float32;
+//   * a zlib-based PNG decoder (grey at 1, 2, 4, 8 and 16 bits, palette
+//     with or without tRNS, grey+alpha, RGB and RGBA at 8 and 16 bits,
+//     plain or Adam7-interlaced, every filter type) from bytes in memory or
+//     a file, straight to HWC uint8/uint16 samples or to padded planar
+//     float32 RGB as an image library's RGB conversion gives it;
 //   * fused layout conversions (HWC uint8 -> padded CHW float32, bilinear
 //     resize, kxk mean pool, RGB -> luma) used by the cameras;
 //   * a multi-threaded frame prefetcher over a ring of preallocated,
@@ -18,6 +18,7 @@
 
 #include <zlib.h>
 
+#include <algorithm>
 #include <atomic>
 #include <cmath>
 #include <condition_variable>
@@ -43,7 +44,7 @@ struct Image {
   int width = 0;
   int channels = 0;
   int depth = 8;                // bits per sample: 8 or 16 (big-endian)
-  std::vector<uint8_t> pixels;  // HWC samples as stored, unfiltered
+  std::vector<uint8_t> pixels;  // HWC samples, unfiltered and expanded
 
   int sample(size_t i) const {  // the i-th sample (HWC order)
     return depth == 16 ? (int(pixels[2 * i]) << 8) | pixels[2 * i + 1]
@@ -65,20 +66,28 @@ int paeth(int a, int b, int c) {
 }
 
 struct Header {
-  int width = 0, height = 0, channels = 0, depth = 8;
+  int width = 0, height = 0;
+  int bit_depth = 8, color_type = 0, interlace = 0;
+  int raw_channels = 0;          // samples per pixel as stored (palette: 1)
+  int channels = 0;              // samples per decoded pixel
+  int depth = 8;                 // bits per decoded sample: 8 or 16
+  std::vector<uint8_t> palette;  // PLTE: r, g, b per entry
+  std::vector<uint8_t> trns;     // tRNS of a palette image: alpha per entry
   std::vector<uint8_t> idat;
 };
 
-// Walks the chunks; fills the header and, when `idat` is set, the
-// concatenated IDAT payload.  Returns 0 for a supported PNG: bit depth 8
-// or 16, colour types 0 (grey), 2 (RGB), 4 (grey+alpha), 6 (RGBA),
-// non-interlaced.
+// Walks the chunks; fills the header, the palette and, when `idat` is set,
+// the concatenated IDAT payload.  Returns 0 for a PNG the decoder takes:
+// colour type 0 (grey) at 1, 2, 4, 8 or 16 bits, 2 (RGB), 4 (grey+alpha)
+// and 6 (RGBA) at 8 or 16, 3 (palette) at 1, 2, 4 or 8, plain or Adam7
+// interlaced.  Decoded samples are 8-bit but for bit depth 16; a palette
+// image decodes to RGB, or RGBA when it has a tRNS chunk.
 int parse_png(const uint8_t* data, size_t size, Header* hdr, bool idat) {
   static const uint8_t kSig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
   if (size < 8 || std::memcmp(data, kSig, 8) != 0) return -1;
 
   size_t pos = 8;
-  int width = 0, height = 0, bit_depth = 0, color_type = 0, interlace = 0;
+  bool have_header = false;
   while (pos + 8 <= size) {
     uint32_t len = read_be32(data + pos);
     const uint8_t* type = data + pos + 4;
@@ -86,11 +95,17 @@ int parse_png(const uint8_t* data, size_t size, Header* hdr, bool idat) {
     if (pos + 12 + size_t(len) > size) return -2;
     if (std::memcmp(type, "IHDR", 4) == 0) {
       if (len < 13) return -3;
-      width = int(read_be32(payload));
-      height = int(read_be32(payload + 4));
-      bit_depth = payload[8];
-      color_type = payload[9];
-      interlace = payload[12];
+      hdr->width = int(read_be32(payload));
+      hdr->height = int(read_be32(payload + 4));
+      hdr->bit_depth = payload[8];
+      hdr->color_type = payload[9];
+      hdr->interlace = payload[12];
+      have_header = true;
+    } else if (std::memcmp(type, "PLTE", 4) == 0) {
+      if (len % 3 != 0 || len > 768) return -3;
+      hdr->palette.assign(payload, payload + len);
+    } else if (std::memcmp(type, "tRNS", 4) == 0) {
+      hdr->trns.assign(payload, payload + len);
     } else if (std::memcmp(type, "IDAT", 4) == 0) {
       if (idat) hdr->idat.insert(hdr->idat.end(), payload, payload + len);
     } else if (std::memcmp(type, "IEND", 4) == 0) {
@@ -98,20 +113,104 @@ int parse_png(const uint8_t* data, size_t size, Header* hdr, bool idat) {
     }
     pos += 12 + size_t(len);
   }
-  if (width <= 0 || height <= 0 || (bit_depth != 8 && bit_depth != 16) ||
-      interlace != 0)
-    return -4;
-  switch (color_type) {
-    case 0: hdr->channels = 1; break;
-    case 2: hdr->channels = 3; break;
-    case 4: hdr->channels = 2; break;
-    case 6: hdr->channels = 4; break;
+  const int d = hdr->bit_depth;
+  const bool low = d == 1 || d == 2 || d == 4 || d == 8;
+  bool depth_ok = false;
+  switch (hdr->color_type) {
+    case 0: hdr->raw_channels = 1; depth_ok = low || d == 16; break;
+    case 2: hdr->raw_channels = 3; depth_ok = d == 8 || d == 16; break;
+    case 3: hdr->raw_channels = 1; depth_ok = low; break;
+    case 4: hdr->raw_channels = 2; depth_ok = d == 8 || d == 16; break;
+    case 6: hdr->raw_channels = 4; depth_ok = d == 8 || d == 16; break;
     default: return -5;
   }
-  hdr->width = width;
-  hdr->height = height;
-  hdr->depth = bit_depth;
+  if (!have_header || hdr->width <= 0 || hdr->height <= 0 || !depth_ok ||
+      hdr->interlace > 1)
+    return -4;
+  if (hdr->color_type == 3) {
+    if (hdr->palette.empty()) return -8;
+    hdr->channels = hdr->trns.empty() ? 3 : 4;
+  } else {
+    hdr->channels = hdr->raw_channels;
+    hdr->trns.clear();           // a grey or RGB colour key: not an alpha
+  }
+  hdr->depth = d == 16 ? 16 : 8;
   return 0;
+}
+
+// Reverses one row's filter: `prior` is the previous row of the same pass
+// (zeros for its first row), `bpp` the filters' byte distance.
+bool unfilter_row(int filter, const uint8_t* src, const uint8_t* prior,
+                  uint8_t* dst, size_t stride, size_t bpp) {
+  switch (filter) {
+    case 0:
+      std::memcpy(dst, src, stride);
+      return true;
+    case 1:  // Sub
+      for (size_t i = 0; i < stride; ++i)
+        dst[i] = uint8_t(src[i] + (i >= bpp ? dst[i - bpp] : 0));
+      return true;
+    case 2:  // Up
+      for (size_t i = 0; i < stride; ++i) dst[i] = uint8_t(src[i] + prior[i]);
+      return true;
+    case 3:  // Average
+      for (size_t i = 0; i < stride; ++i) {
+        int a = i >= bpp ? dst[i - bpp] : 0;
+        dst[i] = uint8_t(src[i] + ((a + prior[i]) >> 1));
+      }
+      return true;
+    case 4:  // Paeth
+      for (size_t i = 0; i < stride; ++i) {
+        int a = i >= bpp ? dst[i - bpp] : 0;
+        int c = i >= bpp ? prior[i - bpp] : 0;
+        dst[i] = uint8_t(src[i] + paeth(a, prior[i], c));
+      }
+      return true;
+    default:
+      return false;
+  }
+}
+
+// Writes pixel `x` of an unfiltered row into `dst` (the pixel's first
+// decoded byte): samples below 8 bits are scaled to 0..255 for grey and
+// looked up for a palette, where an index past the palette is black (as
+// image libraries read it), opaque unless tRNS says otherwise.
+void put_pixel(const Header& hdr, const uint8_t* row, int x, uint8_t* dst) {
+  const int bd = hdr.bit_depth;
+  if (bd == 16 || (bd == 8 && hdr.color_type != 3)) {
+    const size_t n = size_t(hdr.raw_channels) * (bd / 8);
+    std::memcpy(dst, row + size_t(x) * n, n);
+    return;
+  }
+  int v;
+  if (bd == 8) {
+    v = row[x];
+  } else {
+    const size_t bit = size_t(x) * bd;
+    v = (row[bit / 8] >> (8 - bd - int(bit % 8))) & ((1 << bd) - 1);
+  }
+  if (hdr.color_type != 3) {
+    dst[0] = uint8_t(v * 255 / ((1 << bd) - 1));
+    return;
+  }
+  if (size_t(v) * 3 < hdr.palette.size())
+    std::memcpy(dst, hdr.palette.data() + size_t(v) * 3, 3);
+  else
+    dst[0] = dst[1] = dst[2] = 0;
+  if (hdr.channels == 4)
+    dst[3] = size_t(v) < hdr.trns.size() ? hdr.trns[v] : 255;
+}
+
+struct Pass {
+  int x0, y0, dx, dy;
+};
+const Pass kAdam7[7] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8},
+                        {2, 0, 4, 4}, {0, 2, 2, 4}, {1, 0, 2, 2},
+                        {0, 1, 1, 2}};
+const Pass kWhole[1] = {{0, 0, 1, 1}};
+
+int pass_size(int extent, int start, int step) {
+  return extent > start ? (extent - start + step - 1) / step : 0;
 }
 
 // Returns 0 on success; fills `out`.
@@ -119,66 +218,63 @@ int decode_png(const uint8_t* data, size_t size, Image* out) {
   Header hdr;
   int rc = parse_png(data, size, &hdr, true);
   if (rc) return rc;
-  const int width = hdr.width, height = hdr.height, channels = hdr.channels;
-  const std::vector<uint8_t>& idat = hdr.idat;
-  // Filters work on bytes, a pixel's bytes apart.
-  const int bpp = channels * hdr.depth / 8;
+  const Pass* passes = hdr.interlace ? kAdam7 : kWhole;
+  const int n_passes = hdr.interlace ? 7 : 1;
+  const size_t bits = size_t(hdr.raw_channels) * hdr.bit_depth;  // a pixel
+  // Filters work on bytes, a pixel's bytes apart (at least one).
+  const size_t bpp = bits >= 8 ? bits / 8 : 1;
 
-  const size_t stride = size_t(width) * bpp;
-  std::vector<uint8_t> raw((stride + 1) * height);
+  size_t total = 0;
+  for (int p = 0; p < n_passes; ++p) {
+    const int pw = pass_size(hdr.width, passes[p].x0, passes[p].dx);
+    const int ph = pass_size(hdr.height, passes[p].y0, passes[p].dy);
+    if (pw && ph) total += size_t(ph) * (1 + (size_t(pw) * bits + 7) / 8);
+  }
+  std::vector<uint8_t> raw(total);
   uLongf raw_len = raw.size();
-  if (uncompress(raw.data(), &raw_len, idat.data(), idat.size()) != Z_OK ||
+  if (uncompress(raw.data(), &raw_len, hdr.idat.data(), hdr.idat.size()) !=
+          Z_OK ||
       raw_len != raw.size())
     return -6;
 
-  out->height = height;
-  out->width = width;
-  out->channels = channels;
+  out->height = hdr.height;
+  out->width = hdr.width;
+  out->channels = hdr.channels;
   out->depth = hdr.depth;
-  out->pixels.resize(stride * height);
-  for (int y = 0; y < height; ++y) {
-    const uint8_t filter = raw[(stride + 1) * y];
-    const uint8_t* src = raw.data() + (stride + 1) * y + 1;
-    uint8_t* dst = out->pixels.data() + stride * y;
-    const uint8_t* up = y ? out->pixels.data() + stride * (y - 1) : nullptr;
-    switch (filter) {
-      case 0:
-        std::memcpy(dst, src, stride);
-        break;
-      case 1:  // Sub
-        for (size_t i = 0; i < stride; ++i)
-          dst[i] = uint8_t(src[i] + (i >= size_t(bpp) ? dst[i - bpp] : 0));
-        break;
-      case 2:  // Up
-        for (size_t i = 0; i < stride; ++i)
-          dst[i] = uint8_t(src[i] + (up ? up[i] : 0));
-        break;
-      case 3:  // Average
-        for (size_t i = 0; i < stride; ++i) {
-          int a = i >= size_t(bpp) ? dst[i - bpp] : 0;
-          int b = up ? up[i] : 0;
-          dst[i] = uint8_t(src[i] + ((a + b) >> 1));
-        }
-        break;
-      case 4:  // Paeth
-        for (size_t i = 0; i < stride; ++i) {
-          int a = i >= size_t(bpp) ? dst[i - bpp] : 0;
-          int b = up ? up[i] : 0;
-          int c = (up && i >= size_t(bpp)) ? up[i - bpp] : 0;
-          dst[i] = uint8_t(src[i] + paeth(a, b, c));
-        }
-        break;
-      default:
+  const size_t pixel_bytes = size_t(hdr.channels) * (hdr.depth / 8);
+  out->pixels.assign(size_t(hdr.width) * hdr.height * pixel_bytes, 0);
+  size_t pos = 0;
+  std::vector<uint8_t> prior, cur;
+  for (int p = 0; p < n_passes; ++p) {
+    const Pass& ps = passes[p];
+    const int pw = pass_size(hdr.width, ps.x0, ps.dx);
+    const int ph = pass_size(hdr.height, ps.y0, ps.dy);
+    if (!pw || !ph) continue;
+    const size_t stride = (size_t(pw) * bits + 7) / 8;
+    prior.assign(stride, 0);
+    cur.assign(stride, 0);
+    for (int y = 0; y < ph; ++y) {
+      if (!unfilter_row(raw[pos], raw.data() + pos + 1, prior.data(),
+                        cur.data(), stride, bpp))
         return -7;
+      pos += stride + 1;
+      const size_t row0 = size_t(ps.y0 + y * ps.dy) * hdr.width;
+      for (int x = 0; x < pw; ++x) {
+        uint8_t* dst = out->pixels.data() +
+                       (row0 + ps.x0 + size_t(x) * ps.dx) * pixel_bytes;
+        put_pixel(hdr, cur.data(), x, dst);
+      }
+      std::swap(prior, cur);
     }
   }
   return 0;
 }
 
 // HWC samples (any of 1/2/3/4 channels) -> padded planar CHW float32 *
-// scale.
-// Output: 3 x (top+h+bottom) x (left+w+right); gray replicates channels;
-// alpha is dropped.
+// scale, with the RGB values an image library's RGB conversion gives
+// (PIL's convert("RGB")): grey replicated, alpha dropped, 16-bit samples
+// taken by their high byte, but 16-bit grey clipped to 255.
+// Output: 3 x (top+h+bottom) x (left+w+right).
 void to_padded_chw(const Image& im, int left, int top, int right, int bottom,
                    float scale, float* out) {
   const int oh = top + im.height + bottom;
@@ -192,8 +288,11 @@ void to_padded_chw(const Image& im, int left, int top, int right, int bottom,
     for (int y = 0; y < im.height; ++y) {
       const size_t row = size_t(y) * im.width * in_c + src_c;
       float* dst = dst_plane + size_t(y + top) * ow + left;
-      for (int x = 0; x < im.width; ++x)
-        dst[x] = float(im.sample(row + size_t(x) * in_c)) * scale;
+      for (int x = 0; x < im.width; ++x) {
+        int v = im.sample(row + size_t(x) * in_c);
+        if (im.depth == 16) v = in_c == 1 ? std::min(v, 255) : v >> 8;
+        dst[x] = float(v) * scale;
+      }
     }
   }
 }

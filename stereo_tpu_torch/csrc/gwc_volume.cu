@@ -15,16 +15,21 @@
 // 2*D*H*W*C = 0.31 GFLOP take about 5 us at the float32 rate.  At D=48 the
 // volume alone is 236 MB (94 us).
 //
-// Design: one thread per (n, g, h, w).  It loads its group's 8 left
-// channels once into registers and loops over d, reading the right row at
-// w - d and writing vol[n, g, d, h, w].  Consecutive threads take
-// consecutive w, so every load and store of a warp is one contiguous run;
-// the right row is re-read for each d at a shift of one element, which L1
-// and L2 serve, so device memory sees each input about once.  The sum is
-// taken in float32 and rounded to the volume's dtype on the store, as the
-// Pallas kernel's float32 accumulator is.  The Pallas kernel's unrolled
-// static D loop and two-row blocks exist only for Mosaic's sublane
-// alignment and have no counterpart here.
+// Design: one thread per (n, g, h, w).  It loops over d, reading the right
+// row at w - d and writing vol[n, g, d, h, w].  The group size is a
+// run-time argument.  At GwcNet's 8 channels per group it is a
+// compile-time instance that loads its group's left channels once into
+// registers; any other size walks its channels in a loop, the left values
+// re-read from L1 for each plane: more loads per output, slower against
+// its bound (PERF.md section 6 has its times), and run by no configuration.
+// Consecutive threads take consecutive w, so every load and store of a
+// warp is one contiguous run; the right row is re-read for each d at a
+// shift of one element, which L1 and L2 serve, so device memory sees each
+// input about once.  Channels are summed in index order in float32, scaled
+// by 1/cpg (the Pallas kernel's averaging matrix) and rounded to the
+// volume's dtype on the store, as the Pallas kernel's float32 accumulator
+// is.  The Pallas kernel's unrolled static D loop and two-row blocks exist
+// only for Mosaic's sublane alignment and have no counterpart here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,39 +45,60 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
     *p = __float2bfloat16(v);
 }
 
-// Channels per group: GwcNet's 320 features in 40 groups.
+// Channels per group of the compile-time instance: GwcNet's 320 features
+// in 40 groups.
 constexpr int kCpg = 8;
 
-template <typename T>
+// CPG > 0: exactly CPG channels per group, known at compile time.
+// CPG == 0: `cpg` channels, known at run time.
+template <typename T, int CPG>
 __global__ void gwc_volume_kernel(const T* __restrict__ left,
                                   const T* __restrict__ right,
-                                  T* __restrict__ out, int G, int D, int H,
-                                  int W) {
+                                  T* __restrict__ out, int G, int cpg, int D,
+                                  int H, int W) {
     const int w = blockIdx.x * blockDim.x + threadIdx.x;
     const int h = blockIdx.y * blockDim.y + threadIdx.y;
     const int ng = blockIdx.z;              // n * G + g
     if (w >= W || h >= H) return;
+    if (CPG > 0) cpg = CPG;
     const int n = ng / G;
     const int g = ng - n * G;
 
     const size_t plane = (size_t)H * W;
-    const int C = G * kCpg;
-    // Channel c0 = g * kCpg of image n, at row h.
-    const size_t base = ((size_t)n * C + (size_t)g * kCpg) * plane
+    const int C = G * cpg;
+    // Channel c0 = g * cpg of image n, at row h.
+    const size_t base = ((size_t)n * C + (size_t)g * cpg) * plane
                         + (size_t)h * W;
-    float l[kCpg];
-#pragma unroll
-    for (int k = 0; k < kCpg; ++k) l[k] = to_float(left[base + k * plane + w]);
-
+    const T* l = left + base + w;
     const T* r = right + base;
     T* o = out + (size_t)ng * D * plane + (size_t)h * W + w;
-    const float inv = 1.0f / (float)kCpg;
+    const float inv = 1.0f / (float)cpg;
+    if (CPG > 0) {
+        float lv[CPG > 0 ? CPG : 1];
+#pragma unroll
+        for (int k = 0; k < CPG; ++k) lv[k] = to_float(l[k * plane]);
+        for (int d = 0; d < D; ++d) {
+            float acc = 0.0f;
+            if (w >= d) {
+#pragma unroll
+                for (int k = 0; k < CPG; ++k)
+                    acc = fmaf(lv[k], to_float(__ldg(r + k * plane + w - d)),
+                               acc);
+                acc *= inv;
+            }
+            store(o + (size_t)d * plane, acc);
+        }
+        return;
+    }
     for (int d = 0; d < D; ++d) {
         float acc = 0.0f;
         if (w >= d) {
-#pragma unroll
-            for (int k = 0; k < kCpg; ++k)
-                acc = fmaf(l[k], to_float(__ldg(r + k * plane + w - d)), acc);
+#pragma unroll 8
+            for (int k = 0; k < cpg; ++k) {
+                const size_t off = (size_t)k * plane;
+                acc = fmaf(to_float(__ldg(l + off)),
+                           to_float(__ldg(r + off + w - d)), acc);
+            }
             acc *= inv;
         }
         store(o + (size_t)d * plane, acc);
@@ -88,15 +114,21 @@ int launch(const void* left, const void* right, void* out, int n, int c,
     const T* l = static_cast<const T*>(left);
     const T* r = static_cast<const T*>(right);
     T* o = static_cast<T*>(out);
-    if (c != g * kCpg) return (int)cudaErrorInvalidValue;
-    gwc_volume_kernel<T><<<grid, block, 0, stream>>>(l, r, o, g, d, h, w);
+    if (g <= 0 || c % g != 0) return (int)cudaErrorInvalidValue;
+    const int cpg = c / g;
+    if (cpg == kCpg)
+        gwc_volume_kernel<T, kCpg><<<grid, block, 0, stream>>>(l, r, o, g, cpg,
+                                                               d, h, w);
+    else
+        gwc_volume_kernel<T, 0><<<grid, block, 0, stream>>>(l, r, o, g, cpg,
+                                                            d, h, w);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Channels per group (c / g) must be
-// kCpg = 8; the wrapper checks this before the launch.
+// dtype: 0 = float32, 1 = bfloat16.  g must divide c; the channels per
+// group (c / g) may be any number, with 8 the compile-time instance.
 extern "C" int stereo_gwc_volume(const void* left, const void* right,
                                  void* out, int n, int c, int h, int w, int g,
                                  int d, int dtype, void* stream) {

@@ -95,3 +95,12 @@ class ClassicalStereoEngine:
         rights = self._as_tensor(right_batch)
         return torch.stack([self.compute_disparity_map(l, r)
                             for l, r in zip(lefts, rights)])
+
+    def warmup(self) -> None:
+        """One frame of zeros through the matcher, so that the kernels are
+        built before the first real frame (the JAX engine compiles)."""
+        x = torch.zeros((3, self.config.height, self.config.width),
+                        device=self.device)
+        self.compute_disparity_map(x, x)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)

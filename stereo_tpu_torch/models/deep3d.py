@@ -30,6 +30,18 @@ from .layers import Deconv2dParity
 
 NUM_DISPARITY_CHANNELS = 65
 
+
+def _fused_blend_eligible(full_shape, scale: int, device) -> bool:
+    """True when the blend tail can run as the ``upsample_blend`` kernel
+    in a CUDA graph of its own: a CUDA ``device`` and a full shape whose
+    height and width ``scale`` divides, so that the view is exactly
+    ``scale`` times the volume (``ops/cuda/blend.py``).  False on the CPU,
+    as the JAX package's counterpart is off the TPU."""
+    if torch.device(device).type != "cuda":
+        return False
+    h, w = int(full_shape[-2]), int(full_shape[-1])
+    return h % scale == 0 and w % scale == 0
+
 # VGG16 convolutional configuration, split at MaxPool boundaries.
 VGG16_BLOCKS: Tuple[Tuple[int, ...], ...] = (
     (64, 64), (128, 128), (256, 256, 256), (512, 512, 512), (512, 512, 512))

@@ -8,7 +8,7 @@ import torch.nn.functional as F
 
 from ..shift_stack import weighted_shift_sum
 from . import build
-from .launch import (LAUNCHES, check_cuda, refuse_autograd, require,
+from .launch import (check_cuda, count_launch, refuse_autograd, require,
                      use_kernel)
 
 
@@ -49,5 +49,5 @@ def upsample_blend(prob_low_ndhw: torch.Tensor, view_nchw: torch.Tensor,
             prob_low_ndhw.data_ptr(), view_nchw.data_ptr(), out.data_ptr(),
             n, num_d, hl, wl, h, w, stream)
     build.check(status, "upsample_blend")
-    LAUNCHES["upsample_blend"] += 1
+    count_launch("upsample_blend")
     return out

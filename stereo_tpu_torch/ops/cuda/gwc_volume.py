@@ -7,11 +7,10 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .launch import (LAUNCHES, check_cuda, refuse_autograd, require,
+from .launch import (check_cuda, count_launch, refuse_autograd, require,
                      use_kernel)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_CPG = 8   # channels per group the kernel is built for (GwcNet: 320 / 40)
 
 
 def gwc_volume_plain(left: torch.Tensor, right: torch.Tensor,
@@ -33,7 +32,9 @@ def gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disparity: int,
                num_groups: int) -> torch.Tensor:
     """(N, C, H, W) left/right features -> (N, G, D, H, W) volume,
     ``vol[n, g, d, h, w] = mean_{c in g} L[n, c, h, w] * R[n, c, h, w - d]``
-    and 0 where ``w < d``; float32 or bf16, in the features' dtype."""
+    and 0 where ``w < d``; float32 or bf16, in the features' dtype.  Any
+    ``num_groups`` that divides C (8 channels per group, GwcNet's, is the
+    kernel's compile-time instance)."""
     n, c, h, w = left.shape
     require(right.shape == left.shape,
             f"right {tuple(right.shape)} differs from left {tuple(left.shape)}")
@@ -48,9 +49,6 @@ def gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disparity: int,
     dtypes = tuple(_DTYPE_CODES)
     check_cuda("left", left, dev, (n, c, h, w), dtypes)
     check_cuda("right", right, dev, (n, c, h, w), (left.dtype,))
-    require(c // num_groups == _KERNEL_CPG,
-            f"gwc_volume kernel takes {_KERNEL_CPG} channels per group, "
-            f"got {c // num_groups}")
     out = torch.empty((n, num_groups, max_disparity, h, w), dtype=left.dtype,
                       device=dev)
     lib = build.library()
@@ -60,5 +58,5 @@ def gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disparity: int,
             left.data_ptr(), right.data_ptr(), out.data_ptr(), n, c, h, w,
             num_groups, max_disparity, _DTYPE_CODES[left.dtype], stream)
     build.check(status, "gwc_volume")
-    LAUNCHES["gwc_volume"] += 1
+    count_launch("gwc_volume")
     return out

@@ -3,22 +3,53 @@ dispatch rule and the argument checks before a launch."""
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import threading
+from typing import Dict, Iterator, Tuple
 
 import torch
 
 # Kernel launches by kernel name; a wrapper adds one where it launches.
 # "matching_core[rows_prepadded]" and "sampled_window[rows_prepadded]"
 # count the launches in the row-halo mode, which the kernel's own count
-# includes.
+# includes.  A launch recorded into a CUDA graph is counted in the graph's
+# own counts instead (``capturing_counts``), and its owner adds them here
+# on every replay (``add_launches``): the counts are the device's runs.
 LAUNCHES = {"matching_core": 0, "sampled_window": 0, "upsample_blend": 0,
             "gwc_volume": 0, "matching_core[rows_prepadded]": 0,
             "sampled_window[rows_prepadded]": 0}
+
+_capture = threading.local()
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of ``name``: to ``LAUNCHES``, or to the counts of
+    the graph this thread is capturing."""
+    counts = getattr(_capture, "counts", None)
+    (LAUNCHES if counts is None else counts)[name] += 1
+
+
+@contextlib.contextmanager
+def capturing_counts() -> Iterator[Dict[str, int]]:
+    """Inside the block this thread's launches go to the dict it yields
+    (the counts of a CUDA graph being captured), not to ``LAUNCHES``."""
+    counts = {name: 0 for name in LAUNCHES}
+    _capture.counts = counts
+    try:
+        yield counts
+    finally:
+        _capture.counts = None
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add a captured graph's counts to ``LAUNCHES`` (once per replay)."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def use_kernel(t: torch.Tensor, name: str) -> bool:

@@ -20,7 +20,8 @@ from ..gather import take_lane, take_window_lanes
 from ..refinement import sampled_sad_volume
 from ..wta import wta_disparity
 from . import build
-from .launch import LAUNCHES, check_cuda, refuse_autograd, require, use_kernel
+from .launch import (check_cuda, count_launch, refuse_autograd, require,
+                     use_kernel)
 
 
 def _row_pads(config: MatchingConfig, rows_prepadded: bool):
@@ -96,9 +97,9 @@ def matching_core(left_down: torch.Tensor, right_down: torch.Tensor,
             c.num_disparities_down, c.cost_patch_radius, c.small_mbm_radius,
             c.mid_mbm_radius, c.large_mbm_radius, pad, stream)
     build.check(status, "matching_core")
-    LAUNCHES["matching_core"] += 1
+    count_launch("matching_core")
     if pad:
-        LAUNCHES["matching_core[rows_prepadded]"] += 1
+        count_launch("matching_core[rows_prepadded]")
     return disparity, mbm
 
 
@@ -157,7 +158,7 @@ def sampled_window(left_gray: torch.Tensor, right_gray: torch.Tensor,
             c.sad_patch_radius, c.min_disparity_down, c.num_disparities_down,
             pad, stream)
     build.check(status, "sampled_window")
-    LAUNCHES["sampled_window"] += 1
+    count_launch("sampled_window")
     if pad:
-        LAUNCHES["sampled_window[rows_prepadded]"] += 1
+        count_launch("sampled_window[rows_prepadded]")
     return out

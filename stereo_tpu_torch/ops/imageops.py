@@ -46,6 +46,18 @@ def mean_pool(image: torch.Tensor, k: int) -> torch.Tensor:
     return acc / float(k * k)
 
 
+def grayscale_gradient(image_hw: torch.Tensor) -> torch.Tensor:
+    """Sobel gradient magnitude (``csrc/imageops/grayscale_gradient.cc:8-20``):
+    two 3x3 correlations with zero 'same' padding, then
+    ``sqrt(gx^2 + gy^2)``."""
+    kx = torch.tensor([[1.0, 0.0, -1.0], [2.0, 0.0, -2.0], [1.0, 0.0, -1.0]],
+                      dtype=image_hw.dtype, device=image_hw.device)
+    img = image_hw[None, None]
+    gx = F.conv2d(img, kx[None, None], padding=1)[0, 0]
+    gy = F.conv2d(img, kx.T[None, None], padding=1)[0, 0]
+    return torch.sqrt(gx * gx + gy * gy)
+
+
 def rescale_generated_view(view_chw: torch.Tensor) -> torch.Tensor:
     """Map a 0..1 synthesized view to 0..255: ``clip(v * 255 + 0.5)`` with
     no rounding (``csrc/synthesis/kernels/rescale_generated_view.cu:17-18``)."""

@@ -12,11 +12,24 @@ import torch.nn.functional as F
 
 
 def _shift_cols(x: torch.Tensor, d: int) -> torch.Tensor:
-    """``out[..., y] = x[..., y + d]`` with zero fill (``d >= 0``; all zeros
-    once ``d`` reaches the width)."""
+    """``out[..., y] = x[..., y + d]`` with zero fill: ``d > 0`` moves the
+    content left, ``d < 0`` right; all zeros once ``|d|`` reaches the
+    width."""
     if d == 0:
         return x
-    return F.pad(x[..., d:], (0, min(d, x.shape[-1])))
+    w = x.shape[-1]
+    if d > 0:
+        return F.pad(x[..., d:], (0, min(d, w)))
+    return F.pad(x[..., :max(d, -w)], (min(-d, w), 0))
+
+
+def disparity_shift_stack(left_nchw: torch.Tensor, min_disparity: int,
+                          max_disparity: int) -> torch.Tensor:
+    """(N, C, H, W) -> (N, D, C, H, W) stack of the views shifted by each
+    disparity in ``min_disparity..max_disparity``."""
+    return torch.stack([_shift_cols(left_nchw, d)
+                        for d in range(min_disparity, max_disparity + 1)],
+                       dim=1)
 
 
 def weighted_shift_sum(weights_ndhw: torch.Tensor,

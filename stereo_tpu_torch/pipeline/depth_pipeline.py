@@ -6,13 +6,17 @@ backend: the classical matcher or a DNN (GwcNet, MSNet2D, MSNet3D).  A
 config with a multi-device ``MeshConfig`` runs the sharded engines of
 ``stereo_tpu_torch.parallel`` and dispatches as the JAX package does: the
 sharded backends, and ``process_batch(left, None)`` with the classical
-backend through ``ShardedSingleViewEngine``.
+backend through ``ShardedSingleViewEngine``.  On one CUDA device the
+classical single view runs through ``FusedSingleViewEngine`` (two captured
+CUDA graphs, the JAX package's two executables), as the JAX package routes
+it on the TPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,7 +27,7 @@ from ..utils.profiling import StageTimer, perf_clock
 from .backends import (AVAILABLE_DNN_BACKENDS, ClassicalStereoBackend,
                        DnnStereoMatchingBackend, ShardedClassicalBackend,
                        ShardedDnnBackend, StereoMatchingBackend)
-from .single_view import SingleViewEngine
+from .single_view import FusedSingleViewEngine, SingleViewEngine
 
 
 @dataclasses.dataclass
@@ -72,6 +76,7 @@ class DepthEstimationPipeline:
             self.mesh = make_mesh(config.mesh, mesh_devices)
         self._right_view_synthesis = synthesis
         self._single_view = None
+        self._fused_sv_engine = None
         self._sharded_sv_engine = None
         self._timer = StageTimer(self.device)
         self._stereo_matching = self._build_backend()
@@ -97,8 +102,9 @@ class DepthEstimationPipeline:
         log, dev = self._config.log_perf_time, self.device
         left = self._as_tensor(left_image)
         if right_image is None and self.mesh is None:
+            engine = self._fused_single_view() or self._single_view_engine()
             with perf_clock("Depth estimation", log, dev):
-                disparity, right = self._single_view_engine().process(left)
+                disparity, right = engine.process(left)
         else:
             # Under a mesh a single view is synthesized here and matched by
             # the sharded backend's single-frame process(), as in the JAX
@@ -126,7 +132,8 @@ class DepthEstimationPipeline:
             disparity, right = self._sharded_single_view().process_batch(
                 left, return_right=True)
         elif right_batch is None:
-            disparity, right = self._single_view_engine().process_batch(left)
+            engine = self._fused_single_view() or self._single_view_engine()
+            disparity, right = engine.process_batch(left)
         else:
             right = self._as_tensor(right_batch)
             with self._timer.stage("stereo_matching"):
@@ -185,6 +192,27 @@ class DepthEstimationPipeline:
             self._right_view_synthesis = self._sharded_sv_engine.synthesis
             self._check_disparity_coverage(self._right_view_synthesis)
         return self._sharded_sv_engine
+
+    def _fused_single_view(self) -> Optional[FusedSingleViewEngine]:
+        """The fused engine of the single-device classical single view, or
+        None: for a DNN backend, a mesh of more than one device, or a
+        synthesis without split inference (the CPU).  Its network graph is
+        timed as ``right_view_generation``, the tail and matcher graph as
+        ``stereo_matching``."""
+        if self._fused_sv_engine is not None:
+            return self._fused_sv_engine
+        cfg = self._config
+        if cfg.stereo_matching_backend not in ("classical", "cuda"):
+            return None
+        if self.mesh is not None:
+            return None
+        synthesis = self._synthesis()
+        if not synthesis.split_inference:
+            return None
+        self._check_disparity_coverage(synthesis)
+        self._fused_sv_engine = FusedSingleViewEngine(
+            cfg.matching_config(), synthesis, timer=self._timer)
+        return self._fused_sv_engine
 
     def _single_view_engine(self) -> SingleViewEngine:
         if self._single_view is None:

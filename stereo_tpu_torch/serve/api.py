@@ -2,7 +2,8 @@
 ``stereo_tpu/serve/api.py``: the stdlib server, ``MicroBatcher`` and the
 ASGI 3 application ``create_asgi_app``).
 
-``POST /`` takes a PNG (multipart ``file`` field or raw body), runs the
+``POST /`` takes a PNG of any colour type, bit depth or interlace
+(multipart ``file`` field or raw body), runs the
 single-view pipeline (right-view synthesis + the configured backend) and
 answers with the disparity map as an 8-bit PNG; ``GET /`` returns the
 configuration.  Both surfaces share ``DepthEstimationServer.run_pipeline``
@@ -30,23 +31,19 @@ from ..core.config import MeshConfig, PipelineConfig
 from ..core.device import resolve_device
 from ..pipeline.depth_pipeline import DepthEstimationPipeline
 from ..synthesis.right_view_synthesis import resize_nchw
-from ..utils.png import BadRequestError, decode_png, encode_png
+from ..utils.png import BadRequestError, decode_png_rgb, encode_png
 
 
 def decode_png_to_pipeline_image(data: bytes, image_shape,
                                  device) -> torch.Tensor:
     """PNG bytes -> (3, H, W) uint8 tensor on ``device`` at the pipeline
-    shape.  Grey is replicated to RGB and alpha dropped on the host; the
-    upload is uint8.  Another size is resized on the device (bilinear,
+    shape.  Any PNG the decoder takes (``utils.png``) is mapped to 8-bit
+    RGB on the host as the JAX server's image library maps it; the upload
+    is uint8.  Another size is resized on the device (bilinear,
     antialiased) and rounded back to uint8, as an image library's resize
-    would."""
-    arr = decode_png(data)
-    if arr.dtype != np.uint8:
-        raise BadRequestError("16-bit PNG uploads are not supported; send "
-                              "8-bit grey, RGB or RGBA")
-    if arr.shape[2] == 1:
-        arr = np.repeat(arr, 3, axis=2)
-    chw = torch.from_numpy(np.ascontiguousarray(arr[..., :3].transpose(2, 0, 1)))
+    would.  JPEG and other formats are a ``BadRequestError`` (400)."""
+    arr = decode_png_rgb(data)
+    chw = torch.from_numpy(np.ascontiguousarray(arr.transpose(2, 0, 1)))
     chw = chw.to(device)
     if tuple(chw.shape[-2:]) != tuple(image_shape):
         resized = resize_nchw(chw[None].float(), image_shape)[0]

@@ -7,19 +7,30 @@ runs Deep3D (its tail is the ``upsample_blend`` kernel on CUDA), rescales to
 0..255 (``ops.rescale_generated_view``) and resizes back to the output
 shape.  Bilinear resizes antialias when they downscale, as
 ``jax.image.resize`` does.
+
+Inference is split as in the JAX package: ``synthesize_net_batch`` (the
+resizes and the network up to its softmax volume) and ``fused_blend_tail``
+(the blend kernel, the rescale and the output resize).  The fused
+single-view engine (``pipeline/single_view.py``) captures the two halves
+as two CUDA graphs; ``RightViewSynthesis.split_inference`` says whether it
+may.  ``python -m stereo_tpu_torch.synthesis.right_view_synthesis IMAGE``
+synthesizes one right view and writes both views as PNGs.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import warnings
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device, set_float32_precision
-from ..models import Deep3D, load_deep3d_npz
+from ..models import Deep3D, init_deep3d_params, load_deep3d_npz
+from ..models.deep3d import _fused_blend_eligible
+from ..ops.cuda import upsample_blend
 from ..ops.imageops import rescale_generated_view
 from ..utils.paths import DEEP3D_CHECKPOINT_DIR
 
@@ -39,19 +50,54 @@ def resize_nchw(images: torch.Tensor, shape_hw: Tuple[int, int]) -> torch.Tensor
                          align_corners=False, antialias=True)
 
 
+def synthesize_net_batch(model: Deep3D, left_nchw: torch.Tensor,
+                         full_shape: Tuple[int, int] = RVS_FULL_SHAPE,
+                         down_shape: Tuple[int, int] = RVS_DOWNSCALED_SHAPE,
+                         compute_dtype: torch.dtype = torch.float32):
+    """The network half of split inference: (N, 3, H, W) 0..255 left views
+    -> ``(prob_low, full01)``, the softmax volume at its computed
+    resolution (N, 65, fh/s, fw/s) and the normalised full-size view
+    (N, 3, fh, fw), both in ``compute_dtype``."""
+    with torch.no_grad():
+        full = resize_nchw(left_nchw, full_shape) / 255.0
+        down = resize_nchw(left_nchw, down_shape) / 255.0
+        prob_low = model.prob_volume_low(down.to(compute_dtype))
+        return prob_low, full.to(compute_dtype)
+
+
+def fused_blend_tail(prob_low: torch.Tensor, full01: torch.Tensor, scale: int,
+                     output_shape: Tuple[int, int],
+                     full_shape: Tuple[int, int]) -> torch.Tensor:
+    """The tail half: the ``upsample_blend`` kernel (its plain version on
+    the CPU), the 0..255 rescale and the resize to ``output_shape``.
+    ``fused_blend_tail(*synthesize_net_batch(...))`` is Deep3D's eval
+    forward with the rescale and resize of ``process_batch``."""
+    with torch.no_grad():
+        right = upsample_blend(prob_low.float().contiguous(),
+                               full01.float().contiguous(), scale)
+        right = rescale_generated_view(right)
+        if tuple(output_shape) != tuple(full_shape):
+            right = resize_nchw(right, output_shape)
+        return right
+
+
 class RightViewSynthesis:
     """Owns a Deep3D model on one device.
 
     ``state_dict``: Deep3D weights (from ``models.load_deep3d_npz``); when
-    None the committed checkpoint (``checkpoint_dir`` or the default) is
-    loaded.  ``seed``: build seeded random weights instead of loading any.
+    None the checkpoint is loaded: ``checkpoint_dir``, which raises
+    ``FileNotFoundError`` when it is missing, else the committed default.
+    Without either, fresh weights are drawn (``init_deep3d_params``, seed
+    0) with a warning, as the JAX package initialises its model.  ``seed``:
+    build seeded random weights instead of loading any.
     ``ff_weights_dtype="bfloat16"`` (the default, as in the JAX package)
     keeps the global branch's two Dense weights in bf16 and runs those
-    products in bf16.
+    products in bf16.  ``warmup=True`` runs one frame at construction.
     """
 
     def __init__(self, output_shape: Tuple[int, int] = RVS_FULL_SHAPE,
                  state_dict=None, checkpoint_dir: Optional[str] = None,
+                 warmup: bool = False,
                  model_full_shape: Tuple[int, int] = RVS_FULL_SHAPE,
                  model_down_shape: Tuple[int, int] = RVS_DOWNSCALED_SHAPE,
                  compute_dtype: str = "float32",
@@ -64,9 +110,17 @@ class RightViewSynthesis:
         self.model_full_shape = tuple(model_full_shape)
         self.model_down_shape = tuple(model_down_shape)
         meta = {}
+        fresh = False
         if state_dict is None and seed is None:
-            state_dict, meta = load_deep3d_npz(
-                _checkpoint_path(checkpoint_dir))
+            path = _checkpoint_path(checkpoint_dir)
+            if path is None:
+                fresh = True
+                warnings.warn(
+                    f"no Deep3D checkpoint at {DEEP3D_CHECKPOINT_DIR}.npz: "
+                    f"using fresh (untrained) weights", RuntimeWarning,
+                    stacklevel=2)
+            else:
+                state_dict, meta = load_deep3d_npz(path)
         if "full_shape" in meta:
             self.model_full_shape = tuple(int(v) for v in meta["full_shape"])
         if "down_shape" in meta:
@@ -81,11 +135,21 @@ class RightViewSynthesis:
                 ff_dense_dtype=None if ff_dtype == torch.float32 else ff_dtype)
         if state_dict is not None:
             model.load_state_dict(state_dict)
+        elif fresh:
+            init_deep3d_params(model, seed=0)
         model = model.to(self.device, self.compute_dtype).eval()
         ff = model.DisparityEstimationNetwork_0.FeedForwardBranch_0
         ff.Dense_0.to(ff_dtype)
         ff.Dense_1.to(ff_dtype)
         self.model = model
+        # Whether the fused single-view engine may capture the two halves
+        # of inference as CUDA graphs (the JAX package splits them into
+        # two executables on the TPU).
+        self.split_inference = _fused_blend_eligible(
+            (1, 3, *self.model_full_shape), model.prob_volume_scale,
+            self.device)
+        if warmup:
+            self.warmup()
 
     def to(self, device) -> "RightViewSynthesis":
         """This synthesis on ``device``: its weights copied there, not
@@ -93,6 +157,9 @@ class RightViewSynthesis:
         other = copy.copy(self)
         other.device = resolve_device(device)
         other.model = copy.deepcopy(self.model).to(other.device)
+        other.split_inference = _fused_blend_eligible(
+            (1, 3, *self.model_full_shape), self.model.prob_volume_scale,
+            other.device)
         return other
 
     def process(self, left_image) -> torch.Tensor:
@@ -102,21 +169,59 @@ class RightViewSynthesis:
     def process_batch(self, left_batch) -> torch.Tensor:
         """(N, 3, H, W) 0..255 -> (N, 3, *output_shape) 0..255."""
         left = torch.as_tensor(left_batch).to(self.device, torch.float32)
-        with torch.no_grad():
-            full = resize_nchw(left, self.model_full_shape) / 255.0
-            down = resize_nchw(left, self.model_down_shape) / 255.0
-            right = self.model(full.to(self.compute_dtype),
-                               down.to(self.compute_dtype))
-            right = rescale_generated_view(right.float())
-            return resize_nchw(right, self.output_shape)
+        prob_low, full01 = synthesize_net_batch(
+            self.model, left, self.model_full_shape, self.model_down_shape,
+            self.compute_dtype)
+        return fused_blend_tail(prob_low, full01,
+                                self.model.prob_volume_scale,
+                                self.output_shape, self.model_full_shape)
+
+    def warmup(self) -> None:
+        """One frame through the model, so that the kernels are built and
+        the libraries' handles made before the first real frame."""
+        self.process_batch(torch.zeros((1, 3, 64, 64), device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
 
-def _checkpoint_path(checkpoint_dir: Optional[str]) -> str:
+def _checkpoint_path(checkpoint_dir: Optional[str]) -> Optional[str]:
     """The npz file for ``checkpoint_dir`` (a path with or without
-    ``.npz``), else the committed default; a missing explicit path raises
-    instead of falling back to the default weights."""
+    ``.npz``), else the committed default, else None.  A missing explicit
+    path raises instead of falling back to the default weights."""
     cand = checkpoint_dir or DEEP3D_CHECKPOINT_DIR
     npz = cand if cand.endswith(".npz") else cand + ".npz"
-    if not os.path.isfile(npz):
+    if os.path.isfile(npz):
+        return npz
+    if checkpoint_dir:
         raise FileNotFoundError(f"Deep3D checkpoint not found: {npz!r}")
-    return npz
+    return None
+
+
+def _main(argv=None) -> None:
+    """Synthesize the right view of one image and write both views
+    (``{out_prefix}_left.png`` and ``{out_prefix}_right.png``)."""
+    import argparse
+
+    from ..utils.image_io import read_image_chw, write_image_chw
+
+    parser = argparse.ArgumentParser(
+        description="Synthesize the right view of one left image.")
+    parser.add_argument("image", help="left view image path (PNG)")
+    parser.add_argument("--out-prefix", default="rvs_smoke")
+    parser.add_argument("--checkpoint-dir", default=None)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+
+    left = read_image_chw(args.image)
+    rvs = RightViewSynthesis(checkpoint_dir=args.checkpoint_dir,
+                             device=args.device)
+    right = rvs.process(torch.from_numpy(left)).cpu().numpy()
+    write_image_chw(f"{args.out_prefix}_left.png", left)
+    write_image_chw(f"{args.out_prefix}_right.png", right)
+    print(f"Wrote {args.out_prefix}_left.png / {args.out_prefix}_right.png "
+          f"({right.shape[2]}x{right.shape[1]})")
+
+
+if __name__ == "__main__":
+    _main()

@@ -22,8 +22,10 @@ ImageLike = Union[np.ndarray, "object"]  # ndarray or anything np.asarray-able
 
 
 def read_image_chw(path: str) -> np.ndarray:
-    """Decode a PNG file to (3, H, W) float32 in 0..255 (grey replicated,
-    alpha dropped) with the native decoder."""
+    """Decode a PNG file (any colour type, bit depth or interlace) to
+    (3, H, W) float32 in 0..255 with the native decoder, with the values of
+    PIL's ``convert("RGB")``, which the JAX package reads such files with.
+    JPEG and other formats raise ``ValueError``."""
     from .. import _native
 
     return _native.decode_png_padded_chw(path)

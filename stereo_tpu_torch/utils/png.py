@@ -3,29 +3,59 @@ decoder, the hooks its encoder.
 
 ``decode_png`` checks the chunks (CRCs, header) here and decodes the
 pixels with the native host runtime (``stereo_tpu_torch._native``, zlib
-in C++): 8- and 16-bit grey, RGB and RGBA (16-bit grey is KITTI's
-disparity format), non-interlaced, all five filter types; anything else
-raises ``BadRequestError``.  ``decode_png_python`` is the same decode with
-the rows unfiltered in Python, byte by byte for the Average and Paeth
-filters: the native decoder's test oracle.
-``encode_png`` writes 8-bit grey and RGB with the standard library
-(``zlib``, ``struct``).  The card's machine has no imaging library.
+in C++): grey at 1, 2, 4, 8 and 16 bits, palette with or without
+``tRNS``, grey+alpha, RGB and RGBA at 8 and 16 bits, plain or Adam7
+interlaced, all five filter types (16-bit grey is KITTI's disparity
+format); anything else raises ``BadRequestError``.  ``decode_png_rgb``
+maps the samples to 8-bit RGB as an image library's RGB conversion does
+(PIL's ``convert("RGB")``, which the JAX package uses).
+``decode_png_python`` is the same decode in Python, the rows unfiltered
+byte by byte for the Average and Paeth filters: the native decoder's test
+oracle.  ``encode_png`` writes 8-bit grey and RGB with the standard
+library (``zlib``, ``struct``).  The card's machine has no imaging library,
+and JPEG is not decoded (that would need libjpeg).
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from typing import NamedTuple
 
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}       # PNG colour type -> samples per pixel
+_JPEG_SIGNATURE = b"\xff\xd8\xff"
+# PNG colour type -> (samples per stored pixel, bit depths it may have).
+_COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
+                3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7's seven passes: (first column, first row, column step, row step).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 class BadRequestError(ValueError):
     """Client-side input error (bad image payload, missing upload field):
     HTTP 400.  Anything else raised while serving is a server fault (500)."""
+
+
+class _Png(NamedTuple):
+    height: int
+    width: int
+    depth: int             # bits per stored sample
+    color: int             # PNG colour type
+    interlace: int         # 0 or 1 (Adam7)
+    palette: bytes         # PLTE
+    trns: bytes            # tRNS of a palette image, else b""
+    idat: list
+
+    @property
+    def channels(self) -> int:
+        """Samples per decoded pixel: a palette expands to RGB (RGBA with
+        tRNS)."""
+        if self.color == 3:
+            return 4 if self.trns else 3
+        return _COLOR_TYPES[self.color][0]
 
 
 def _chunks(data: bytes):
@@ -82,16 +112,21 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return rows
 
 
-def _parse(data: bytes):
-    """Check the signature, chunks and header of PNG bytes: returns
-    ``(height, width, channels, bit_depth, idat_chunks)``."""
+def _parse(data: bytes) -> _Png:
+    """Check the signature, chunks and header of PNG bytes."""
     if not data.startswith(_SIGNATURE):
+        if data.startswith(_JPEG_SIGNATURE):
+            raise BadRequestError("JPEG images are not supported; send a PNG")
         raise BadRequestError("not a PNG file")
-    header, idat = None, []
+    header, idat, palette, trns = None, [], b"", b""
     try:
         for ctype, body in _chunks(data):
             if ctype == b"IHDR":
                 header = struct.unpack(">IIBBBBB", body)
+            elif ctype == b"PLTE":
+                palette = body
+            elif ctype == b"tRNS":
+                trns = body
             elif ctype == b"IDAT":
                 idat.append(body)
             elif ctype == b"IEND":
@@ -101,41 +136,110 @@ def _parse(data: bytes):
     if header is None:
         raise BadRequestError("PNG has no IHDR chunk")
     width, height, depth, color, _, _, interlace = header
-    if depth not in (8, 16) or color not in _CHANNELS or interlace != 0:
+    if (color not in _COLOR_TYPES or depth not in _COLOR_TYPES[color][1]
+            or interlace > 1 or width == 0 or height == 0):
         raise BadRequestError(
             f"unsupported PNG (bit depth {depth}, colour type {color}, "
-            f"interlace {interlace}); 8- or 16-bit grey, RGB or RGBA only")
-    return height, width, _CHANNELS[color], depth, idat
+            f"interlace {interlace})")
+    if color == 3 and (not palette or len(palette) % 3 or len(palette) > 768):
+        raise BadRequestError("palette PNG without a valid PLTE chunk")
+    return _Png(height, width, depth, color, interlace, palette,
+                trns if color == 3 else b"", idat)
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, C) with C = 1, 3 or 4, uint8 for bit depth 8
-    and uint16 for 16, decoded by the native host runtime."""
+    """PNG bytes -> (H, W, C) samples, decoded by the native host runtime:
+    C = 1 (grey), 2 (grey+alpha), 3 (RGB, or a palette) or 4 (RGBA, or a
+    palette with tRNS); uint16 for bit depth 16, else uint8 (grey below 8
+    bits scaled to 0..255)."""
     from .. import _native
 
-    height, width, channels, _, _ = _parse(data)
+    png = _parse(data)
     try:
-        return _native.decode_png_hwc(data).reshape(height, width, channels)
+        return _native.decode_png_hwc(data).reshape(png.height, png.width,
+                                                    png.channels)
     except ValueError as exc:   # inflate, size or filter-type failure
         raise BadRequestError(f"corrupt PNG data ({exc})") from exc
 
 
+def rgb_like_pil(samples: np.ndarray) -> np.ndarray:
+    """(H, W, C) samples of ``decode_png`` -> (H, W, 3) uint8, as PIL's
+    ``convert("RGB")`` maps them: grey replicated, alpha dropped, 16-bit
+    samples taken by their high byte but 16-bit grey clipped to 255."""
+    channels = samples.shape[2]
+    if samples.dtype == np.uint16:
+        samples = np.minimum(samples, 255) if channels == 1 else samples >> 8
+    rgb = samples[..., :3] if channels >= 3 else np.repeat(
+        samples[..., :1], 3, axis=2)
+    return np.ascontiguousarray(rgb, dtype=np.uint8)
+
+
+def decode_png_rgb(data: bytes) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 RGB, as PIL's ``convert("RGB")`` gives
+    it (``rgb_like_pil``)."""
+    return rgb_like_pil(decode_png(data))
+
+
+def _unpack(rows: np.ndarray, width: int, samples: int,
+            depth: int) -> np.ndarray:
+    """Unfiltered rows -> (rows, width * samples) sample values."""
+    n = width * samples
+    if depth == 16:
+        return rows.view(">u2")[:, :n].astype(np.uint16)
+    if depth == 8:
+        return rows[:, :n]
+    bits = np.unpackbits(rows, axis=1)[:, :n * depth]
+    weights = 1 << np.arange(depth - 1, -1, -1)
+    return (bits.reshape(len(rows), n, depth) * weights).sum(-1).astype(
+        np.uint8)
+
+
 def decode_png_python(data: bytes) -> np.ndarray:
-    """``decode_png`` with zlib and the row filters in Python: the test
-    oracle of the native decoder."""
-    height, width, channels, depth, idat = _parse(data)
-    bpp = channels * depth // 8          # the filters' byte distance
-    stride = width * bpp
+    """``decode_png`` with zlib, the row filters, Adam7 and the palette in
+    Python: the test oracle of the native decoder."""
+    png = _parse(data)
+    samples, depth = _COLOR_TYPES[png.color][0], png.depth
+    bits = samples * depth                       # bits per stored pixel
+    bpp = max(1, bits // 8)                      # the filters' byte distance
     try:
-        raw = zlib.decompress(b"".join(idat))
+        raw = zlib.decompress(b"".join(png.idat))
     except zlib.error as exc:
         raise BadRequestError(f"corrupt PNG data: {exc}") from exc
-    if len(raw) != height * (stride + 1):
+    image = np.zeros((png.height, png.width, samples),
+                     np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7 if png.interlace else ((0, 0, 1, 1),):
+        pw = len(range(x0, png.width, dx))
+        ph = len(range(y0, png.height, dy))
+        if not pw or not ph:
+            continue
+        stride = (pw * bits + 7) // 8
+        size = ph * (stride + 1)
+        if pos + size > len(raw):
+            raise BadRequestError("PNG data does not match its size")
+        rows = _unfilter(raw[pos:pos + size], ph, stride, bpp)
+        pos += size
+        image[y0::dy, x0::dx] = _unpack(rows, pw, samples, depth).reshape(
+            ph, pw, samples)
+    if pos != len(raw):
         raise BadRequestError("PNG data does not match its size")
-    rows = _unfilter(raw, height, stride, bpp)
-    if depth == 16:
-        rows = rows.view(">u2").astype(np.uint16)
-    return rows.reshape(height, width, channels)
+    if png.color == 3:
+        # An index past the palette reads as black (as image libraries
+        # read it), opaque unless tRNS says otherwise.
+        palette = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(png.palette, np.uint8).reshape(-1, 3)
+        palette[:len(entries)] = entries
+        index = image[..., 0]
+        if not png.trns:
+            return palette[index]
+        alpha = np.full(256, 255, np.uint8)
+        trns = np.frombuffer(png.trns, np.uint8)[:256]
+        alpha[:len(trns)] = trns
+        return np.concatenate([palette[index], alpha[index][..., None]],
+                              axis=2)
+    if depth < 8:
+        return image * np.uint8(255 // (2 ** depth - 1))
+    return image
 
 
 def encode_png(image: np.ndarray) -> bytes:

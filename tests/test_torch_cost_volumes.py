@@ -35,8 +35,10 @@ def features(rng, n, h, w, c):
 
 
 # (N, H, W, C, D, G): the shapes of tests/test_models.py and GwcNet's
-# width (C=320, G=40) at a small image.
-GWC_SHAPES = [(2, 8, 24, 40, 12, 10), (1, 6, 40, 320, 16, 40)]
+# width (C=320, G=40) at a small image; then GwcNet's width at 4 and 16
+# channels per group (G=80, G=20), which the kernel takes at run time.
+GWC_SHAPES = [(2, 8, 24, 40, 12, 10), (1, 6, 40, 320, 16, 40),
+              (1, 4, 24, 320, 8, 80), (1, 4, 24, 320, 8, 20)]
 
 
 @pytest.mark.parametrize("shape", GWC_SHAPES, ids=str)

@@ -23,7 +23,8 @@ from stereo_tpu_torch.serve import (BadRequestError, DepthEstimationServer,
                                     encode_disparity_png)
 from stereo_tpu_torch.serve.api import quantize_disparity_u8
 from stereo_tpu_torch.synthesis import RightViewSynthesis
-from stereo_tpu_torch.utils.png import decode_png, encode_png
+from stereo_tpu_torch.utils.png import (decode_png, decode_png_rgb,
+                                        encode_png)
 
 SHAPE = (48, 96)
 
@@ -39,11 +40,22 @@ def chunk(ctype, body):
             + struct.pack(">I", zlib.crc32(ctype + body)))
 
 
-def png_with_header(depth, color, interlace, size=4):
-    """A PNG whose IHDR declares ``depth``/``color``/``interlace`` (its
-    pixel data is a plausible zero stream)."""
-    ihdr = struct.pack(">IIBBBBB", size, size, depth, color, 0, 0, interlace)
-    raw = bytes(size * (1 + size * 8))
+# 16-bit grey that PIL clips to 255 where its high byte is not 0.
+SIXTEEN_BIT = np.array([0, 1, 200, 255, 256, 300, 4096, 65535] * 2,
+                       np.uint16).reshape(4, 4)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def interlaced_rgb_png(image):
+    """An Adam7-interlaced 8-bit RGB PNG of ``image`` (filter type 0)."""
+    h, w, _ = image.shape
+    raw = b""
+    for x0, y0, dx, dy in ADAM7:
+        sub = np.asarray(image[y0::dy, x0::dx], np.uint8)
+        for row in sub.reshape(sub.shape[0], -1):
+            raw += b"\x00" + row.tobytes()
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 1)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
@@ -106,18 +118,33 @@ class TestPngCodec:
         with Image.open(io.BytesIO(encode_png(image))) as im:
             np.testing.assert_array_equal(np.asarray(im), image)
 
-    @pytest.mark.parametrize("make", [
-        lambda: b"not a png",
-        lambda: png_with_header(depth=16, color=0, interlace=0),
-        lambda: pil_png(np.zeros((4, 4), np.uint8), "P"),
-        lambda: png_with_header(depth=8, color=2, interlace=1),
-        lambda: pil_png(np.zeros((4, 4), np.uint8), "L")[:-9] + b"corrupted",
-        lambda: encode_png(np.zeros((4, 4), np.uint8))[:40],
+    @pytest.mark.parametrize("make,refused", [
+        (lambda: b"not a png", True),
+        (lambda: pil_png(SIXTEEN_BIT, "I;16"), False),
+        (lambda: pil_png(np.arange(16, dtype=np.uint8).reshape(4, 4), "P"),
+         False),
+        (lambda: interlaced_rgb_png(np.random.default_rng(12).integers(
+            0, 256, (5, 7, 3))), False),
+        (lambda: pil_png(np.zeros((4, 4), np.uint8), "L")[:-9]
+         + b"corrupted", True),
+        (lambda: encode_png(np.zeros((4, 4), np.uint8))[:40], True),
     ], ids=["garbage", "16bit", "palette", "interlaced", "bad_crc",
             "truncated"])
-    def test_unsupported_or_broken_raises_bad_request(self, make):
-        with pytest.raises(BadRequestError):
-            decode_png(make())
+    def test_unsupported_or_broken_raises_bad_request(self, make, refused):
+        """Garbage and broken files are a ``BadRequestError``.  16-bit,
+        palette and interlaced PNGs, refused until the decoder took them,
+        decode to exactly what PIL's ``convert("RGB")`` (the JAX server's
+        decode) gives, as uploads too."""
+        data = make()
+        if refused:
+            with pytest.raises(BadRequestError):
+                decode_png(data)
+            return
+        with Image.open(io.BytesIO(data)) as im:
+            want = np.asarray(im.convert("RGB"))
+        np.testing.assert_array_equal(decode_png_rgb(data), want)
+        got = decode_png_to_pipeline_image(data, want.shape[:2], "cpu")
+        np.testing.assert_array_equal(got.numpy().transpose(1, 2, 0), want)
 
 
 class TestUpload:
@@ -219,6 +246,26 @@ class TestServer:
         with urllib.request.urlopen(url, timeout=30) as resp:
             info = json.loads(resp.read())
         assert info["image_shape"] == list(SHAPE) and info["device"] == "cpu"
+
+    @pytest.mark.parametrize("make", [
+        lambda: pil_png(np.full(SHAPE, 300, np.uint16), "I;16"),
+        lambda: pil_png(np.random.default_rng(13).integers(
+            0, 256, SHAPE).astype(np.uint8), "P"),
+        lambda: interlaced_rgb_png(np.random.default_rng(14).integers(
+            0, 256, (*SHAPE, 3))),
+    ], ids=["16bit", "palette", "interlaced"])
+    def test_png_kinds_the_jax_server_reads_are_served(self, server, make):
+        """Uploads the port answered 400 to before its decoder took them."""
+        _, url = server
+        status, body = post(url, make())
+        assert status == 200 and decode_png(body).shape == (*SHAPE, 1)
+
+    def test_jpeg_is_400_naming_the_format(self, server):
+        _, url = server
+        with pytest.raises(urllib.error.HTTPError) as err:
+            post(url, b"\xff\xd8\xff\xe0" + bytes(64), "image/jpeg")
+        assert err.value.code == 400
+        assert b"JPEG" in err.value.read()
 
     def test_bad_payload_is_400(self, server):
         _, url = server
