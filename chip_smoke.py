@@ -24,7 +24,9 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              bound; the classical kernels also on adversarial integer
              pairs (every plane a winner, all planes tied) and windows
              (smallest and largest disparity, across the wrap),
-             ``gwc_volume`` at 4, 8 and 16 channels per group, and
+             ``gwc_volume`` at 4, 8 and 16 channels per group and at the
+             row shards of tile 4 and 2 ((1, 320, 24, 320) and
+             (1, 320, 48, 320), float32 and bf16), and
              ``upsample_blend`` also at the servers' batch of 2, at scale 2,
              at widths that are not a multiple of its tile or are under D,
              and at a scale (8) it takes at run time;
@@ -110,10 +112,19 @@ Phases, each ending in one flushed JSON line with its name and seconds:
    mesh_single_view: the single view on (2,2,1), batch 4
              (``ShardedSingleViewEngine``), against the single-device
              pipeline's ``process_batch``;
-   mesh_dnn: GwcNet (committed weights) on (2,2,2), batch 4, against the
-             single-device backend frame by frame within 5e-3 px;
+   mesh_dnn: GwcNet (committed weights) on (2,2,2), batch 4, each
+             group's frame split by rows over its 2 tile devices, against
+             the single-device backend frame by frame within 5e-3 px;
    mesh_server: a server on a classical (2,1,1) mesh pipeline,
-             micro-batch 2, and ``check_devices`` over the mesh.
+             micro-batch 2, and ``check_devices`` over the mesh;
+   mesh_dnn_rows: GwcNet in float32 and bf16, MSNet2D and MSNet3D
+             (committed weights, disparity 64) on (1,4,1) and (1,2,1), one
+             frame split by rows with a halo exchange per layer, each
+             within 5e-3 px of the single-device backend, with
+             ``gwc_volume`` launched once per shard; the halo exchanges and
+             bytes per frame, ms/frame, device ms and kernels per frame
+             (``torch.profiler``) and peak memory beside the single
+             device's.
 
 The kernel launch counts are zeroed just before each path of phases 5-9
 (the exported networks' inference included) is driven and read just
@@ -529,7 +540,10 @@ def check_gwc_volume(torch, rng, dev) -> dict:
     192) in float32, 16 in bf16; at 80 and 20 groups (4 and 16 channels
     per group, taken at run time) D=16 in float32 and bf16, and at 64 and
     10 groups (5 and 32 channels, two more run-time sizes) in
-    float32.  Float32 must
+    float32; and at the row shards that the row split (``ops.rows``) of a
+    384x1280 frame hands it, 40 groups, D=16: (1, 320, 24, 320) over 4
+    tile devices and (1, 320, 48, 320) over 2, each in float32 and bf16.
+    Float32 must
     agree with the plain version within 1e-5 * max|vol|, bf16 (compared in
     bf16) within one bf16 ulp of max|vol|; each variant also says how many
     elements differ at all.  The kernel's entry is the path's shape (D=16,
@@ -541,12 +555,20 @@ def check_gwc_volume(torch, rng, dev) -> dict:
     left, right = (torch.from_numpy(np.maximum(rng.standard_normal(
         (n, c, h, w)), 0).astype(np.float32)).to(dev) for _ in range(2))
     variants = []
-    for d, dtype, g in ((16, torch.float32, 40), (48, torch.float32, 40),
-                        (16, torch.bfloat16, 40), (16, torch.float32, 80),
-                        (16, torch.bfloat16, 80), (16, torch.float32, 20),
-                        (16, torch.bfloat16, 20), (16, torch.float32, 64),
-                        (16, torch.float32, 10)):
-        lt, rt = left.to(dtype), right.to(dtype)
+    for d, dtype, g, h in ((16, torch.float32, 40, 96),
+                           (48, torch.float32, 40, 96),
+                           (16, torch.bfloat16, 40, 96),
+                           (16, torch.float32, 80, 96),
+                           (16, torch.bfloat16, 80, 96),
+                           (16, torch.float32, 20, 96),
+                           (16, torch.bfloat16, 20, 96),
+                           (16, torch.float32, 64, 96),
+                           (16, torch.float32, 10, 96),
+                           (16, torch.float32, 40, 24),
+                           (16, torch.bfloat16, 40, 24),
+                           (16, torch.float32, 40, 48),
+                           (16, torch.bfloat16, 40, 48)):
+        lt, rt = (x[..., :h, :].to(dtype).contiguous() for x in (left, right))
         vol_k = gwc_volume(lt, rt, d, g)
         vol_p = gwc_volume_plain(lt, rt, d, g)
         torch.cuda.synchronize()
@@ -557,8 +579,8 @@ def check_gwc_volume(torch, rng, dev) -> dict:
             limit = 1e-5 * peak
         else:
             limit = 2.0 ** (np.floor(np.log2(peak)) - 7)   # 1 bf16 ulp
-        require(err <= limit, f"gwc_volume D={d} {dtype} G={g}: off by "
-                              f"{err} (limit {limit})")
+        require(err <= limit, f"gwc_volume D={d} {dtype} G={g} H={h}: off "
+                              f"by {err} (limit {limit})")
         times = timings(lambda: gwc_volume(lt, rt, d, g))
         plain_ms = cuda_ms(lambda: gwc_volume_plain(lt, rt, d, g), 5)
         # Each input read once, the volume written once; one multiply and
@@ -569,6 +591,7 @@ def check_gwc_volume(torch, rng, dev) -> dict:
                            2 * c * live)
         variants.append(dict(planes=d, dtype=str(dtype).split(".")[-1],
                              groups=g, channels_per_group=c // g,
+                             shape=list(lt.shape),
                              max_abs_err=err, elements_differing=differing,
                              limit=limit, max_abs_vol=peak,
                              **times, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1045,38 +1068,47 @@ def check_gwcnet_groups(torch, dev, left, right, groups: int = 80) -> dict:
                 max_abs_diff_to_plain=float(diff.max()))
 
 
-def phase_profile(torch, pipeline, dev, frames: int = 3) -> dict:
-    """Device time by kernel over a few pipeline frames (torch.profiler),
-    and the share of the wall time the device was busy."""
+def profile_calls(torch, fn, frames: int) -> dict:
+    """Device time by kernel over ``frames`` calls of ``fn`` after one
+    warm-up call (torch.profiler), the device's busy share of the wall
+    time, and the kernels each call launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    left = torch.zeros((3, *pipeline.get_configuration().image_shape),
-                       device=dev)
-    pipeline.process(left)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
-            pipeline.process(left)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    # The device's own time for a frame by CUDA events, which also see the
-    # kernels of a replayed CUDA graph.
-    events_ms = frame_device_ms(torch, lambda: pipeline.process(left))
     return dict(frames=frames, wall_ms_per_frame=wall_ms / frames,
                 device_ms_per_frame=device_ms / frames,
                 device_busy_share=device_ms / wall_ms,
+                kernels_per_frame=sum(e.count for e in kernels) / frames,
                 profiler_sees_kernels=bool(kernels),
-                event_device_ms_per_frame=events_ms,
-                event_device_busy_share=events_ms * frames / wall_ms,
                 top=[dict(name=e.key[:90], calls=e.count // frames,
                           ms_per_frame=e.self_device_time_total / 1e3 / frames)
                      for e in kernels[:12]])
+
+
+def phase_profile(torch, pipeline, dev, frames: int = 3) -> dict:
+    """Device time by kernel over a few pipeline frames (torch.profiler),
+    and the share of the wall time the device was busy."""
+    left = torch.zeros((3, *pipeline.get_configuration().image_shape),
+                       device=dev)
+    numbers = profile_calls(torch, lambda: pipeline.process(left), frames)
+    # The device's own time for a frame by CUDA events, which also see the
+    # kernels of a replayed CUDA graph.
+    events_ms = frame_device_ms(torch, lambda: pipeline.process(left))
+    wall_ms = numbers["wall_ms_per_frame"]
+    return dict(numbers, event_device_ms_per_frame=events_ms,
+                event_device_busy_share=events_ms / wall_ms)
 
 
 def profile(torch, label: str, pipeline, dev) -> None:
@@ -2368,8 +2400,9 @@ def phase_mesh_single_view(torch, dev, config, synthesis):
 def phase_mesh_dnn(torch, dev, config):
     """GwcNet (committed weights, float32) at ``config``'s shape on a
     (2,2,2) virtual mesh through the pipeline's ``process_batch`` with the
-    right views given, against the single-device backend frame by frame
-    (within 5e-3 px)."""
+    right views given: each group's frame split by rows over its 2 tile
+    devices (``gwc_volume`` launched once per shard), against the
+    single-device backend frame by frame (within 5e-3 px)."""
     from stereo_tpu_torch.core.config import MeshConfig
     from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
     from stereo_tpu_torch.pipeline import (DepthEstimationPipeline,
@@ -2382,13 +2415,16 @@ def phase_mesh_dnn(torch, dev, config):
     pipeline = DepthEstimationPipeline(
         config.replace(stereo_matching_backend="gwcnet", mesh=mc), device=dev,
         mesh_devices=virtual_mesh(torch, mc.num_devices))
+    engine = pipeline.stereo_matching.engine
+    require(engine.row_split, f"(2,2,2) at {shape} did not split rows")
     reset_launch_counts()
     got = pipeline.process_batch(left, right).disparity_map
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
-    require(counts["gwc_volume"] >= 1, f"mesh GwcNet missed gwc_volume: "
-                                       f"{counts}")
-    backend = pipeline.stereo_matching.engine.replicas[dev].model
+    require(counts["gwc_volume"] == mc.tile * len(left),
+            f"mesh GwcNet: {counts['gwc_volume']} gwc_volume launches for "
+            f"{len(left)} frames at tile {mc.tile}")
+    backend = engine.replicas[dev].model
     single = DnnStereoMatchingBackend("gwcnet", shape,
                                       max_disparity=backend.max_disparity,
                                       device=dev)
@@ -2399,11 +2435,118 @@ def phase_mesh_dnn(torch, dev, config):
     single_times = frame_ms(torch, lambda: single.process_batch(left, right),
                             3)
     return counts, dict(weights=pipeline.stereo_matching.weights,
+                        row_split=engine.row_split,
+                        halo_rounds_per_forward=engine.halo["rounds"],
+                        halo_bytes_per_frame=engine.halo["bytes"] / len(left),
                         max_abs_diff=diff, equal=bool(torch.equal(got, want)),
                         launches=counts,
                         ms_per_frame_median=statistics.median(times) / 4,
                         single_batch_ms_per_frame_median=statistics.median(
                             single_times) / 4)
+
+
+# The row split's networks: each at disparity 64 with its committed
+# weights, GwcNet also in bf16.
+ROW_SPLIT_NETS = (("gwcnet", "float32"), ("gwcnet", "bfloat16"),
+                  ("msnet2d", "float32"), ("msnet3d", "float32"))
+
+
+def peak_bytes(torch, fn) -> int:
+    """``torch.cuda.max_memory_allocated()`` over one call of ``fn``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def brief_profile(torch, fn) -> dict:
+    """``profile_calls`` over 2 calls, with the top 4 kernels."""
+    numbers = profile_calls(torch, fn, 2)
+    numbers["top"] = numbers["top"][:4]
+    return numbers
+
+
+def phase_mesh_dnn_rows(torch, dev, config):
+    """Each of ``ROW_SPLIT_NETS`` at ``config``'s shape on virtual meshes
+    (1,4,1) and (1,2,1), one frame (the synthetic KITTI pair) through the
+    pipeline's ``process_batch`` and ``process``: the frame's rows split
+    over the tile devices, with a halo exchange at each row-mixing layer
+    (``ops.rows``).  Each is held to the single-device backend within
+    5e-3 px, and GwcNet must launch ``gwc_volume`` once per shard.  Returns
+    the launch counts summed over the cases, the numbers (row_split, halo
+    exchanges and bytes per frame, ms/frame, a profile (device ms and
+    kernels per frame, busy share) and peak memory beside the single
+    device's) and the cases that failed a gate, so that every case
+    is reported before the phase fails."""
+    from stereo_tpu_torch.core.config import MeshConfig
+    from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from stereo_tpu_torch.pipeline import (DepthEstimationPipeline,
+                                           DnnStereoMatchingBackend)
+
+    shape = tuple(config.image_shape)
+    left, right = (torch.from_numpy(x).to(dev)[None] for x in kitti_pair())
+    totals = {k: 0 for k in LAUNCHES}
+    cases, failed = [], []
+    for name, dtype in ROW_SPLIT_NETS:
+        single = DnnStereoMatchingBackend(name, shape, max_disparity=64,
+                                          compute_dtype=dtype, device=dev)
+        want = single.process_batch(left, right)
+        single_ms = frame_ms(torch, lambda: single.process_batch(left, right),
+                             5)
+        single_profile = brief_profile(torch, lambda: single.process_batch(
+            left, right))
+        single_peak = peak_bytes(torch,
+                                 lambda: single.process_batch(left, right))
+        for tile in (4, 2):
+            mc = MeshConfig(tile=tile)
+            pipeline = DepthEstimationPipeline(
+                config.replace(stereo_matching_backend=name,
+                               compute_dtype=dtype, max_disparity=64,
+                               mesh=mc),
+                device=dev, mesh_devices=virtual_mesh(torch, tile))
+            engine = pipeline.stereo_matching.engine
+            reset_launch_counts()
+            got = pipeline.process_batch(left, right).disparity_map
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+            for k, v in counts.items():
+                totals[k] += v
+            one = pipeline.process(left[0], right[0]).disparity_map
+            diff = float((got - want).abs().max())
+            diff_one = float((one - want[0]).abs().max())
+            times = frame_ms(torch,
+                             lambda: pipeline.process_batch(left, right), 5)
+            gwc_wanted = tile if name == "gwcnet" else 0
+            case = dict(
+                network=name, dtype=dtype, mesh=[1, tile, 1],
+                weights=engine.weights, row_split=engine.row_split,
+                gwc_volume_launches=counts["gwc_volume"],
+                halo_rounds_per_frame=engine.halo["rounds"],
+                halo_bytes_per_frame=engine.halo["bytes"],
+                max_abs_diff=diff, mean_abs_diff=float(
+                    (got - want).abs().mean()),
+                equal=bool(torch.equal(got, want)),
+                process_max_abs_diff=diff_one,
+                finite=bool(torch.isfinite(got).all()),
+                ms_per_frame_median=statistics.median(times),
+                profile=brief_profile(
+                    torch, lambda: pipeline.process_batch(left, right)),
+                single_ms_per_frame_median=statistics.median(single_ms),
+                single_profile=single_profile,
+                max_memory_allocated_bytes=peak_bytes(
+                    torch, lambda: pipeline.process_batch(left, right)),
+                single_max_memory_allocated_bytes=single_peak)
+            if not (case["row_split"] and case["finite"] and diff <= 5e-3
+                    and diff_one <= 5e-3
+                    and counts["gwc_volume"] == gwc_wanted):
+                failed.append(f"{name} {dtype} (1,{tile},1)")
+            cases.append(case)
+            del pipeline, engine
+        del single
+        torch.cuda.empty_cache()
+    return totals, dict(mesh="virtual: cuda:0 named n times", cases=cases), \
+        failed
 
 
 def phase_mesh_server(torch, dev, config, synthesis):
@@ -2592,6 +2735,11 @@ def main() -> int:
         counts[label], numbers = phase(torch, dev, *args)
         report(label, t, **numbers)
         torch.cuda.empty_cache()
+    t = time.perf_counter()
+    counts["mesh_dnn_rows"], numbers, failed = phase_mesh_dnn_rows(
+        torch, dev, PipelineConfig())
+    report("mesh_dnn_rows", t, **numbers)
+    require(not failed, f"mesh_dnn_rows failed its gates: {failed}")
     mesh_launches = {k: sum(c[k] for label, c in counts.items()
                             if label.startswith("mesh"))
                      for k in counts["mesh"]}

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.cuda import gwc_volume
+from ..ops import rows
 
 
 def groupwise_correlation(fa: torch.Tensor, fb: torch.Tensor,
@@ -80,8 +81,8 @@ def upsampled_soft_argmin(logits: torch.Tensor, out_dhw: Tuple[int, int, int],
     if c != 1:
         raise ValueError("regression head expects a single-channel volume")
     D, H, W = (int(v) for v in out_dhw)
-    x = F.interpolate(logits[:, 0], size=(H, W), mode="bilinear",
-                      align_corners=False).float()          # (N, D_l, H, W)
+    x = rows.interpolate(logits[:, 0], (H, W),
+                         "bilinear").float()                # (N, D_l, H, W)
 
     # Half-pixel D coordinates, clamped, as jax.image.resize places them.
     in_c = np.clip((np.arange(D) + 0.5) * (dl / D) - 0.5, 0.0, float(dl - 1))

@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv3d import conv_same, deconv3d_parity, pack_deconv3d_weight
+from ..ops import rows
 
 
 def _parity_taps(s: int) -> np.ndarray:
@@ -54,7 +55,9 @@ def deconv2d_parity(x_nchw: torch.Tensor, packed: torch.Tensor,
     :func:`pack_parity_weight`."""
     n, _, h, w = x_nchw.shape
     cout = packed.shape[0] // (s * s)
-    y = F.conv2d(F.pad(x_nchw, (1, 1, 1, 1)), packed)   # (n, s*s*co, h+1, w+1)
+    x, pads = rows.take_halo(x_nchw, [(1, 1)] * 2)
+    y = F.conv2d(F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi]),
+                 packed)                            # (n, s*s*co, h+1, w+1)
     y = y.reshape(n, s, s, cout, h + 1, w + 1)          # (n, py, px, co, ., .)
     # Class p reads input offset off[p] = (p >= s//2): the first half of
     # the classes takes rows (columns) 0..h-1, the second half 1..h.
@@ -299,6 +302,6 @@ class DeconvBn(nn.Module):
 def upsample_trilinear(x: torch.Tensor, shape: Tuple[int, int, int]
                        ) -> torch.Tensor:
     """Trilinear resize (half-pixel centres) of an (N, C, D, H, W) volume
-    to (D', H', W')."""
-    return F.interpolate(x, size=tuple(shape), mode="trilinear",
-                         align_corners=False)
+    to (D', H', W') (``ops.rows.interpolate``: inside a row split it
+    reads one row of each neighbouring shard)."""
+    return rows.interpolate(x, shape, "trilinear")

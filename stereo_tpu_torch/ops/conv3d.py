@@ -6,7 +6,9 @@ unit; they all compute ``conv3d_native``.  The port has one function for
 it, :func:`conv_same`, a cuDNN convolution with Flax's SAME padding, for
 2-D and 3-D kernels alike.  :func:`deconv3d_parity` transcribes the
 (4,4,4)/stride-2 SAME transposed convolution of Flax's ``ConvTranspose``,
-which is not torch's ``ConvTranspose3d``.
+which is not torch's ``ConvTranspose3d``.  Both read the rows beyond a
+row shard's edges from its neighbours inside a row split
+(``ops.rows``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import rows
 
 _CONV = {4: F.conv2d, 5: F.conv3d}
 
@@ -38,8 +42,12 @@ def conv_same(x: torch.Tensor, weight: torch.Tensor,
               bias: Optional[torch.Tensor] = None, stride: int = 1,
               dilation: int = 1, groups: int = 1) -> torch.Tensor:
     """N(C)HW / N(C)DHW convolution with Flax SAME padding and isotropic
-    stride and dilation; ``weight`` is torch's (O, I/groups, *kernel)."""
-    pads = same_padding(x.shape[2:], weight.shape[2:], stride, dilation)
+    stride and dilation; ``weight`` is torch's (O, I/groups, *kernel).
+    Inside a row split the padding is the whole frame's, and its rows come
+    from the neighbouring shards."""
+    pads = same_padding(rows.frame_shape(x), weight.shape[2:], stride,
+                        dilation)
+    x, pads = rows.take_halo(x, pads, stride)
     if all(lo == hi for lo, hi in pads):
         padding = tuple(lo for lo, _ in pads)
     else:
@@ -72,7 +80,9 @@ def deconv3d_parity(x: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
     :func:`pack_deconv3d_weight`."""
     n, _, d, h, w = x.shape
     cout = packed.shape[0] // 8
-    y = F.conv3d(F.pad(x, (1, 1, 1, 1, 1, 1)), packed)  # (n, 8co, d+1, h+1, w+1)
+    x, pads = rows.take_halo(x, [(1, 1)] * 3)
+    y = F.conv3d(F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi]),
+                 packed)                            # (n, 8co, d+1, h+1, w+1)
     y = y.reshape(n, 2, 2, 2, cout, d + 1, h + 1, w + 1)
     # Class p = 0 reads positions 0..size-1 of its axis, class 1 reads 1..size.
     y = torch.cat([y[:, :1, :, :, :, :d], y[:, 1:, :, :, :, 1:]], dim=1)

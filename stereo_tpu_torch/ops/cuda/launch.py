@@ -20,6 +20,9 @@ LAUNCHES = {"matching_core": 0, "sampled_window": 0, "upsample_blend": 0,
             "sampled_window[rows_prepadded]": 0}
 
 _capture = threading.local()
+# The shards of a row split (``parallel.rows``) launch from threads of
+# their own: an addition to a count is read, added and written under it.
+_counts_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -31,7 +34,8 @@ def count_launch(name: str) -> None:
     """Add one launch of ``name``: to ``LAUNCHES``, or to the counts of
     the graph this thread is capturing."""
     counts = getattr(_capture, "counts", None)
-    (LAUNCHES if counts is None else counts)[name] += 1
+    with _counts_lock:
+        (LAUNCHES if counts is None else counts)[name] += 1
 
 
 @contextlib.contextmanager

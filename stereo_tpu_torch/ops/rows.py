@@ -1,0 +1,195 @@
+"""The calling thread's row shard, and the halo exchange of the stereo
+networks' row-mixing layers: the port's counterpart of the row sharding
+that XLA's partitioner gives JAX's ``ShardedDnnEngine``
+(``P(("data", "disp"), None, "tile", None)``).
+
+Inside a row split (run by ``parallel.rows.ShardThreads``) each shard runs
+the whole network on its own rows, in a thread of its own.  The functions
+through which every row-mixing operation of GwcNet, MSNet2D and MSNet3D
+passes consult the calling thread's shard (:func:`current`) and read the
+rows they need across the shard's edges from the neighbouring shards:
+
+* ``ops.conv3d.conv_same`` takes its SAME padding from the frame's height
+  (:func:`frame_shape`), and the row pair of that padding from the
+  neighbours (:func:`take_halo`): zeros at the frame's top and bottom, as
+  SAME padding gives;
+* ``ops.conv3d.deconv3d_parity`` and ``models.layers.deconv2d_parity`` take
+  their one padded row on each side the same way;
+* the bilinear and trilinear resizes (:func:`interpolate`) take one
+  low-resolution row on each side, the edge row repeated at the frame's top
+  and bottom, where the resize clamps its source index.
+
+Everything else the networks do is row-local and runs on each shard
+unchanged.  Outside a split these functions do what they always did.
+
+Every shard reaches each exchange in the same order, since all run the same
+code.  At an exchange (:func:`halo`) a shard publishes its tensor and hands
+the turn to the next shard thread; when the turn comes back, every shard
+has published, and it copies the rows it needs from its neighbours' (a peer
+copy between cards, a plain read on one device).  Two slots alternate, so
+a slot is written again only after every shard has read it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from dataclasses import dataclass
+from typing import Any, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+_local = threading.local()
+
+
+class RowExchange:
+    """What the shards of one row split share: the two alternating slots
+    of published tensors, and what was exchanged (``rounds`` exchanges,
+    ``bytes`` read from neighbours)."""
+
+    def __init__(self, count: int):
+        self.count = count
+        self.rounds = 0
+        self.bytes = 0
+        self._slots = [[None] * count, [None] * count]
+
+
+@dataclass
+class Shard:
+    """The calling thread's part of a row split: shard ``index`` of
+    ``exchange.count``, thread ``thread`` of the run's ``turns`` (which
+    has ``pass_on(thread)`` and ``wait(thread)``), on ``stream`` (None on
+    the CPU)."""
+
+    index: int
+    exchange: RowExchange
+    turns: Any
+    thread: int
+    stream: Optional[Any] = None
+    rounds: int = 0
+
+    @property
+    def count(self) -> int:
+        return self.exchange.count
+
+
+def current() -> Optional[Shard]:
+    """The calling thread's shard, or None outside a row split."""
+    return getattr(_local, "shard", None)
+
+
+def set_current(shard: Optional[Shard]) -> None:
+    """Make ``shard`` the calling thread's (None: outside a split)."""
+    _local.shard = shard
+
+
+def frame_shape(x: torch.Tensor) -> List[int]:
+    """The spatial sizes of ``x`` (N, C, [D,] H, W) in the whole frame: the
+    shard's rows times the shard count inside a split."""
+    sizes = list(x.shape[2:])
+    shard = current()
+    if shard is not None:
+        sizes[-2] *= shard.count
+    return sizes
+
+
+def take_halo(x: torch.Tensor, pads: Sequence[Tuple[int, int]],
+              stride: int = 1) -> Tuple[torch.Tensor, List[Tuple[int, int]]]:
+    """``(x, pads)`` with the row pair of the SAME ``pads`` (one ``(low,
+    high)`` per spatial axis) read from the neighbouring shards: inside a
+    split, ``x`` gains ``low`` rows above and ``high`` below (zeros at the
+    frame's edges) and the row pair becomes ``(0, 0)``.  A ``stride`` must
+    divide the shard's rows, so that every shard starts on a row of the
+    stride's grid.  Outside a split both come back unchanged."""
+    pads = list(pads)
+    if current() is None:
+        return x, pads
+    if x.shape[-2] % stride:
+        raise ValueError(f"a shard of {x.shape[-2]} rows does not start on "
+                         f"the grid of stride {stride}")
+    x = halo(x, *pads[-2])
+    pads[-2] = (0, 0)
+    return x, pads
+
+
+def interpolate(x: torch.Tensor, size: Sequence[int],
+                mode: str) -> torch.Tensor:
+    """``F.interpolate`` to ``size`` (half-pixel centres).  Inside a split
+    the shard's rows are resized with one low-resolution row of each
+    neighbour, the edge row repeated at the frame's top and bottom, then
+    cropped to the shard's own rows; the rows must grow by a whole
+    factor."""
+    size = [int(s) for s in size]
+    if current() is None:
+        return F.interpolate(x, size=tuple(size), mode=mode,
+                             align_corners=False)
+    rows_in, rows_out = x.shape[-2], size[-2]
+    if rows_out % rows_in:
+        raise ValueError(f"a row split resizes rows by a whole factor, not "
+                         f"{rows_in} -> {rows_out}")
+    s = rows_out // rows_in
+    size[-2] = rows_out + 2 * s
+    y = F.interpolate(halo(x, 1, 1, edge="replicate"), size=tuple(size),
+                      mode=mode, align_corners=False)
+    return y.narrow(-2, s, rows_out)
+
+
+def halo(x: torch.Tensor, above: int, below: int,
+         edge: str = "zeros") -> torch.Tensor:
+    """``x`` with ``above`` rows of the shard above and ``below`` rows of the
+    shard below joined along its row axis (-2), inside a row split.  At
+    the frame's top and bottom the rows are zeros (``edge="zeros"``) or
+    the edge row repeated (``"replicate"``).  Every shard of the split
+    calls it at the same point."""
+    shard = current()
+    ex, i, r = shard.exchange, shard.index, shard.rounds
+    key = (tuple(x.shape[:-2]), x.shape[-1], x.dtype, above, below, edge, r)
+    slot = ex._slots[r % 2]
+    shard.rounds += 1
+    if i == 0:
+        ex.rounds += 1
+    slot[i] = (x, shard.stream, key)
+    shard.turns.pass_on(shard.thread)
+    shard.turns.wait(shard.thread)
+    parts = [_neighbour(shard, slot, i - 1, above, key, x, edge, True), x,
+             _neighbour(shard, slot, i + 1, below, key, x, edge, False)]
+    return torch.cat(parts, dim=-2)
+
+
+def _edge(x: torch.Tensor, rows: int, top: bool, edge: str) -> torch.Tensor:
+    """``rows`` rows beyond the frame's top or bottom edge of ``x``."""
+    shape = list(x.shape)
+    shape[-2] = rows
+    if edge == "zeros" or rows == 0:
+        return x.new_zeros(shape)
+    if edge != "replicate":
+        raise ValueError(f"unknown edge rule {edge!r}")
+    return x.narrow(-2, 0 if top else x.shape[-2] - 1, 1).expand(shape)
+
+
+def _neighbour(shard: Shard, slot: list, j: int, rows: int, key, x, edge,
+               above: bool) -> torch.Tensor:
+    """The ``rows`` rows of shard ``j`` next to ``shard`` (its last rows
+    when it lies above, its first below), on ``x``'s device; the frame's
+    edge rows where there is no shard ``j``."""
+    if not 0 <= j < shard.count:
+        return _edge(x, rows, above, edge)
+    if rows == 0:
+        return x[..., :0, :]
+    other, stream, other_key = slot[j]
+    if other_key != key:
+        raise RuntimeError(f"row split out of step: shard {shard.index} "
+                           f"exchanges {key}, shard {j} {other_key}")
+    if other.shape[-2] < rows:
+        raise ValueError(f"a halo of {rows} rows is deeper than shard {j}'s "
+                         f"{other.shape[-2]} rows")
+    part = other.narrow(-2, other.shape[-2] - rows if above else 0, rows)
+    shard.exchange.bytes += part.numel() * part.element_size()
+    if part.device == x.device:
+        return part
+    # A peer copy runs on the source device's current stream: make that the
+    # stream the neighbour computed on, so it follows the neighbour's work.
+    with (torch.cuda.stream(stream) if stream is not None
+          else contextlib.nullcontext()):
+        return part.to(x.device)

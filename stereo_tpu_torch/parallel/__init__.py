@@ -1,6 +1,7 @@
 """The multi-device mesh (port of ``stereo_tpu/parallel``): the sharded
-classical, DNN and single-view engines, the mesh and its placements, and
-the health probe."""
+classical, DNN and single-view engines, the mesh and its placements, the
+health probe, and the row split with its halo exchange that splits each
+stereo network's rows over ``tile`` (``rows``)."""
 
 from .classical import ShardedClassicalEngine
 from .dnn import ShardedDnnEngine

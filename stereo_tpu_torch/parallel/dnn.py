@@ -1,31 +1,45 @@
 """The stereo networks over a (data, tile, disp) mesh
 (port of ``stereo_tpu/parallel/dnn.py``).
 
-The JAX engine annotates batch and row shardings at the jit boundary and
-lets XLA's SPMD partitioner split every convolution by rows, inserting the
-halo exchanges itself.  PyTorch has no partitioner for these 3-D networks,
-so the port keeps the JAX contract and spreads frames instead:
+The JAX engine annotates batch and row shardings at the jit boundary
+(``P(("data", "disp"), None, "tile", None)``) and lets XLA's SPMD
+partitioner split every convolution by rows, inserting the halo exchanges
+itself.  The port places the work the same way by hand:
 
 * the batch splits over ``data`` x ``disp`` (the batch group), as in JAX;
-* the frames of a group are dealt round-robin over that group's ``tile``
-  devices, where JAX splits each frame's rows over them;
-* each frame runs the single-device network (``eval()``: the kernels on
-  the card) on its device.
+* each group's frames run as one batch, split by rows over that group's
+  ``tile`` devices: every shard runs the single-device network (``eval()``:
+  the kernels on the card) on its rows, in a thread of its own, and the
+  networks' row-mixing layers exchange halo rows with the neighbouring
+  shards (``ops.rows``, the threads in ``parallel.rows``);
+* the shards' rows and the groups' frames are joined on the mesh's first
+  device.
 
-The result is the same; only the placement differs.  Splitting rows over
-``tile`` inside a network is an open item of the port (ROADMAP §1).  Each
-distinct device of the mesh holds one replica of the weights, loaded once
-and copied to the others.
+The rows are split when ``tile > 1`` and the height is a multiple of
+``ROW_STRIDE * tile``: the networks' strides multiply to 16, so every shard
+then holds at least one row at 1/16 and four at 1/4, enough for each halo.
+Other heights that JAX accepts (a multiple of ``tile``) keep the frame
+placement of :func:`frame_devices`, whole frames dealt round-robin over a
+group's ``tile`` devices; :attr:`ShardedDnnEngine.row_split` says which
+was taken.  Both give the single device's result up to float rounding.
+Each distinct device of the mesh holds one replica of the weights, loaded
+once and copied to the others.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from ..core.config import MeshConfig
+from . import rows
 from .mesh import Mesh, make_mesh
+
+# The product of the strides of GwcNet, MSNet2D and MSNet3D: two in the
+# feature extractors (1/4), two in each hourglass (1/16).
+ROW_STRIDE = 16
 
 
 def frame_devices(mesh: Mesh, n: int) -> list:
@@ -46,7 +60,11 @@ class ShardedDnnEngine:
     """Batched DNN stereo inference over a (data, tile, disp) mesh
     (default: the first ``mesh_config.num_devices`` cards).
     ``process_batch`` expects the batch divisible by :attr:`batch_group`
-    (= data x disp) and the image height divisible by ``tile``."""
+    (= data x disp) and the image height divisible by ``tile``.
+    :attr:`row_split` says whether frames are split by rows over ``tile``
+    (else dealt whole), and :attr:`halo` what the last row-split call
+    exchanged: ``rounds`` (halo exchanges per forward) and ``bytes`` (read
+    from neighbouring shards, over all groups)."""
 
     def __init__(self, model_name: str, image_shape: Tuple[int, int],
                  mesh_config: MeshConfig, *, mesh: Optional[Mesh] = None,
@@ -63,6 +81,10 @@ class ShardedDnnEngine:
         if image_shape[0] % max(self._tile, 1):
             raise ValueError(f"image height {image_shape[0]} not divisible "
                              f"by the tile mesh extent {self._tile}")
+        self.row_split = (self._tile > 1
+                          and image_shape[0] % (ROW_STRIDE * self._tile) == 0)
+        self.halo = None
+        self._shard_threads = rows.ShardThreads()
         first, *others = self.mesh.distinct_devices()
         backend = DnnStereoMatchingBackend(
             model_name, image_shape, max_disparity=max_disparity,
@@ -81,10 +103,43 @@ class ShardedDnnEngine:
         if left.shape[0] % self.batch_group:
             raise ValueError(f"batch {left.shape[0]} not divisible by the "
                              f"data x disp mesh extent {self.batch_group}")
+        if self.row_split:
+            data, _, disp = self.mesh.shape
+            groups = [list(self.mesh.devices[d, :, p]) for d in range(data)
+                      for p in range(disp)]
+            return self._split_rows(left, right, groups)
         out = [self.replicas[dev].process(l, r) for dev, l, r in
                zip(frame_devices(self.mesh, left.shape[0]), left, right)]
         first = self.mesh.first_device
         return torch.stack([d.to(first) for d in out])
+
+    def process(self, left_image, right_image) -> torch.Tensor:
+        """One (3, H, W) pair -> (H, W): split by rows over the first
+        group's ``tile`` devices, or whole on the mesh's first device."""
+        if not self.row_split:
+            return self.replicas[self.mesh.first_device].process(
+                left_image, right_image)
+        return self._split_rows(torch.as_tensor(left_image)[None],
+                                torch.as_tensor(right_image)[None],
+                                [list(self.mesh.devices[0, :, 0])])[0]
+
+    def _split_rows(self, left, right, groups) -> torch.Tensor:
+        """The frames dealt in equal runs to ``groups`` (each a list of
+        ``tile`` devices), each run split by rows over its group."""
+        per_group = left.shape[0] // len(groups)
+        rows_per = left.shape[-2] // self._tile
+        splits = [[(dev, functools.partial(
+            self.replicas[dev].process_batch,
+            *(x[g * per_group:(g + 1) * per_group, :,
+                t * rows_per:(t + 1) * rows_per] for x in (left, right))))
+                   for t, dev in enumerate(devices)]
+                  for g, devices in enumerate(groups)]
+        results, exchanges = self._shard_threads.run(splits)
+        self.halo = dict(rounds=exchanges[0].rounds,
+                         bytes=sum(e.bytes for e in exchanges))
+        first = self.mesh.first_device
+        return torch.cat([torch.cat([r.to(first) for r in shards], dim=-2)
+                          for shards in results])
 
     def warmup(self) -> None:
         x = torch.zeros((self.batch_group, 3, *self.image_shape))

@@ -1,0 +1,176 @@
+"""The threads that run a row split: each shard of a frame's rows runs the
+whole network in a thread of its own, and the networks' row-mixing layers
+exchange halo rows with the neighbouring shards (``ops.rows``, which says
+what each layer reads).
+
+The shard threads of a run take turns, one at a time, as the one thread
+that drives the rest of the port's mesh does: a shard runs until its next
+exchange, publishes its tensor there and hands the turn to the next thread
+of the ring.  Launches are asynchronous, so shards on several cards still
+overlap on the devices, and no thread waits on the interpreter lock for
+another that is launching.  The threads live as long as their
+:class:`ShardThreads`: PyTorch keeps cuDNN's execution plans per thread,
+and a new thread plans every convolution anew.  A shard that raises marks
+the run failed: the others raise at their next turn, and
+:meth:`ShardThreads.run` raises the first shard's error.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import queue
+import threading
+import weakref
+from typing import Any, Callable, List, Sequence, Tuple
+
+import torch
+
+from ..ops import rows
+from ..ops.rows import RowExchange, Shard
+
+# Seconds a shard waits for its turn before the run is given up (a build
+# or a first cuDNN call of another shard may take a while).
+TURN_TIMEOUT_S = 300.0
+
+
+class RowSplitAborted(RuntimeError):
+    """Raised in a shard whose turn came after another shard failed, or
+    that waited longer than the timeout for its turn."""
+
+
+class _Turns:
+    """The ring of a run's shard threads, of which one runs at a time:
+    thread ``k`` waits on its own lock, and the thread whose turn it is
+    hands it on by releasing the next one's.  Only the thread holding the
+    turn changes the ring."""
+
+    def __init__(self, n: int):
+        self._locks = [threading.Lock() for _ in range(n)]
+        for lock in self._locks:
+            lock.acquire()
+        self._ring = list(range(n))
+        self.holder = None
+        self.failed = False
+
+    def start(self) -> None:
+        self._locks[0].release()
+
+    def wait(self, k: int) -> None:
+        if not self._locks[k].acquire(timeout=TURN_TIMEOUT_S):
+            self.failed = True
+            raise RowSplitAborted(f"row split: no turn for {TURN_TIMEOUT_S} s")
+        self.holder = k
+        if self.failed:
+            raise RowSplitAborted("row split aborted: another shard failed")
+
+    def pass_on(self, k: int, leave: bool = False) -> None:
+        ring = self._ring
+        nxt = ring[(ring.index(k) + 1) % len(ring)]
+        if leave:
+            ring.remove(k)
+        self.holder = None
+        if nxt != k or not leave:       # alone, a thread hands itself on
+            self._locks[nxt].release()
+
+
+class ShardThreads:
+    """Long-lived threads for the shards of row splits: thread ``k`` runs
+    job ``k`` of every :meth:`run`, so a caller that keeps one of these and
+    hands it the same shards each time meets each device and shape in the
+    same thread (the per-thread caches of the CUDA libraries stay warm).
+    Threads start on first use and stop when this is closed or collected,
+    or at exit."""
+
+    def __init__(self):
+        self._queues = []
+        self._finalizer = weakref.finalize(self, _stop, self._queues)
+
+    def run(self, splits: Sequence[Sequence[Tuple[torch.device,
+                                                  Callable[[], Any]]]]
+            ) -> Tuple[List[List[Any]], List[RowExchange]]:
+        """Run every ``(device, work)`` shard of every split, each
+        ``work()`` in a thread of its own, the threads taking turns; the
+        shards of one split exchange halos with each other, in split order
+        (shard 0 holds the frame's top rows).  Each thread takes the
+        caller's grad mode and, on CUDA, the device and the caller's
+        current stream of that device.  Returns the results, shaped as
+        ``splits``, and each split's exchange; raises the first error of
+        any shard."""
+        if not self._finalizer.alive:
+            raise RuntimeError("ShardThreads.run after close()")
+        grad = torch.is_grad_enabled()
+        exchanges = [RowExchange(len(split)) for split in splits]
+        results = [[None] * len(split) for split in splits]
+        jobs = [(s, i, torch.device(device), work)
+                for s, split in enumerate(splits)
+                for i, (device, work) in enumerate(split)]
+        turns = _Turns(len(jobs))
+        errors = []
+        done = queue.SimpleQueue()
+
+        def shard_main(k, s, i, device, work, stream):
+            rows.set_current(Shard(i, exchanges[s], turns, k, stream))
+            try:
+                turns.wait(k)
+                with _on(device, stream), torch.set_grad_enabled(grad):
+                    results[s][i] = work()
+            except BaseException as e:       # re-raised by the caller below
+                errors.append(e)
+                turns.failed = True
+            finally:
+                rows.set_current(None)
+                if turns.holder == k:
+                    turns.pass_on(k, leave=True)
+                done.put(k)
+
+        while len(self._queues) < len(jobs):
+            q = queue.SimpleQueue()
+            thread = threading.Thread(target=_serve, args=(q,), daemon=True,
+                                      name=f"row-shard-{len(self._queues)}")
+            thread.start()
+            self._queues.append((q, thread))
+        for k, (s, i, device, work) in enumerate(jobs):
+            stream = (torch.cuda.current_stream(device)
+                      if device.type == "cuda" else None)
+            self._queues[k][0].put(functools.partial(shard_main, k, s, i,
+                                                  device, work, stream))
+        turns.start()
+        for _ in jobs:
+            done.get()
+        if errors:
+            raise next((e for e in errors
+                        if not isinstance(e, RowSplitAborted)), errors[0])
+        return results, exchanges
+
+    def close(self) -> None:
+        self._finalizer()
+
+
+def _serve(jobs: queue.SimpleQueue) -> None:
+    """A shard thread: runs the jobs it is handed until it gets None."""
+    for job in iter(jobs.get, None):
+        job()
+
+
+def _stop(queues: list) -> None:
+    """Stop the threads and wait for them: a thread that has run CUDA or
+    CPU work must end before the interpreter does, or its native state is
+    torn down under it (the process aborts).  Also run at exit."""
+    for q, _ in queues:
+        q.put(None)
+    for _, thread in queues:
+        if thread is not threading.current_thread():
+            thread.join()
+    queues.clear()
+
+
+def _on(device: torch.device, stream):
+    """The thread's current CUDA device and stream, or nothing on the
+    CPU."""
+    if stream is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.cuda.device(device))
+    stack.enter_context(torch.cuda.stream(stream))
+    return stack

@@ -76,9 +76,10 @@ class ShardedDnnBackend(StereoMatchingBackend):
     """A stereo network over a device mesh (``parallel.dnn``) — selected
     when the pipeline config carries a multi-device ``MeshConfig`` and a
     DNN backend name.  Batches must be divisible by the batch group.  A
-    single frame runs once on the mesh's first device: the JAX package
-    broadcasts it over the batch group and keeps frame 0, which is the same
-    result."""
+    single frame is split by rows over the first group's ``tile`` devices
+    when the engine splits rows (``engine.row_split``), else it runs whole
+    on the mesh's first device: the JAX package broadcasts it over the
+    batch group and keeps frame 0, whose rows it splits the same way."""
 
     def __init__(self, model_name: str, image_shape, mesh_config, mesh,
                  max_disparity: int = 192, compute_dtype: str = "float32"):
@@ -90,8 +91,7 @@ class ShardedDnnBackend(StereoMatchingBackend):
         self.weights = self.engine.weights
 
     def process(self, left_image, right_image) -> torch.Tensor:
-        return self.engine.replicas[self.engine.mesh.first_device].process(
-            left_image, right_image)
+        return self.engine.process(left_image, right_image)
 
     def process_batch(self, left_batch, right_batch) -> torch.Tensor:
         return self.engine.process_batch(left_batch, right_batch)

@@ -2,11 +2,14 @@
 on the CPU: the JAX engines on the 8 virtual devices of
 ``tests/conftest.py``, the port on a mesh of ``["cpu"] * 8``.
 
-JAX splits each network's convolutions by rows over ``tile`` (GSPMD); the
-port deals whole frames over the ``tile`` devices instead
-(``stereo_tpu_torch/parallel/dnn.py``), so each frame runs the
-single-device network.  The gates are the JAX tests' own
-(``tests/test_parallel_dnn.py``, ``tests/test_parallel_synthesis.py``).
+JAX splits each network's convolutions by rows over ``tile`` (GSPMD); so
+does the port, with a halo exchange per layer, when 16 * tile divides the
+height (``stereo_tpu_torch/parallel/dnn.py``, ``ops/rows.py``; the
+split's own tests are in ``tests/test_torch_row_split.py``), and it deals
+whole frames over the ``tile`` devices otherwise.  At 64x96 on (2,2,2) the
+split equals the single device bit for bit on the CPU.  The gates against
+JAX are the JAX tests' own (``tests/test_parallel_dnn.py``,
+``tests/test_parallel_synthesis.py``).
 """
 
 import jax
