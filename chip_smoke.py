@@ -24,9 +24,11 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              bound; the classical kernels also on adversarial integer
              pairs (every plane a winner, all planes tied) and windows
              (smallest and largest disparity, across the wrap),
-             ``gwc_volume`` at 4, 8 and 16 channels per group and at the
-             row shards of tile 4 and 2 ((1, 320, 24, 320) and
-             (1, 320, 48, 320), float32 and bf16), and
+             ``gwc_volume`` (``GWC_VARIANTS``, each in float32 and bf16)
+             at 4, 5, 8, 16 and 32 channels per group, at disparity 192,
+             at the row shards of tile 4 and 2 ((1, 320, 24, 320) and
+             (1, 320, 48, 320)), at a width off its strip and a width
+             under D, each also against the volume in float64, and
              ``upsample_blend`` also at the servers' batch of 2, at scale 2,
              at widths that are not a multiple of its tile or are under D,
              and at a scale (8) it takes at run time;
@@ -147,18 +149,25 @@ phase lines say which.
     python3 chip_smoke.py --compare NAME=DIR [NAME=DIR ...]
 
 times versions of the kernels against each other instead: each ``DIR``
-holds any of ``matching_core.cu``, ``sampled_window.cu`` and
-``upsample_blend.cu`` with the launchers' C interface, built into a
-library of its own.  Each version of the classical kernels must equal the
+holds any of ``matching_core.cu``, ``sampled_window.cu``,
+``upsample_blend.cu`` and ``gwc_volume.cu`` with the launchers' C
+interface, built into a library of its own (one ``nvcc`` call each, all
+at once).  Each version of the classical kernels must equal the
 plain versions (winners, MBM costs and windows) before it is timed; then
 all are timed in turns (first to last, then last to first) at the KITTI
 and Middlebury configs, ``matching_core`` also at a second disparity range
 of each size, which splits its fixed cost from its cost per plane.  Each
 version of ``upsample_blend`` must be within 2e-4 of its plain version and
 is timed the same way at the KITTI shape and at the smoke's other shapes
-of it.  Each time is
-taken as ``ms`` (launch and run), ``device_ms`` (run alone) and
-``host_us`` (launch alone).
+of it.  Each version of ``gwc_volume`` must pass the main smoke's gates
+against ``gwc_volume_plain`` at every one of ``GWC_VARIANTS``, and the
+versions must equal each other in every element (bit for bit); then they
+are timed the same way at each variant, with each variant's bound, the
+device time of a copy that moves as many bytes (the card's rate for that
+traffic), and the kernel's and the plain version's distance from the
+volume in float64.
+Each time is taken as ``ms`` (launch and run), ``device_ms`` (run alone)
+and ``host_us`` (launch alone).
 """
 
 from __future__ import annotations
@@ -211,7 +220,7 @@ GWCNET_KERNELS = ("upsample_blend", "gwc_volume")
 
 # The sources ``--compare`` builds from each version's directory.
 COMPARED_SOURCES = ("matching_core.cu", "sampled_window.cu",
-                    "upsample_blend.cu")
+                    "upsample_blend.cu", "gwc_volume.cu")
 
 # H100 SXM data sheet: HBM3 rate and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -533,67 +542,113 @@ def check_blend_cases(torch, dev) -> list:
     return cases
 
 
+# ``gwc_volume``'s variants, (D, dtype, G, H, W) on GwcNet's 320 feature
+# channels, the path's shape first: D=16 (disparity 64) and 48 (192) at
+# 40 groups (8 channels per group) in both dtypes; 80, 64, 20 and 10 groups
+# (4, 5, 16 and 32 channels); the row split's shards of a 384x1280 frame,
+# 24 rows over 4 tile devices and 48 over 2; a width that is not a
+# multiple of the kernel's 4- or 8-column strip; and a width under D, so
+# that strip edges and the zero region (w < d) meet on the card.
+GWC_VARIANTS = tuple(
+    (d, dtype, g, h, w) for d, g, h, w, dtypes in (
+        (16, 40, 96, 320, ("float32", "bfloat16")),
+        (48, 40, 96, 320, ("float32", "bfloat16")),
+        (16, 80, 96, 320, ("float32", "bfloat16")),
+        (16, 64, 96, 320, ("float32", "bfloat16")),
+        (16, 20, 96, 320, ("float32", "bfloat16")),
+        (16, 10, 96, 320, ("float32", "bfloat16")),
+        (16, 40, 24, 320, ("float32", "bfloat16")),
+        (16, 40, 48, 320, ("float32", "bfloat16")),
+        (16, 40, 96, 318, ("float32", "bfloat16")),
+        (48, 40, 96, 44, ("float32", "bfloat16")))
+    for dtype in dtypes)
+GWC_DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+
+def gwc_features(torch, rng, dev):
+    """Left and right features (1, 320, 96, 320), ReLU'd like real ones."""
+    return tuple(torch.from_numpy(np.maximum(rng.standard_normal(
+        (1, 320, 96, 320)), 0).astype(np.float32)).to(dev) for _ in range(2))
+
+
+def gwc_case(torch, left, right, variant):
+    """A variant's features: the first H rows and W columns, in its dtype."""
+    _, dtype, _, h, w = variant
+    return tuple(x[..., :h, :w].to(getattr(torch, dtype)).contiguous()
+                 for x in (left, right))
+
+
+def gwc_limit(torch, vol) -> tuple:
+    """max|vol| and the smoke's gate: 1e-5 * max|vol| in float32, one bf16
+    ulp of max|vol| in bf16."""
+    peak = float(vol.float().abs().max())
+    if vol.dtype == torch.float32:
+        return peak, 1e-5 * peak
+    return peak, 2.0 ** (np.floor(np.log2(peak)) - 7)
+
+
+def gwc_float64(torch, left, right, d: int, g: int):
+    """The volume in float64: each group's product sum, times 1/cpg."""
+    import torch.nn.functional as F
+
+    n, c, h, w = left.shape
+    lf, rp = left.double(), F.pad(right.double(), (d, 0))
+    return torch.stack([(lf * rp[..., d - k:d - k + w])
+                        .view(n, g, c // g, h, w).sum(2) * (g / c)
+                        for k in range(d)], dim=2)
+
+
+def gwc_distance(torch, vol, ref) -> dict:
+    """How far ``vol`` lies from the float64 volume: the largest difference
+    and how many elements differ from it rounded to ``vol``'s dtype."""
+    return dict(max_abs=float((vol.double() - ref).abs().max()),
+                differing_from_rounded=int((vol != ref.to(vol.dtype)).sum()))
+
+
+def gwc_bound(lt, d: int, g: int) -> tuple:
+    """Each input read once and the volume written once; one multiply and
+    one add per channel at each live (d, w >= d) position."""
+    n, c, h, w = lt.shape
+    live = n * h * sum(max(w - k, 0) for k in range(d))
+    return bound(lt.element_size() * (2 * n * c * h * w + n * g * d * h * w),
+                 2 * c * live)
+
+
 def check_gwc_volume(torch, rng, dev) -> dict:
-    """``gwc_volume`` at GwcNet's width on the 384x1280 path (features
-    (1, 320, 96, 320)): at 40 groups (8 channels per group, the kernel's
-    compile-time instance) D=16 planes (disparity 64) and 48 (disparity
-    192) in float32, 16 in bf16; at 80 and 20 groups (4 and 16 channels
-    per group, taken at run time) D=16 in float32 and bf16, and at 64 and
-    10 groups (5 and 32 channels, two more run-time sizes) in
-    float32; and at the row shards that the row split (``ops.rows``) of a
-    384x1280 frame hands it, 40 groups, D=16: (1, 320, 24, 320) over 4
-    tile devices and (1, 320, 48, 320) over 2, each in float32 and bf16.
-    Float32 must
-    agree with the plain version within 1e-5 * max|vol|, bf16 (compared in
-    bf16) within one bf16 ulp of max|vol|; each variant also says how many
-    elements differ at all.  The kernel's entry is the path's shape (D=16,
-    float32, 40 groups); the others go in ``variants``."""
+    """``gwc_volume`` at ``GWC_VARIANTS``.  Float32 must agree with the
+    plain version within 1e-5 * max|vol|, bf16 (compared in bf16) within
+    one bf16 ulp of max|vol|; each variant also says how many elements
+    differ at all, and how far the kernel and the plain version each lie
+    from the volume in float64.  The kernel's entry is the path's shape
+    (D=16, float32, 40 groups at (1, 320, 96, 320)); the others go in
+    ``variants``."""
     from stereo_tpu_torch.ops.cuda import gwc_volume, gwc_volume_plain
 
-    n, c, h, w = 1, 320, 96, 320
-    # ReLU'd like real features.
-    left, right = (torch.from_numpy(np.maximum(rng.standard_normal(
-        (n, c, h, w)), 0).astype(np.float32)).to(dev) for _ in range(2))
+    left, right = gwc_features(torch, rng, dev)
     variants = []
-    for d, dtype, g, h in ((16, torch.float32, 40, 96),
-                           (48, torch.float32, 40, 96),
-                           (16, torch.bfloat16, 40, 96),
-                           (16, torch.float32, 80, 96),
-                           (16, torch.bfloat16, 80, 96),
-                           (16, torch.float32, 20, 96),
-                           (16, torch.bfloat16, 20, 96),
-                           (16, torch.float32, 64, 96),
-                           (16, torch.float32, 10, 96),
-                           (16, torch.float32, 40, 24),
-                           (16, torch.bfloat16, 40, 24),
-                           (16, torch.float32, 40, 48),
-                           (16, torch.bfloat16, 40, 48)):
-        lt, rt = (x[..., :h, :].to(dtype).contiguous() for x in (left, right))
+    for variant in GWC_VARIANTS:
+        d, dtype, g, h, w = variant
+        lt, rt = gwc_case(torch, left, right, variant)
         vol_k = gwc_volume(lt, rt, d, g)
         vol_p = gwc_volume_plain(lt, rt, d, g)
         torch.cuda.synchronize()
         err = float((vol_k.float() - vol_p.float()).abs().max())
         differing = int((vol_k != vol_p).sum())
-        peak = float(vol_p.float().abs().max())
-        if dtype == torch.float32:
-            limit = 1e-5 * peak
-        else:
-            limit = 2.0 ** (np.floor(np.log2(peak)) - 7)   # 1 bf16 ulp
-        require(err <= limit, f"gwc_volume D={d} {dtype} G={g} H={h}: off "
-                              f"by {err} (limit {limit})")
+        peak, limit = gwc_limit(torch, vol_p)
+        require(err <= limit, f"gwc_volume {variant}: off by {err} (limit "
+                              f"{limit})")
+        ref = gwc_float64(torch, lt, rt, d, g)
+        float64 = dict(kernel=gwc_distance(torch, vol_k, ref),
+                       plain=gwc_distance(torch, vol_p, ref))
+        del ref
         times = timings(lambda: gwc_volume(lt, rt, d, g))
         plain_ms = cuda_ms(lambda: gwc_volume_plain(lt, rt, d, g), 5)
-        # Each input read once, the volume written once; one multiply and
-        # one add per channel at each live (d, w >= d) position.
-        live = n * h * sum(w - k for k in range(d))
-        b_ms, b_by = bound(lt.element_size()
-                           * (2 * n * c * h * w + n * g * d * h * w),
-                           2 * c * live)
-        variants.append(dict(planes=d, dtype=str(dtype).split(".")[-1],
-                             groups=g, channels_per_group=c // g,
+        b_ms, b_by = gwc_bound(lt, d, g)
+        variants.append(dict(planes=d, dtype=dtype, groups=g,
+                             channels_per_group=lt.shape[1] // g,
                              shape=list(lt.shape),
                              max_abs_err=err, elements_differing=differing,
-                             limit=limit, max_abs_vol=peak,
+                             limit=limit, max_abs_vol=peak, float64=float64,
                              **times, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by))
     main = variants[0]
@@ -643,10 +698,10 @@ def sass_counts(path: str) -> dict:
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
         if any(k in name for k in ("matching_core", "sampled_window",
-                                   "upsample_blend")):
+                                   "upsample_blend", "gwc_volume")):
             counts[name] = {op: len(re.findall(rf"\b{op}(\.\w+)*\s", block))
                             for op in ("LDS", "STS", "BAR", "FADD", "FFMA",
-                                       "LDG", "LDGSTS")}
+                                       "LDG", "LDGSTS", "STG")}
     return counts
 
 
@@ -2887,6 +2942,64 @@ def compare_blend(torch, libs, dev) -> None:
                max_abs_err=checks, ms=times, order=order)
 
 
+def compare_gwc(torch, libs, dev) -> None:
+    """``--compare`` of the ``gwc_volume`` versions in ``libs``."""
+    from stereo_tpu_torch.ops.cuda import build, gwc_volume_plain
+
+    order = list(libs) + list(libs)[::-1]
+    left, right = gwc_features(torch, np.random.default_rng(1), dev)
+    for variant in GWC_VARIANTS:
+        d, dtype, g, h, w = variant
+        t = time.perf_counter()
+        lt, rt = gwc_case(torch, left, right, variant)
+        n, c = lt.shape[:2]
+        want = gwc_volume_plain(lt, rt, d, g)
+        peak, limit = gwc_limit(torch, want)
+        bits = torch.int32 if dtype == "float32" else torch.int16
+        runs, outs, errs = {}, {}, {}
+        for name, lib in libs.items():
+            out = torch.full_like(want, float("nan"))
+
+            def run(lib=lib, out=out):
+                build.check(lib.stereo_gwc_volume(
+                    lt.data_ptr(), rt.data_ptr(), out.data_ptr(), n, c, h, w,
+                    g, d, GWC_DTYPE_CODES[dtype],
+                    torch.cuda.current_stream().cuda_stream), "gwc_volume")
+            run()
+            torch.cuda.synchronize()
+            errs[name] = float((out.float() - want.float()).abs().max())
+            # The main smoke's gate (nan fails it too).
+            require(errs[name] <= limit, f"version {name} at {variant}: off "
+                                         f"by {errs[name]} (limit {limit})")
+            runs[name], outs[name] = run, out
+        first = outs[next(iter(libs))].view(bits)
+        differing = {name: int((out.view(bits) != first).sum())
+                     for name, out in outs.items()}
+        require(not any(differing.values()),
+                f"versions differ at {variant}: {differing}")
+        ref = gwc_float64(torch, lt, rt, d, g)
+        float64 = dict(kernel=gwc_distance(torch, outs[next(iter(libs))], ref),
+                       plain=gwc_distance(torch, want, ref))
+        del ref, outs
+        times = {name: [] for name in libs}
+        for name in order:
+            times[name].append(timings(runs[name]))
+        b_ms, b_by = gwc_bound(lt, d, g)
+        # The card's rate for the same traffic: a copy that reads and
+        # writes as many bytes as the variant's inputs and volume.
+        moved = (2 * lt.numel() + want.numel()) * lt.element_size()
+        src = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms = cuda_ms(lambda: dst.copy_(src), 50, True)
+        del src, dst
+        report("compare_gwc", t, planes=d, dtype=dtype, groups=g,
+               channels_per_group=c // g, shape=list(lt.shape),
+               max_abs_err=errs, limit=limit, max_abs_vol=peak,
+               elements_differing_from_first=differing, float64=float64,
+               bound_ms=b_ms, bound_by=b_by, copy_device_ms=copy_ms,
+               ms=times, order=order)
+
+
 def compare(specs) -> int:
     """``--compare``: see the module's docstring."""
     import torch
@@ -2930,6 +3043,10 @@ def compare(specs) -> int:
              if hasattr(lib, "stereo_upsample_blend")}
     if blend:
         compare_blend(torch, blend, dev)
+    gwc = {name: lib for name, lib in libs.items()
+           if hasattr(lib, "stereo_gwc_volume")}
+    if gwc:
+        compare_gwc(torch, gwc, dev)
     for line in smi:
         print(line, flush=True)
     return 0

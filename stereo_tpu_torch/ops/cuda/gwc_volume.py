@@ -33,8 +33,8 @@ def gwc_volume(left: torch.Tensor, right: torch.Tensor, max_disparity: int,
     """(N, C, H, W) left/right features -> (N, G, D, H, W) volume,
     ``vol[n, g, d, h, w] = mean_{c in g} L[n, c, h, w] * R[n, c, h, w - d]``
     and 0 where ``w < d``; float32 or bf16, in the features' dtype.  Any
-    ``num_groups`` that divides C (8 channels per group, GwcNet's, is the
-    kernel's compile-time instance)."""
+    ``num_groups`` that divides C, any width (rows whose byte length is
+    not a multiple of 16 take the kernel's narrower copies)."""
     n, c, h, w = left.shape
     require(right.shape == left.shape,
             f"right {tuple(right.shape)} differs from left {tuple(left.shape)}")

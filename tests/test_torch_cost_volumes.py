@@ -35,10 +35,14 @@ def features(rng, n, h, w, c):
 
 
 # (N, H, W, C, D, G): the shapes of tests/test_models.py and GwcNet's
-# width (C=320, G=40) at a small image; then GwcNet's width at 4 and 16
-# channels per group (G=80, G=20), which the kernel takes at run time.
+# width (C=320, G=40) at a small image; then GwcNet's width at 4, 16, 5
+# and 32 channels per group (G=80, 20, 64, 10), which the kernel takes at
+# run time; and GwcNet's 48 planes (disparity 192) on a width under D, so
+# that every plane past the width is all zeros.
 GWC_SHAPES = [(2, 8, 24, 40, 12, 10), (1, 6, 40, 320, 16, 40),
-              (1, 4, 24, 320, 8, 80), (1, 4, 24, 320, 8, 20)]
+              (1, 4, 24, 320, 8, 80), (1, 4, 24, 320, 8, 20),
+              (1, 4, 24, 320, 8, 64), (1, 4, 24, 320, 8, 10),
+              (1, 4, 40, 80, 48, 10)]
 
 
 @pytest.mark.parametrize("shape", GWC_SHAPES, ids=str)
@@ -73,6 +77,34 @@ def test_gwc_volume_bf16_plain_rounds_a_float32_sum():
     assert got.dtype == torch.bfloat16
     want = gwc_volume_plain(left.float(), right.float(), 6, 4)
     assert torch.equal(got, want.to(torch.bfloat16))
+
+
+def test_smoke_gwc_variants_and_float64_volume():
+    """``chip_smoke.py`` holds ``gwc_volume`` on the card at every group
+    size, dtype, depth and row shard GwcNet hands it, at a width off the
+    kernel's 4- and 8-column strip and at a width under D; its float64
+    volume is the product sum in float64 times 1/cpg."""
+    import chip_smoke
+
+    variants = chip_smoke.GWC_VARIANTS
+    assert variants[0] == (16, "float32", 40, 96, 320)   # the path's shape
+    for dtype in ("float32", "bfloat16"):
+        got = [v for v in variants if v[1] == dtype]
+        assert {320 // g for _, _, g, _, _ in got} == {4, 5, 8, 16, 32}
+        assert {d for d, *_ in got} == {16, 48}
+        assert {h for *_, h, _ in got} == {24, 48, 96}
+        assert any(w % 8 and w % 4 for *_, w in got)
+        assert any(w < d for d, *_, w in got)
+    rng = np.random.default_rng(9)
+    left, right = features(rng, 1, 3, 10, 12), features(rng, 1, 3, 10, 12)
+    got = chip_smoke.gwc_float64(torch, nchw(left), nchw(right), 6, 3)
+    lf, rf = left.astype(np.float64), right.astype(np.float64)
+    for d in range(6):
+        prod = np.zeros_like(lf)
+        prod[:, :, d:] = lf[:, :, d:] * rf[:, :, :10 - d]
+        want = prod.reshape(1, 3, 10, 3, 4).sum(-1) / 4     # NHWG
+        np.testing.assert_allclose(got[:, :, d].permute(0, 2, 3, 1).numpy(),
+                                   want, rtol=1e-15, atol=0)
 
 
 def test_gwc_volume_rejects_what_it_does_not_take():
