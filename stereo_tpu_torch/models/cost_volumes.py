@@ -11,7 +11,6 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -84,13 +83,14 @@ def upsampled_soft_argmin(logits: torch.Tensor, out_dhw: Tuple[int, int, int],
     x = rows.interpolate(logits[:, 0], (H, W),
                          "bilinear").float()                # (N, D_l, H, W)
 
-    # Half-pixel D coordinates, clamped, as jax.image.resize places them.
-    in_c = np.clip((np.arange(D) + 0.5) * (dl / D) - 0.5, 0.0, float(dl - 1))
-    d0 = np.minimum(in_c.astype(np.int64), max(dl - 2, 0))
-    d1 = np.minimum(d0 + 1, dl - 1)
-    frac = torch.as_tensor(in_c - d0, dtype=torch.float32, device=x.device)
-    idx0 = torch.as_tensor(d0, device=x.device)
-    idx1 = torch.as_tensor(d1, device=x.device)
+    # Half-pixel D coordinates, clamped, as jax.image.resize places them;
+    # in float64 on the device (no copy from the host, which a CUDA graph
+    # could not capture).
+    in_c = ((torch.arange(D, dtype=torch.float64, device=x.device) + 0.5)
+            * (dl / D) - 0.5).clamp(0.0, float(dl - 1))
+    idx0 = in_c.long().clamp(max=max(dl - 2, 0))
+    idx1 = (idx0 + 1).clamp(max=dl - 1)
+    frac = (in_c - idx0).float()
     disp = torch.arange(D, dtype=torch.float32, device=x.device)
 
     m = x.new_full((n, H, W), -1e30)

@@ -14,16 +14,27 @@ committed Flax checkpoint maps onto ``state_dict`` keys by name
 (``models.deep3d_state_dict_from_flax``).  Tensors are NCHW; the global
 branch flattens its input in NHWC order, as the Flax model does, because
 the rows of its first Dense kernel are in (h, w, c) order.
+
+Inside a row split (``parallel.synthesis``) every row-mixing layer goes
+through the funnels of ``ops.rows``: the 3x3 convolutions and the parity
+deconvolutions take their halo rows from the neighbouring shards, and the
+shards' rows are gathered before the first pool that would not pool a
+shard's rows whole, or before the global branch's Dense layers over the
+whole pool5 grid.  The levels below the gather run on the whole frame on
+every shard, and their branch outputs are narrowed back to the shard's
+rows.  Outside a split nothing changes.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import rows
 from ..ops.cuda import upsample_blend
 from ..ops.shift_stack import weighted_shift_sum
 from .layers import Deconv2dParity
@@ -48,8 +59,15 @@ VGG16_BLOCKS: Tuple[Tuple[int, ...], ...] = (
 _VGG_STRIDE = 32
 
 
-def _conv3x3(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, padding=1)
+class Conv3x3(nn.Conv2d):
+    """``nn.Conv2d(cin, cout, 3, padding=1)`` whose row pair comes from
+    the neighbouring shards inside a row split (``ops.rows.conv2d``)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 3, padding=1)
+
+    def forward(self, x):
+        return rows.conv2d(x, self.weight, self.bias)
 
 
 class VggBlock(nn.Module):
@@ -59,13 +77,17 @@ class VggBlock(nn.Module):
         super().__init__()
         self.n = len(channels)
         for i, ch in enumerate(channels):
-            self.add_module(f"Conv_{i}", _conv3x3(in_channels, ch))
+            self.add_module(f"Conv_{i}", Conv3x3(in_channels, ch))
             in_channels = ch
 
-    def forward(self, x):
+    def convolve(self, x):
+        """The block's convolutions, without its pool."""
         for i in range(self.n):
             x = F.relu(getattr(self, f"Conv_{i}")(x))
-        return F.max_pool2d(x, 2)
+        return x
+
+    def forward(self, x):
+        return rows.max_pool2d(self.convolve(x))
 
 
 class DeconvBranch(nn.Module):
@@ -75,8 +97,8 @@ class DeconvBranch(nn.Module):
     def __init__(self, in_channels: int, filters: int, scale: int):
         super().__init__()
         self.scale = scale
-        self.Conv_0 = _conv3x3(in_channels, filters)
-        self.Conv_1 = _conv3x3(filters, filters)
+        self.Conv_0 = Conv3x3(in_channels, filters)
+        self.Conv_1 = Conv3x3(filters, filters)
         if scale == 1:
             self.Conv_2 = nn.Conv2d(filters, NUM_DISPARITY_CHANNELS, 1)
         else:
@@ -145,7 +167,7 @@ class DisparityUpconvSoftmax(nn.Module):
         for i in range(n_upconvs):
             self.add_module(f"ConvTranspose_{i}", Deconv2dParity(
                 NUM_DISPARITY_CHANNELS, NUM_DISPARITY_CHANNELS, 2))
-        self.Conv_0 = _conv3x3(NUM_DISPARITY_CHANNELS, NUM_DISPARITY_CHANNELS)
+        self.Conv_0 = Conv3x3(NUM_DISPARITY_CHANNELS, NUM_DISPARITY_CHANNELS)
 
     def forward(self, x):
         for i in range(self.n_upconvs):
@@ -181,11 +203,30 @@ class DisparityEstimationNetwork(nn.Module):
     def forward(self, left_down_nchw,
                 generator: Optional[torch.Generator] = None):
         predictions = []
+        gathered_from = None    # the first prediction of the whole frame
         features = left_down_nchw
-        for idx in range(len(VGG16_BLOCKS)):
-            features = getattr(self, f"VggBlock_{idx}")(features)
-            predictions.append(getattr(self, f"DeconvBranch_{idx}")(features))
-        predictions.append(self.FeedForwardBranch_0(features, generator))
+        with contextlib.ExitStack() as whole:
+            def gather(x):
+                x = rows.gather(x)
+                whole.enter_context(rows.unsplit())
+                return x
+
+            for idx in range(len(VGG16_BLOCKS)):
+                block = getattr(self, f"VggBlock_{idx}")
+                features = block.convolve(features)
+                if rows.current() is not None and features.shape[-2] % 2:
+                    features = gather(features)
+                    gathered_from = idx
+                features = rows.max_pool2d(features)
+                predictions.append(
+                    getattr(self, f"DeconvBranch_{idx}")(features))
+            if rows.current() is not None:
+                features = gather(features)
+                gathered_from = len(predictions)
+            predictions.append(self.FeedForwardBranch_0(features, generator))
+        if gathered_from is not None:
+            predictions[gathered_from:] = [
+                rows.narrow(p) for p in predictions[gathered_from:]]
         summed = sum(predictions)
         return self.DisparityUpconvSoftmax_0(summed)
 

@@ -10,13 +10,14 @@ time: the library is built on the first launch (``build.library``).
 
 from .launch import (LAUNCHES, add_launches, capturing_counts,
                      reset_launch_counts)
+from .graphs import CapturedGraph, GraphPool
 from .blend import upsample_blend, upsample_blend_plain
 from .gwc_volume import gwc_volume, gwc_volume_plain
 from .matching import (matching_core, matching_core_plain, sampled_window,
                        sampled_window_plain)
 
-__all__ = ["LAUNCHES", "add_launches", "capturing_counts",
-           "reset_launch_counts", "gwc_volume",
+__all__ = ["LAUNCHES", "CapturedGraph", "GraphPool", "add_launches",
+           "capturing_counts", "reset_launch_counts", "gwc_volume",
            "gwc_volume_plain", "matching_core",
            "matching_core_plain", "sampled_window", "sampled_window_plain",
            "upsample_blend", "upsample_blend_plain"]

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -39,15 +39,26 @@ def count_launch(name: str) -> None:
 
 
 @contextlib.contextmanager
-def capturing_counts() -> Iterator[Dict[str, int]]:
+def capturing_counts(counts: Optional[Dict[str, int]] = None
+                     ) -> Iterator[Dict[str, int]]:
     """Inside the block this thread's launches go to the dict it yields
-    (the counts of a CUDA graph being captured), not to ``LAUNCHES``."""
-    counts = {name: 0 for name in LAUNCHES}
+    (the counts of a CUDA graph being captured), not to ``LAUNCHES``:
+    ``counts``, or new counts of zero.  A row split's shard threads add
+    to the counts of the graph their caller captures."""
+    if counts is None:
+        counts = {name: 0 for name in LAUNCHES}
+    outer = getattr(_capture, "counts", None)
     _capture.counts = counts
     try:
         yield counts
     finally:
-        _capture.counts = None
+        _capture.counts = outer
+
+
+def thread_counts() -> Optional[Dict[str, int]]:
+    """The counts this thread's launches go to while it captures a graph
+    (``capturing_counts``), else None."""
+    return getattr(_capture, "counts", None)
 
 
 def add_launches(counts: Dict[str, int]) -> None:

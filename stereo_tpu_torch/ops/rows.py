@@ -19,6 +19,17 @@ rows they need across the shard's edges from the neighbouring shards:
   low-resolution row on each side, the edge row repeated at the frame's top
   and bottom, where the resize clamps its source index.
 
+Deep3D's split (``models/deep3d.py``, under ``parallel.synthesis``) adds
+its own funnels: the 3x3 convolutions (:func:`conv2d`) take their row pair
+as ``conv_same`` does; the 2x2 max pool (:func:`max_pool2d`) needs an even
+number of rows in each shard; where a shard's rows would stop pooling
+whole, :func:`gather` joins every shard's rows on every shard, the levels
+below run on the whole frame (:func:`unsplit`), and :func:`narrow` takes
+the shard's rows of their outputs back; the blend's upsample takes one
+volume row from each neighbour and none beyond the frame's edges
+(:func:`neighbour_rows`), so that each output row reads what it reads in
+the whole frame.
+
 Everything else the networks do is row-local and runs on each shard
 unchanged.  Outside a split these functions do what they always did.
 
@@ -139,12 +150,96 @@ def halo(x: torch.Tensor, above: int, below: int,
          edge: str = "zeros") -> torch.Tensor:
     """``x`` with ``above`` rows of the shard above and ``below`` rows of the
     shard below joined along its row axis (-2), inside a row split.  At
-    the frame's top and bottom the rows are zeros (``edge="zeros"``) or
-    the edge row repeated (``"replicate"``).  Every shard of the split
-    calls it at the same point."""
+    the frame's top and bottom the rows are zeros (``edge="zeros"``), the
+    edge row repeated (``"replicate"``) or none (``"none"``: the first
+    and last shards gain rows on one side only).  Every shard of the
+    split calls it at the same point."""
+    key = (tuple(x.shape[:-2]), x.shape[-1], x.dtype, above, below, edge)
+    shard, slot, key = _publish(x, key)
+    i = shard.index
+    parts = [_neighbour(shard, slot, i - 1, above, key, x, edge, True), x,
+             _neighbour(shard, slot, i + 1, below, key, x, edge, False)]
+    return torch.cat(parts, dim=-2)
+
+
+def neighbour_rows(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``(x with rows of its neighbours, rows joined above)``: inside a row
+    split one row of each neighbouring shard, none beyond the frame's top
+    or bottom; outside, ``(x, 0)``."""
+    shard = current()
+    if shard is None:
+        return x, 0
+    return halo(x, 1, 1, edge="none"), int(shard.index > 0)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``F.conv2d`` at stride 1 with SAME padding of an odd square kernel
+    (``nn.Conv2d(k, padding=k // 2)``).  Inside a row split the padding
+    rows above and below come from the neighbouring shards (zeros at the
+    frame's edges), as :func:`take_halo` gives them; the columns are
+    padded as outside."""
+    p = weight.shape[-1] // 2
+    if current() is None:
+        return F.conv2d(x, weight, bias, padding=p)
+    return F.conv2d(halo(x, p, p), weight, bias, padding=(0, p))
+
+
+def max_pool2d(x: torch.Tensor) -> torch.Tensor:
+    """``F.max_pool2d(x, 2)``: row-local when every shard holds an even
+    number of rows, which a row split requires."""
+    if current() is not None and x.shape[-2] % 2:
+        raise ValueError(f"a shard of {x.shape[-2]} rows does not pool by "
+                         f"2 whole: gather its rows first")
+    return F.max_pool2d(x, 2)
+
+
+def gather(x: torch.Tensor) -> torch.Tensor:
+    """Inside a row split, the whole frame's rows of ``x``: every shard's
+    ``x`` joined in shard order, on every shard (on ``x``'s device).
+    Outside, ``x``.  Every shard of the split calls it at the same point;
+    the shard then runs on the frame's rows under :func:`unsplit`."""
+    if current() is None:
+        return x
+    shard, slot, key = _publish(x, (tuple(x.shape), x.dtype, "gather"))
+    parts = [x if j == shard.index else _fetch(shard, slot, j, key, x, None)
+             for j in range(shard.count)]
+    return torch.cat(parts, dim=-2)
+
+
+def narrow(x: torch.Tensor) -> torch.Tensor:
+    """Inside a row split, the calling shard's rows of ``x``, a tensor of
+    the whole frame's rows (the output of layers run on :func:`gather`'s
+    rows): shard ``i`` of ``n`` takes the ``i``-th n-th.  Outside, ``x``."""
+    shard = current()
+    if shard is None:
+        return x
+    if x.shape[-2] % shard.count:
+        raise ValueError(f"{x.shape[-2]} frame rows do not split over "
+                         f"{shard.count} shards")
+    per = x.shape[-2] // shard.count
+    return x.narrow(-2, shard.index * per, per)
+
+
+@contextlib.contextmanager
+def unsplit():
+    """Inside the block the calling thread runs as outside its row split
+    (the funnels see whole frames); its shard is back afterwards."""
+    shard = current()
+    set_current(None)
+    try:
+        yield
+    finally:
+        set_current(shard)
+
+
+def _publish(x: torch.Tensor, key: tuple):
+    """Publish ``x`` at the calling shard's next exchange and wait until
+    every shard has: returns ``(shard, slot, key)``, the slot holding each
+    shard's ``(tensor, stream, key)`` and the exchange's key."""
     shard = current()
     ex, i, r = shard.exchange, shard.index, shard.rounds
-    key = (tuple(x.shape[:-2]), x.shape[-1], x.dtype, above, below, edge, r)
+    key = key + (r,)
     slot = ex._slots[r % 2]
     shard.rounds += 1
     if i == 0:
@@ -152,15 +247,15 @@ def halo(x: torch.Tensor, above: int, below: int,
     slot[i] = (x, shard.stream, key)
     shard.turns.pass_on(shard.thread)
     shard.turns.wait(shard.thread)
-    parts = [_neighbour(shard, slot, i - 1, above, key, x, edge, True), x,
-             _neighbour(shard, slot, i + 1, below, key, x, edge, False)]
-    return torch.cat(parts, dim=-2)
+    return shard, slot, key
 
 
 def _edge(x: torch.Tensor, rows: int, top: bool, edge: str) -> torch.Tensor:
     """``rows`` rows beyond the frame's top or bottom edge of ``x``."""
     shape = list(x.shape)
     shape[-2] = rows
+    if edge == "none":
+        return x[..., :0, :]
     if edge == "zeros" or rows == 0:
         return x.new_zeros(shape)
     if edge != "replicate":
@@ -177,19 +272,29 @@ def _neighbour(shard: Shard, slot: list, j: int, rows: int, key, x, edge,
         return _edge(x, rows, above, edge)
     if rows == 0:
         return x[..., :0, :]
+    return _fetch(shard, slot, j, key, x, (rows, above))
+
+
+def _fetch(shard: Shard, slot: list, j: int, key, x,
+           part: Optional[Tuple[int, bool]]) -> torch.Tensor:
+    """Shard ``j``'s published tensor, or its last (``part = (rows,
+    True)``) or first (``(rows, False)``) rows, on ``x``'s device."""
     other, stream, other_key = slot[j]
     if other_key != key:
         raise RuntimeError(f"row split out of step: shard {shard.index} "
                            f"exchanges {key}, shard {j} {other_key}")
-    if other.shape[-2] < rows:
-        raise ValueError(f"a halo of {rows} rows is deeper than shard {j}'s "
-                         f"{other.shape[-2]} rows")
-    part = other.narrow(-2, other.shape[-2] - rows if above else 0, rows)
-    shard.exchange.bytes += part.numel() * part.element_size()
-    if part.device == x.device:
-        return part
+    if part is not None:
+        rows, above = part
+        if other.shape[-2] < rows:
+            raise ValueError(f"a halo of {rows} rows is deeper than shard "
+                             f"{j}'s {other.shape[-2]} rows")
+        other = other.narrow(-2, other.shape[-2] - rows if above else 0,
+                             rows)
+    shard.exchange.bytes += other.numel() * other.element_size()
+    if other.device == x.device:
+        return other
     # A peer copy runs on the source device's current stream: make that the
     # stream the neighbour computed on, so it follows the neighbour's work.
     with (torch.cuda.stream(stream) if stream is not None
           else contextlib.nullcontext()):
-        return part.to(x.device)
+        return other.to(x.device)

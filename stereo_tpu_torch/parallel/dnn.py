@@ -15,6 +15,12 @@ itself.  The port places the work the same way by hand:
 * the shards' rows and the groups' frames are joined on the mesh's first
   device.
 
+When every device of the mesh is one card (a virtual mesh), a split is
+replayed from a CUDA graph (``parallel.rows.ShardThreads.replay``, one per
+layout and batch shape): each shard's launches come from one thread at a
+time, and eagerly they would bound the split.  A mesh of distinct cards
+keeps the eager shard threads (:attr:`ShardedDnnEngine.graph_splits`).
+
 The rows are split when ``tile > 1`` and the height is a multiple of
 ``ROW_STRIDE * tile``: the networks' strides multiply to 16, so every shard
 then holds at least one row at 1/16 and four at 1/4, enough for each halo.
@@ -64,7 +70,10 @@ class ShardedDnnEngine:
     :attr:`row_split` says whether frames are split by rows over ``tile``
     (else dealt whole), and :attr:`halo` what the last row-split call
     exchanged: ``rounds`` (halo exchanges per forward) and ``bytes`` (read
-    from neighbouring shards, over all groups)."""
+    from neighbouring shards, over all groups), recorded at capture for a
+    replay.  :attr:`graph_splits` says whether a split is replayed from a
+    CUDA graph (every device of the mesh one card); set it False to run
+    the split eagerly.  ``graphs_captured`` counts the graphs."""
 
     def __init__(self, model_name: str, image_shape: Tuple[int, int],
                  mesh_config: MeshConfig, *, mesh: Optional[Mesh] = None,
@@ -86,6 +95,7 @@ class ShardedDnnEngine:
         self.halo = None
         self._shard_threads = rows.ShardThreads()
         first, *others = self.mesh.distinct_devices()
+        self.graph_splits = first.type == "cuda" and not others
         backend = DnnStereoMatchingBackend(
             model_name, image_shape, max_disparity=max_disparity,
             state_dict=state_dict, checkpoint_dir=checkpoint_dir,
@@ -123,9 +133,25 @@ class ShardedDnnEngine:
                                 torch.as_tensor(right_image)[None],
                                 [list(self.mesh.devices[0, :, 0])])[0]
 
+    @property
+    def graphs_captured(self) -> int:
+        return self._shard_threads.graphs_captured
+
     def _split_rows(self, left, right, groups) -> torch.Tensor:
         """The frames dealt in equal runs to ``groups`` (each a list of
-        ``tile`` devices), each run split by rows over its group."""
+        ``tile`` devices), each run split by rows over its group; replayed
+        from a CUDA graph when :attr:`graph_splits`."""
+        if not self.graph_splits:
+            (out,), self.halo = self._split_program(groups, left, right)
+            return out
+        first = self.mesh.first_device
+        left, right = (x.to(first, torch.float32) for x in (left, right))
+        key = (tuple(map(tuple, groups)), tuple(left.shape))
+        (out,), self.halo = self._shard_threads.replay(
+            key, functools.partial(self._split_program, groups), left, right)
+        return out
+
+    def _split_program(self, groups, left, right):
         per_group = left.shape[0] // len(groups)
         rows_per = left.shape[-2] // self._tile
         splits = [[(dev, functools.partial(
@@ -135,11 +161,11 @@ class ShardedDnnEngine:
                    for t, dev in enumerate(devices)]
                   for g, devices in enumerate(groups)]
         results, exchanges = self._shard_threads.run(splits)
-        self.halo = dict(rounds=exchanges[0].rounds,
-                         bytes=sum(e.bytes for e in exchanges))
         first = self.mesh.first_device
-        return torch.cat([torch.cat([r.to(first) for r in shards], dim=-2)
-                          for shards in results])
+        out = torch.cat([torch.cat([r.to(first) for r in shards], dim=-2)
+                         for shards in results])
+        return (out,), dict(rounds=exchanges[0].rounds,
+                            bytes=sum(e.bytes for e in exchanges))
 
     def warmup(self) -> None:
         x = torch.zeros((self.batch_group, 3, *self.image_shape))

@@ -13,6 +13,14 @@ another that is launching.  The threads live as long as their
 and a new thread plans every convolution anew.  A shard that raises marks
 the run failed: the others raise at their next turn, and
 :meth:`ShardThreads.run` raises the first shard's error.
+
+When every shard of a split lies on one card, the launches of all shards
+still come from one thread at a time, and they bound the split (each
+shard launches the whole network).  :meth:`ShardThreads.replay` then
+captures a program of splits, every shard's launches and every halo
+exchange, as one CUDA graph, and replays it: the shard threads enqueue
+on the caller's stream, which is the capture stream during the capture,
+so the graph's order is the turn order.
 """
 
 from __future__ import annotations
@@ -22,11 +30,13 @@ import functools
 import queue
 import threading
 import weakref
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 
 from ..ops import rows
+from ..ops.cuda.graphs import CapturedGraph, GraphPool
+from ..ops.cuda.launch import capturing_counts, thread_counts
 from ..ops.rows import RowExchange, Shard
 
 # Seconds a shard waits for its turn before the run is given up (a build
@@ -80,11 +90,47 @@ class ShardThreads:
     hands it the same shards each time meets each device and shape in the
     same thread (the per-thread caches of the CUDA libraries stay warm).
     Threads start on first use and stop when this is closed or collected,
-    or at exit."""
+    or at exit.  Calls hold a lock, so threads may share one of these.
+    ``graphs_captured`` counts the graphs of :meth:`replay` (one memory
+    pool for all of them)."""
 
     def __init__(self):
         self._queues = []
         self._finalizer = weakref.finalize(self, _stop, self._queues)
+        self._lock = threading.RLock()
+        self._graphs: Dict[Any, CapturedGraph] = {}
+        self._pool = GraphPool()
+
+    @property
+    def graphs_captured(self) -> int:
+        return len(self._graphs)
+
+    def replay(self, key, program: Callable[..., Tuple[Tuple[torch.Tensor,
+                                                             ...], Any]],
+               *inputs: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], Any]:
+        """``program(*inputs)``, which returns ``(outputs, meta)`` (a tuple
+        of tensors and a host value) and runs its row splits through
+        :meth:`run`, from a CUDA graph per ``key`` (the split's layout,
+        batch, shapes and dtypes: whatever changes the launches).  All
+        inputs and every shard lie on one card.
+
+        The first call for a key runs the program eagerly, on the caller's
+        stream, which warms each shard thread's libraries and builds the
+        kernels, and returns that run's result; then it captures the
+        program on static copies of the inputs (``ops.cuda.GraphPool``).
+        Later calls copy the inputs into the static ones, replay the graph
+        on the caller's stream (adding its launches to
+        ``ops.cuda.LAUNCHES``) and return clones of its outputs with the
+        meta of the capture.  A capture that fails raises."""
+        with self._lock:
+            graph = self._graphs.get(key)
+            if graph is None:
+                result = program(*inputs)
+                self._graphs[key] = self._pool.capture(
+                    inputs[0].device, program, *(x.clone() for x in inputs))
+                return result
+            outputs, meta = graph.replay(*inputs)
+            return tuple(t.clone() for t in outputs), meta
 
     def run(self, splits: Sequence[Sequence[Tuple[torch.device,
                                                   Callable[[], Any]]]]
@@ -94,9 +140,13 @@ class ShardThreads:
         shards of one split exchange halos with each other, in split order
         (shard 0 holds the frame's top rows).  Each thread takes the
         caller's grad mode and, on CUDA, the device and the caller's
-        current stream of that device.  Returns the results, shaped as
-        ``splits``, and each split's exchange; raises the first error of
-        any shard."""
+        current stream of that device, and the counts of the graph the
+        caller captures.  Returns the results, shaped as ``splits``, and
+        each split's exchange; raises the first error of any shard."""
+        with self._lock:
+            return self._run(splits)
+
+    def _run(self, splits):
         if not self._finalizer.alive:
             raise RuntimeError("ShardThreads.run after close()")
         grad = torch.is_grad_enabled()
@@ -108,12 +158,15 @@ class ShardThreads:
         turns = _Turns(len(jobs))
         errors = []
         done = queue.SimpleQueue()
+        counts = thread_counts()
 
         def shard_main(k, s, i, device, work, stream):
             rows.set_current(Shard(i, exchanges[s], turns, k, stream))
             try:
                 turns.wait(k)
-                with _on(device, stream), torch.set_grad_enabled(grad):
+                with _on(device, stream), torch.set_grad_enabled(grad), (
+                        capturing_counts(counts) if counts is not None
+                        else contextlib.nullcontext()):
                     results[s][i] = work()
             except BaseException as e:       # re-raised by the caller below
                 errors.append(e)

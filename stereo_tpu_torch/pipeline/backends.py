@@ -98,9 +98,11 @@ class ShardedDnnBackend(StereoMatchingBackend):
 
 
 def normalize_imagenet(images: torch.Tensor) -> torch.Tensor:
-    """0..255 (..., 3, H, W) -> ImageNet-normalised float32."""
-    mean = images.new_tensor(IMAGENET_MEAN)[:, None, None]
-    std = images.new_tensor(IMAGENET_STD)[:, None, None]
+    """0..255 (..., 3, H, W) -> ImageNet-normalised float32.  The
+    statistics are filled on the images' device, not copied from the
+    host, so that a CUDA graph can capture it."""
+    mean, std = (torch.stack([images.new_full((), v) for v in values])
+                 [:, None, None] for values in (IMAGENET_MEAN, IMAGENET_STD))
     return (images / 255.0 - mean) / std
 
 

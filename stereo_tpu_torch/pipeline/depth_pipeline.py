@@ -124,8 +124,10 @@ class DepthEstimationPipeline:
         """(N, 3, H, W) -> (N, H, W) disparities.
 
         Under a multi-device mesh with the classical backend the
-        single-view path (``right_batch=None``) runs Deep3D and the matcher
-        frame-parallel on the mesh (``parallel.synthesis``)."""
+        single-view path (``right_batch=None``) runs on the mesh
+        (``parallel.synthesis``): Deep3D split by rows over ``tile`` when
+        the engine's ``row_split`` says so, else frame-parallel, then the
+        matcher per frame."""
         left = self._as_tensor(left_batch)
         if (right_batch is None and self.mesh is not None
                 and self._config.stereo_matching_backend == "classical"):

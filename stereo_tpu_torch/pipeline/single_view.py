@@ -26,7 +26,7 @@ import torch
 
 from ..core.config import MatchingConfig
 from ..matching.classical import compute_disparity_map
-from ..ops.cuda import add_launches, capturing_counts
+from ..ops.cuda import CapturedGraph, GraphPool
 from ..synthesis.right_view_synthesis import (fused_blend_tail,
                                               synthesize_net_batch)
 from ..utils.profiling import StageTimer
@@ -63,20 +63,6 @@ class SingleViewEngine:
         return disparity, right
 
 
-class _BatchGraphs:
-    """The two captured graphs of one batch size with their static input,
-    the network half's outputs (the tail's inputs) and the outputs, all
-    kept referenced so that no later capture in the shared pool takes
-    their memory, and the kernel launches captured into each graph."""
-
-    def __init__(self, left, net, net_counts, net_out, tail, tail_counts,
-                 disparity, right):
-        self.left = left
-        self.net, self.net_counts, self.net_out = net, net_counts, net_out
-        self.tail, self.tail_counts = tail, tail_counts
-        self.disparity, self.right = disparity, right
-
-
 class FusedSingleViewEngine:
     """The classical single view in two halves (the JAX package's two
     executables): (a) the network, resize, ``/255`` and
@@ -103,8 +89,10 @@ class FusedSingleViewEngine:
         self.synthesis = synthesis
         self.device = synthesis.device
         self.timer = timer
-        self._graphs: Dict[int, _BatchGraphs] = {}
-        self._pool = None
+        # Per batch size, the network half's graph (static input: the
+        # left batch) and the tail's, on the network's static outputs.
+        self._graphs: Dict[int, Tuple[CapturedGraph, CapturedGraph]] = {}
+        self._pool = GraphPool()
         self._lock = threading.Lock()
 
     @property
@@ -153,20 +141,16 @@ class FusedSingleViewEngine:
             graphs = self._graphs.get(left.shape[0])
             if graphs is None:
                 graphs = self._capture(left.shape[0])
+            net, tail = graphs
             with self._stage("right_view_generation"):
-                graphs.left.copy_(left)
-                graphs.net.replay()
-            add_launches(graphs.net_counts)
+                net.replay(left)
             with self._stage("stereo_matching"):
-                graphs.tail.replay()
                 # Clones, so that the next replay does not overwrite what
                 # this call returns.
-                disparity = graphs.disparity.clone()
-                right = graphs.right.clone()
-            add_launches(graphs.tail_counts)
+                disparity, right = (t.clone() for t in tail.replay())
         return disparity, right
 
-    def _capture(self, n: int) -> _BatchGraphs:
+    def _capture(self, n: int) -> Tuple[CapturedGraph, CapturedGraph]:
         """Capture the two halves at batch size ``n`` (under the lock)."""
         cfg, dev = self.config, self.device
         left = torch.zeros((n, 3, cfg.height, cfg.width), device=dev)
@@ -178,28 +162,11 @@ class FusedSingleViewEngine:
         with torch.cuda.stream(side):
             self._tail_and_match(*self._net(left), left)
         torch.cuda.current_stream(dev).wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        # torch.cuda.graph leaves the thread on its capture stream when the
-        # capture fails to end; put the caller's stream back, or its later
-        # work would run unordered with the default stream's.
-        stream = torch.cuda.current_stream(dev)
-        try:
-            net = torch.cuda.CUDAGraph()
-            with capturing_counts() as net_counts, torch.cuda.graph(
-                    net, pool=self._pool, capture_error_mode="thread_local"):
-                prob_low, full01 = self._net(left)
-            tail = torch.cuda.CUDAGraph()
-            with capturing_counts() as tail_counts, torch.cuda.graph(
-                    tail, pool=self._pool, capture_error_mode="thread_local"):
-                disparity, right = self._tail_and_match(prob_low, full01,
-                                                        left)
-        finally:
-            torch.cuda.set_stream(stream)
-        graphs = _BatchGraphs(left, net, net_counts, (prob_low, full01),
-                              tail, tail_counts, disparity, right)
-        self._graphs[n] = graphs
-        return graphs
+        net = self._pool.capture(dev, self._net, left)
+        tail = self._pool.capture(dev, self._tail_and_match, *net.outputs,
+                                  left)
+        self._graphs[n] = net, tail
+        return net, tail
 
     def warmup(self) -> None:
         """One batch of zeros at N = 1: on CUDA this captures its graphs."""

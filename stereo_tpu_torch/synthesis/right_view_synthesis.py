@@ -13,7 +13,10 @@ resizes and the network up to its softmax volume) and ``fused_blend_tail``
 (the blend kernel, the rescale and the output resize).  The fused
 single-view engine (``pipeline/single_view.py``) captures the two halves
 as two CUDA graphs; ``RightViewSynthesis.split_inference`` says whether it
-may.  ``python -m stereo_tpu_torch.synthesis.right_view_synthesis IMAGE``
+may.  ``synthesize_rows`` is their counterpart for a shard of a row split
+(``parallel.synthesis``): the network and the blend on the shard's rows of
+the resized views.
+``python -m stereo_tpu_torch.synthesis.right_view_synthesis IMAGE``
 synthesizes one right view and writes both views as PNGs.
 """
 
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 from ..core.device import resolve_device, set_float32_precision
 from ..models import Deep3D, init_deep3d_params, load_deep3d_npz
 from ..models.deep3d import _fused_blend_eligible
+from ..ops import rows
 from ..ops.cuda import upsample_blend
 from ..ops.imageops import rescale_generated_view
 from ..utils.paths import DEEP3D_CHECKPOINT_DIR
@@ -79,6 +83,42 @@ def fused_blend_tail(prob_low: torch.Tensor, full01: torch.Tensor, scale: int,
         if tuple(output_shape) != tuple(full_shape):
             right = resize_nchw(right, output_shape)
         return right
+
+
+def synthesize_rows(model: Deep3D, full01: torch.Tensor, down01: torch.Tensor,
+                    compute_dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
+    """A shard's part of ``fused_blend_tail(*synthesize_net_batch(...))``
+    before the output resize, inside a row split: the shard's rows of the
+    normalised full and down views (float32, 0..1; the views resized on
+    the whole frame) -> its rows of the right views at the full shape,
+    0..255.  The network exchanges its halo rows with the neighbouring
+    shards (``models/deep3d.py``); so does the blend (:func:`split_blend`).
+    Outside a split it is the whole frame's synthesis."""
+    with torch.no_grad():
+        prob_low = model.prob_volume_low(down01.to(compute_dtype))
+        right = split_blend(prob_low, full01.to(compute_dtype),
+                            model.prob_volume_scale)
+        return rescale_generated_view(right)
+
+
+def split_blend(prob_low: torch.Tensor, view: torch.Tensor,
+                scale: int) -> torch.Tensor:
+    """``upsample_blend`` of a shard's rows, one launch for its batch: the
+    x ``scale`` upsample of the volume needs one volume row beyond each of
+    the shard's edges, so the kernel runs on the rows extended by one row
+    of each neighbouring shard (none beyond the frame's top and bottom,
+    where the upsample clamps, as in the whole frame) and the view by
+    ``scale`` zero rows for each (the blend reads only the output's own
+    view row), and the output is cropped to the shard's rows.  Each output
+    row then reads the volume rows, at the same weights, that it reads in
+    the whole frame.  Outside a split, the blend of the whole frames."""
+    prob, above = rows.neighbour_rows(prob_low.float())
+    below = prob.shape[-2] - prob_low.shape[-2] - above
+    view = F.pad(view.float(), (0, 0, scale * above, scale * below))
+    out = upsample_blend(prob.contiguous(), view.contiguous(), scale)
+    return out.narrow(-2, scale * above, out.shape[-2]
+                      - scale * (above + below))
 
 
 class RightViewSynthesis:

@@ -7,7 +7,11 @@ does the port, with a halo exchange per layer, when 16 * tile divides the
 height (``stereo_tpu_torch/parallel/dnn.py``, ``ops/rows.py``; the
 split's own tests are in ``tests/test_torch_row_split.py``), and it deals
 whole frames over the ``tile`` devices otherwise.  At 64x96 on (2,2,2) the
-split equals the single device bit for bit on the CPU.  The gates against
+split equals the single device bit for bit on the CPU.  The single view
+splits Deep3D's rows the same way (``parallel/synthesis.py``; its tests in
+``tests/test_torch_row_split_deep3d.py``): on (2,2,2) it is held to the
+single device at float rounding and JAX's gate, and the frames dealt on
+(1,8,1) bit for bit.  The gates against
 JAX are the JAX tests' own (``tests/test_parallel_dnn.py``,
 ``tests/test_parallel_synthesis.py``).
 """
@@ -154,18 +158,37 @@ def test_single_view_matches_jax_and_single_device(small_deep3d):
     mc, mesh = cpu_mesh(*MESH)
     engine = ShardedSingleViewEngine(MatchingConfig(**_matching()), mc,
                                      mesh=mesh, synthesis=synthesis)
+    # (2,2,2) splits Deep3D's rows over the tile pair (16 of the 32 down
+    # rows a shard: parallel/synthesis.py).
+    assert engine.row_split
     out, right = engine.process_batch(left, return_right=True)
     assert out.shape == (4, 64, 96) and right.shape == (4, 3, 64, 96)
     assert torch.equal(engine.process_batch(left), out)
 
-    # The single-device path frame by frame (Deep3D at batch 1, as on the
-    # mesh) is equal bit for bit.
+    # The single-device path frame by frame (Deep3D at batch 1, as each
+    # group's one frame on the mesh): the split views within float rounding
+    # of their convolutions, the disparities at JAX's gate.
     matcher = ClassicalStereoEngine(MatchingConfig(**_matching()),
                                     device="cpu")
+    singles = [synthesis.process(torch.from_numpy(left[i])) for i in range(4)]
+    torch.testing.assert_close(right, torch.stack(singles), rtol=0,
+                               atol=1e-3)
+    diff = np.abs(out.numpy() - torch.stack(
+        [matcher.compute_disparity_map(left[i], singles[i])
+         for i in range(4)]).numpy())
+    assert np.mean(diff <= 0.5) >= 0.99 and diff.mean() < 0.1
+
+    # Whole frames dealt over the tile devices are equal bit for bit: at
+    # (1,8,1) a shard would hold 4 down rows, which the row split refuses.
+    mc8, mesh8 = cpu_mesh(1, 8, 1)
+    dealt = ShardedSingleViewEngine(MatchingConfig(**_matching()), mc8,
+                                    mesh=mesh8, synthesis=synthesis)
+    assert not dealt.row_split
+    dealt_out, dealt_right = dealt.process_batch(left, return_right=True)
     for i in range(4):
-        r = synthesis.process(torch.from_numpy(left[i]))
-        assert torch.equal(right[i], r)
-        assert torch.equal(out[i], matcher.compute_disparity_map(left[i], r))
+        assert torch.equal(dealt_right[i], singles[i])
+        assert torch.equal(dealt_out[i],
+                           matcher.compute_disparity_map(left[i], singles[i]))
 
     # At batch 4 the CPU convolutions round in other places (the views
     # differ in their last bits), so the single-device batch and the JAX
