@@ -79,6 +79,17 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              D1 must be within 1e-3 of the JAX package's record, GwcNet in
              bf16 held to float32 on the same frames, and both with
              Deep3D's view; each arm against the plain versions;
+   orbax:    Orbax checkpoints: the committed fixture (JAX's
+             ``save_params``: OCDBT, zstd, two chunks of a sharded array)
+             read by the port, every leaf against its npz twin bit for
+             bit, and the zstd decoder's MB/s on its 1 MiB array;
+             GwcNet's committed weights and Deep3D's (committed or
+             seeded, as ``make_synthesis`` has them) written by the
+             port's ``save_params`` and loaded back by ``checkpoint_dir``:
+             the GwcNet and the classical (fused) single view at 384x1280
+             equal to the npz-loaded runs bit for bit, all four kernels
+             launched; each tree's host load ms against its npz; whether
+             the machine has ``zstd.h`` or ``libzstd.so.1``;
    train_deep3d: ``Trainer`` (Deep3D at 384x1280 / 96x320, batch 2) on the
              fixture drive: a step without dropout against the same step
              on the CPU, a few steps, ms/step and peak memory, and the
@@ -202,6 +213,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KITTI_GOLDEN = os.path.join(ROOT, "tests", "golden",
                             "kitti_synthetic_disparity_tpu.npz")
 DEEP3D_NPZ = os.path.join(ROOT, "data", "checkpoints", "deep3d.npz")
+# JAX's save_params of a seeded tree, and its npz twin beside it
+# (tests/fixtures/make_orbax_fixture.py).
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "orbax_small")
 # The committed KITTI fixture drive: two 375x1242 frames per camera, each
 # PNG Paeth-filtered as image libraries write them, and Velodyne scans.
 FIXTURE_DRIVE = os.path.join(ROOT, "tests", "fixtures", "kitti", "2011_09_26",
@@ -993,6 +1007,174 @@ def phase_fresh_deep3d(torch, dev) -> dict:
                 weights="committed" if committed else "fresh",
                 warning=said[0] if said else None,
                 device=str(rvs.device), split_inference=rvs.split_inference)
+
+
+def fixture_leaves(tree) -> dict:
+    """An Orbax tree's leaves keyed by their dotted paths (list indices as
+    their numbers), as the fixture's npz twin keys them."""
+    if isinstance(tree, list):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    if not isinstance(tree, dict):
+        return {"": tree}
+    return {".".join(p for p in (k, sub) if p): leaf
+            for k, v in tree.items()
+            for sub, leaf in fixture_leaves(v).items()}
+
+
+def check_orbax_fixture(torch) -> dict:
+    """The committed fixture (JAX's ``save_params``: OCDBT, zstd, a sharded
+    array in two chunks, 1 MiB across eight 128 KiB zstd blocks) read by
+    the port, every leaf against its npz twin bit for bit; and the port's
+    zstd decoder's rate on the large array's chunk."""
+    from stereo_tpu_torch import _native
+    from stereo_tpu_torch.utils.ocdbt import OcdbtStore
+    from stereo_tpu_torch.utils.orbax import read_tree
+
+    t0 = time.perf_counter()
+    got = fixture_leaves(read_tree(ORBAX_FIXTURE))
+    read_ms = (time.perf_counter() - t0) * 1e3
+    with np.load(ORBAX_FIXTURE + ".npz") as data:
+        bf16 = set(data["__bfloat16__"].tolist())
+        twin = {k: data[k] for k in data.files if k != "__bfloat16__"}
+    require(set(got) == set(twin),
+            f"fixture leaves {sorted(got)} != twin {sorted(twin)}")
+    for key, want in twin.items():
+        leaf = got[key]
+        if key in bf16:
+            require(leaf.dtype == torch.bfloat16, f"{key}: {leaf.dtype}")
+            leaf = leaf.view(torch.int16).numpy().view(np.uint16)
+        leaf = np.asarray(leaf)
+        require(leaf.dtype == want.dtype and leaf.shape == want.shape
+                and np.array_equal(leaf, want),
+                f"fixture leaf {key} differs from its twin")
+    chunk = OcdbtStore(ORBAX_FIXTURE)["smooth/0"]
+    decoded = _native.zstd_decompress(chunk)
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _native.zstd_decompress(chunk)
+    seconds = (time.perf_counter() - t0) / reps
+    return dict(leaves=len(got), read_ms=read_ms,
+                zstd_frame_bytes=len(chunk), zstd_decoded_bytes=len(decoded),
+                zstd_decode_mb_per_s=len(decoded) / seconds / 1e6)
+
+
+def zstd_on_host() -> dict:
+    """Whether the machine has zstd's header or library (for the record:
+    the port decodes with its own code)."""
+    import ctypes.util
+
+    headers = [d for d in ("/usr/include", "/usr/local/include")
+               if os.path.isfile(os.path.join(d, "zstd.h"))]
+    libraries = [d for d in ("/usr/lib/x86_64-linux-gnu", "/lib/x86_64-linux-gnu",
+                             "/usr/lib64", "/usr/lib", "/usr/local/lib")
+                 if os.path.isfile(os.path.join(d, "libzstd.so.1"))]
+    return dict(zstd_h=headers, libzstd_so_1=libraries,
+                find_library=ctypes.util.find_library("zstd"))
+
+
+def load_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_orbax(torch, dev, synthesis, deep3d_weights: str, tmp: str):
+    """Orbax checkpoints on the card: the committed fixture against its
+    twin; GwcNet's committed weights and Deep3D's (the committed ones when
+    the checkout has them, else the seeded synthesis's) written by the
+    port's ``save_params`` and loaded back by ``checkpoint_dir`` at full
+    width: the GwcNet single view and the classical single view (the fused
+    route) each equal, bit for bit, to the same frame through the
+    npz-loaded networks, with every kernel of the path launched; the host
+    ms of each load against its npz."""
+    from stereo_tpu_torch.core.config import PipelineConfig
+    from stereo_tpu_torch.models import (build_stereo_model,
+                                         flax_arrays_from_state_dict,
+                                         load_deep3d_checkpoint,
+                                         load_or_init_params, nest_variables,
+                                         save_params)
+    from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from stereo_tpu_torch.pipeline import (DepthEstimationPipeline,
+                                           DnnStereoMatchingBackend)
+    from stereo_tpu_torch.pipeline.single_view import SingleViewEngine
+    from stereo_tpu_torch.synthesis import RightViewSynthesis
+
+    numbers = dict(fixture=check_orbax_fixture(torch), **zstd_on_host())
+    frame = seeded_frames(torch, dev, (384, 1280), 41, 1)[0]
+    counts = {}
+
+    # GwcNet: the committed npz -> an Orbax directory -> the single view.
+    gwc_dir = os.path.join(tmp, "gwcnet")
+    model = build_stereo_model("gwcnet", 64)
+    gwc_weights = load_or_init_params(model, "gwcnet")
+    save_params(model, gwc_dir)
+    probe = build_stereo_model("gwcnet", 64)
+    npz_ms = (load_ms(lambda: load_or_init_params(probe, "gwcnet"))
+              if gwc_weights != "seeded" else None)
+    orbax_ms = load_ms(lambda: load_or_init_params(
+        probe, "gwcnet", checkpoint_dir=gwc_dir))
+    by_npz = DnnStereoMatchingBackend("gwcnet", (384, 1280),
+                                      max_disparity=64, device=dev)
+    by_orbax = DnnStereoMatchingBackend("gwcnet", (384, 1280),
+                                        max_disparity=64,
+                                        checkpoint_dir=gwc_dir, device=dev)
+    require(by_orbax.weights == gwc_dir, f"GwcNet loaded {by_orbax.weights}")
+    want, _ = SingleViewEngine(by_npz, synthesis).process(frame)
+    reset_launch_counts()
+    got, _ = SingleViewEngine(by_orbax, synthesis).process(frame)
+    torch.cuda.synchronize()
+    counts["gwcnet"] = dict(LAUNCHES)
+    require(all(counts["gwcnet"][k] >= 1 for k in GWCNET_KERNELS),
+            f"Orbax GwcNet single view missed a kernel: {counts['gwcnet']}")
+    require(torch.equal(got, want),
+            "GwcNet from Orbax differs from the npz-loaded run")
+    numbers["gwcnet"] = dict(
+        weights=gwc_weights, load_ms_orbax=orbax_ms, load_ms_npz=npz_ms,
+        orbax_bytes=dir_bytes(gwc_dir), launches=counts["gwcnet"],
+        equal_bit_for_bit=True)
+    del by_npz, by_orbax
+
+    # Deep3D: its weights -> an Orbax directory -> RightViewSynthesis and
+    # the classical single view.
+    d3_dir = os.path.join(tmp, "deep3d")
+    if deep3d_weights == "committed":
+        state, _ = load_deep3d_checkpoint(DEEP3D_NPZ)
+    else:      # seeded: the global branch's bf16 kernels are held exactly
+        state = {k: v.float() for k, v in synthesis.model.state_dict().items()}
+    save_params(nest_variables(flax_arrays_from_state_dict(synthesis.model,
+                                                           state)), d3_dir)
+    d3_orbax_ms = load_ms(lambda: load_deep3d_checkpoint(d3_dir))
+    d3_npz_ms = (load_ms(lambda: load_deep3d_checkpoint(DEEP3D_NPZ))
+                 if deep3d_weights == "committed" else None)
+    from_orbax = RightViewSynthesis(output_shape=(384, 1280),
+                                    checkpoint_dir=d3_dir, device=dev)
+    config = PipelineConfig()
+    want = DepthEstimationPipeline(config, synthesis=synthesis,
+                                   device=dev).process(frame)
+    pipeline = DepthEstimationPipeline(config, synthesis=from_orbax,
+                                       device=dev)
+    reset_launch_counts()
+    got = pipeline.process(frame)
+    torch.cuda.synchronize()
+    counts["classical"] = dict(LAUNCHES)
+    require(all(counts["classical"][k] >= 1 for k in CLASSICAL_KERNELS),
+            f"Orbax classical single view missed a kernel: "
+            f"{counts['classical']}")
+    require(torch.equal(got.right_image, want.right_image)
+            and torch.equal(got.disparity_map, want.disparity_map),
+            "single view from Orbax Deep3D differs from the npz-loaded run")
+    numbers["deep3d"] = dict(
+        weights=deep3d_weights, load_ms_orbax=d3_orbax_ms,
+        load_ms_npz=d3_npz_ms, orbax_bytes=dir_bytes(d3_dir),
+        launches=counts["classical"], equal_bit_for_bit=True,
+        fused=pipeline._fused_single_view() is not None)
+    return counts, numbers
+
+
+def dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
 
 
 def phase_dnn(torch, dev, synthesis):
@@ -2943,6 +3125,14 @@ def main() -> int:
     report("synthetic", t, deep3d_weights=deep3d_weights, **numbers)
 
     with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        orbax_counts, numbers = phase_orbax(torch, dev, synthesis,
+                                            deep3d_weights,
+                                            os.path.join(tmp, "orbax"))
+        counts.update({f"orbax/{k}": v for k, v in orbax_counts.items()})
+        report("orbax", t, **numbers)
+        torch.cuda.empty_cache()
+
         # Training launches no kernel (as in the JAX package, whose models
         # train through XLA compositions); the exported weights do, in the
         # inference wrappers.

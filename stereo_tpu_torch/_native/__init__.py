@@ -4,7 +4,8 @@ A copy of ``stereo_tpu/_native`` for the port: a zlib PNG decoder (every
 colour type, bit depth and interlace, from bytes in memory or from a
 file), layout conversions (HWC uint8 -> padded
 CHW float32, bilinear resize, mean pool, RGB -> luma) and a threaded frame
-prefetcher.  Unlike the JAX package's copy it has no NumPy or imaging
+prefetcher, and a zstd decoder and zlib/gzip inflation for Orbax
+checkpoints (``zstd_decompress``, ``inflate``).  Unlike the JAX package's copy it has no NumPy or imaging
 fallback: the library is built with one ``g++ ... -lz`` call on first use
 into ``stereo_tpu_torch/_build/`` (named by a hash of the source and the
 flags, so a later process reuses it), and a failed build raises with the
@@ -40,6 +41,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIZE = ctypes.c_size_t
 _IP = ctypes.POINTER(ctypes.c_int)
+_BUF = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
 _SIGNATURES = {
     "sn_png_info_mem": ((_P, _SIZE, _IP, _IP, _IP, _IP), _I),
     "sn_decode_png_hwc_mem": ((_P, _SIZE, _P, _I, _I, _I, _I), _I),
@@ -54,7 +56,17 @@ _SIGNATURES = {
     "sn_prefetcher_submit": ((_P, ctypes.c_char_p), ctypes.c_int64),
     "sn_prefetcher_next": ((_P, _P), _I),
     "sn_prefetcher_destroy": ((_P,), None),
+    "sn_zstd_decompress": ((_P, _SIZE, _BUF), ctypes.c_int64),
+    "sn_inflate": ((_P, _SIZE, _BUF), ctypes.c_int64),
+    "sn_free": ((_P,), None),
 }
+
+_ZSTD_ERRORS = {-1: "truncated input", -2: "corrupt data",
+                -3: "the frame names a dictionary, which is not supported",
+                -4: "content checksum mismatch",
+                -5: "not a zstd or skippable frame",
+                -6: "content size differs from the frame header's",
+                -7: "out of memory"}
 
 
 def library_path() -> str:
@@ -232,6 +244,33 @@ def rgb_to_gray(chw: np.ndarray) -> np.ndarray:
     return out
 
 
+def _decoded(fn, data, what: str) -> bytes:
+    """Runs a native decoder that hands back a malloc'd buffer; its bytes,
+    or ``ValueError`` with the decoder's reason."""
+    src = bytes(data)
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    n = fn(src, len(src), ctypes.byref(out))
+    if n < 0:
+        raise ValueError(f"{what}: {_ZSTD_ERRORS.get(n, f'error {n}')}")
+    try:
+        return ctypes.string_at(out, n)
+    finally:
+        library().sn_free(out)
+
+
+def zstd_decompress(data) -> bytes:
+    """Every frame of ``data`` decoded (zstd frames, in order; skippable
+    frames skipped).  Raises ``ValueError`` for truncated or corrupt input,
+    a checksum mismatch or a frame that names a dictionary."""
+    return _decoded(library().sn_zstd_decompress, data, "zstd")
+
+
+def inflate(data) -> bytes:
+    """A zlib or gzip stream (told apart by its header) inflated; raises
+    ``ValueError`` for one zlib refuses or that ends early."""
+    return _decoded(library().sn_inflate, data, "inflate")
+
+
 class FramePrefetcher:
     """Threaded native PNG -> padded CHW decoding over a ring of reusable
     buffers, yielding frames in submission order::
@@ -297,6 +336,6 @@ class FramePrefetcher:
 
 
 __all__ = ["FramePrefetcher", "available", "build_error", "decode_png_hwc",
-           "decode_png_padded_chw", "hwc_to_padded_chw", "library",
-           "mean_pool", "png_info",
-           "png_shape", "resize_bilinear_chw", "rgb_to_gray"]
+           "decode_png_padded_chw", "hwc_to_padded_chw", "inflate",
+           "library", "mean_pool", "png_info", "png_shape",
+           "resize_bilinear_chw", "rgb_to_gray", "zstd_decompress"]

@@ -11,7 +11,12 @@
 //   * fused layout conversions (HWC uint8 -> padded CHW float32, bilinear
 //     resize, kxk mean pool, RGB -> luma) used by the cameras;
 //   * a multi-threaded frame prefetcher over a ring of preallocated,
-//     reusable output buffers, driven through a C ABI from ctypes.
+//     reusable output buffers, driven through a C ABI from ctypes;
+//   * a zstd decoder (RFC 8878 frames without dictionaries: every block,
+//     literal and sequence mode, the XXH64 checksum, concatenated and
+//     skippable frames) and zlib/gzip inflation, for the Orbax checkpoints
+//     that utils/ocdbt.py and utils/orbax.py read.  Malformed input is
+//     refused whole: no partial output, no read outside the input.
 //
 // Build: g++ -O3 -std=c++17 -shared -fPIC -pthread stereo_native.cc -lz
 // (stereo_tpu_torch/_native/__init__.py does it on first use).
@@ -619,5 +624,728 @@ void sn_prefetcher_destroy(void* handle) {
   for (auto& t : p->threads) t.join();
   delete p;
 }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// zstd frame decoding (RFC 8878, without dictionaries) and zlib/gzip
+// inflation, for the chunks and the OCDBT nodes of Orbax checkpoints
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// A malformed frame: thrown anywhere below, caught at the C entry point,
+// which then returns the code and discards what was decoded.
+struct ZstdError {
+  int code;
+};
+
+enum ZstdCode {
+  kZstdTruncated = -1,   // the input ends inside a frame
+  kZstdCorrupt = -2,     // a field or a bit stream that cannot be decoded
+  kZstdDictionary = -3,  // the frame names a dictionary
+  kZstdChecksum = -4,    // the content checksum does not match
+  kZstdMagic = -5,       // neither a zstd nor a skippable frame
+  kZstdSize = -6,        // the content differs from its declared size
+};
+
+[[noreturn]] void zfail(int code) { throw ZstdError{code}; }
+
+inline void zcheck(bool ok, int code = kZstdCorrupt) {
+  if (!ok) zfail(code);
+}
+
+inline int highbit32(uint32_t v) {  // index of the highest set bit; v > 0
+  return 31 - __builtin_clz(v);
+}
+
+inline uint32_t read_le32(const uint8_t* p) {
+  return uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) |
+         (uint32_t(p[3]) << 24);
+}
+
+inline uint64_t read_le64(const uint8_t* p) {
+  return uint64_t(read_le32(p)) | (uint64_t(read_le32(p + 4)) << 32);
+}
+
+// Bits [pos, pos + n) of the little-endian bit string `data` (bit i is bit
+// i % 8 of byte i / 8) as an integer; bits outside the string read as 0.
+inline uint64_t le_bits(const uint8_t* data, size_t size, int64_t pos,
+                        int n) {
+  if (n == 0) return 0;
+  int64_t end = pos + n;
+  if (end <= 0) return 0;
+  int lost = 0;  // bits below the string's start
+  if (pos < 0) {
+    lost = int(-pos);
+    pos = 0;
+  }
+  const size_t byte = size_t(pos >> 3);
+  const int shift = int(pos & 7);
+  uint64_t word = 0;
+  if (byte + 8 <= size) {
+    std::memcpy(&word, data + byte, 8);
+  } else {
+    for (size_t i = byte; i < size && i < byte + 8; ++i)
+      word |= uint64_t(data[i]) << (8 * (i - byte));
+  }
+  const int width = n - lost;  // <= 57, so the shift below stays in range
+  const uint64_t v = (word >> shift) & ((uint64_t(1) << width) - 1);
+  return v << lost;
+}
+
+// A bit stream read backwards, as zstd writes Huffman and FSE streams: it
+// starts below the highest set bit of its last byte and is read towards
+// its first bit.  Reads past the first bit give zeros and count as
+// overflow (the FSE weight decoder relies on that).
+struct BackBits {
+  const uint8_t* data;
+  size_t size;
+  int64_t pos;  // bits not yet read
+
+  BackBits(const uint8_t* d, size_t n) : data(d), size(n) {
+    zcheck(n > 0 && d[n - 1] != 0);
+    pos = int64_t(n - 1) * 8 + highbit32(d[n - 1]);
+  }
+  uint32_t read(int n) {
+    pos -= n;
+    return uint32_t(le_bits(data, size, pos, n));
+  }
+  uint32_t peek(int n) const { return uint32_t(le_bits(data, size, pos - n, n)); }
+  void skip(int n) { pos -= n; }
+  bool overflowed() const { return pos < 0; }
+  bool done() const { return pos == 0; }
+};
+
+// ---- FSE -----------------------------------------------------------------
+
+struct FseEntry {
+  uint16_t symbol;
+  uint8_t bits;
+  uint16_t base;  // next state before the bits read are added
+};
+
+struct FseTable {
+  int log = -1;  // accuracy log; -1: no table yet
+  std::vector<FseEntry> entries;
+};
+
+// The decoding table of a normalized distribution (-1: "less than one").
+void fse_build(const int16_t* norm, int nsym, int log, FseTable* t) {
+  const int size = 1 << log;
+  t->log = log;
+  t->entries.assign(size_t(size), FseEntry{0, 0, 0});
+  std::vector<uint32_t> next(size_t(nsym), 0);
+  int high = size - 1;
+  for (int s = 0; s < nsym; ++s) {
+    if (norm[s] == -1) {
+      zcheck(high >= 0);
+      t->entries[size_t(high--)].symbol = uint16_t(s);
+      next[size_t(s)] = 1;
+    } else {
+      next[size_t(s)] = uint32_t(norm[s]);
+    }
+  }
+  const int step = (size >> 1) + (size >> 3) + 3, mask = size - 1;
+  int pos = 0;
+  for (int s = 0; s < nsym; ++s) {
+    for (int i = 0; i < norm[s]; ++i) {
+      t->entries[size_t(pos)].symbol = uint16_t(s);
+      do pos = (pos + step) & mask; while (pos > high);
+    }
+  }
+  zcheck(pos == 0);
+  for (int u = 0; u < size; ++u) {
+    FseEntry& e = t->entries[size_t(u)];
+    const uint32_t state = next[e.symbol]++;
+    zcheck(state > 0);
+    e.bits = uint8_t(log - highbit32(state));
+    e.base = uint16_t((state << e.bits) - uint32_t(size));
+  }
+}
+
+// Reads an FSE table description at `src`; returns the bytes it took.
+size_t fse_read(const uint8_t* src, size_t size, int max_symbol, int max_log,
+                FseTable* t) {
+  zcheck(size > 0, kZstdTruncated);
+  int64_t bit = 0;
+  auto peek = [&](int n) { return uint32_t(le_bits(src, size, bit, n)); };
+  const int log = int(peek(4)) + 5;
+  bit += 4;
+  zcheck(log <= max_log);
+  int remaining = (1 << log) + 1, threshold = 1 << log, nbits = log + 1;
+  std::vector<int16_t> norm(size_t(max_symbol) + 1, 0);
+  int sym = 0;
+  bool previous0 = false;
+  while (remaining > 1) {
+    if (previous0) {
+      uint32_t code;
+      while ((code = peek(2)) == 3) {
+        sym += 3;
+        bit += 2;
+        zcheck(int64_t(bit) <= int64_t(size) * 8, kZstdTruncated);
+      }
+      sym += int(code);
+      bit += 2;
+      zcheck(sym <= max_symbol);
+    }
+    zcheck(sym <= max_symbol);
+    const int max = (2 * threshold - 1) - remaining;
+    int count;
+    const uint32_t low = peek(nbits - 1);
+    if (int(low & uint32_t(threshold - 1)) < max) {
+      count = int(low & uint32_t(threshold - 1));
+      bit += nbits - 1;
+    } else {
+      count = int(peek(nbits) & uint32_t(2 * threshold - 1));
+      if (count >= threshold) count -= max;
+      bit += nbits;
+    }
+    --count;  // -1: probability "less than 1"
+    remaining -= count < 0 ? -count : count;
+    norm[size_t(sym++)] = int16_t(count);
+    previous0 = count == 0;
+    zcheck(remaining >= 1);
+    if (remaining < threshold) {
+      if (remaining <= 1) break;
+      nbits = highbit32(uint32_t(remaining)) + 1;
+      threshold = 1 << (nbits - 1);
+    }
+  }
+  zcheck(remaining == 1);
+  const size_t used = size_t((bit + 7) >> 3);
+  zcheck(used <= size, kZstdTruncated);
+  fse_build(norm.data(), sym, log, t);
+  return used;
+}
+
+void fse_rle(int symbol, FseTable* t) {
+  t->log = 0;
+  t->entries.assign(1, FseEntry{uint16_t(symbol), 0, 0});
+}
+
+// ---- Huffman literals ----------------------------------------------------
+
+struct HufTable {
+  int log = 0;  // 0: no table yet
+  std::vector<uint8_t> symbol, bits;
+};
+
+// Reads a Huffman tree description; returns the bytes it took.
+size_t huf_read(const uint8_t* src, size_t size, HufTable* t) {
+  zcheck(size > 0, kZstdTruncated);
+  uint8_t weights[256] = {0};
+  int nweights;
+  const int header = src[0];
+  size_t used;
+  if (header >= 128) {  // 4-bit weights, packed two per byte
+    nweights = header - 127;
+    used = 1 + size_t((nweights + 1) / 2);
+    zcheck(used <= size, kZstdTruncated);
+    for (int i = 0; i < nweights; ++i) {
+      const uint8_t b = src[1 + i / 2];
+      weights[i] = (i & 1) ? (b & 15) : (b >> 4);
+    }
+  } else {  // FSE-compressed weights, two interleaved states
+    used = 1 + size_t(header);
+    zcheck(used <= size, kZstdTruncated);
+    FseTable fse;
+    const size_t desc = fse_read(src + 1, size_t(header), 255, 6, &fse);
+    zcheck(desc < size_t(header));
+    BackBits br(src + 1 + desc, size_t(header) - desc);
+    uint32_t s1 = br.read(fse.log), s2 = br.read(fse.log);
+    nweights = 0;
+    auto emit = [&](uint32_t* s) {
+      const FseEntry& e = fse.entries[*s];
+      zcheck(nweights < 255);
+      weights[nweights++] = uint8_t(e.symbol);
+      *s = e.base + br.read(e.bits);
+    };
+    for (;;) {
+      emit(&s1);
+      if (br.overflowed()) {
+        zcheck(nweights < 255);
+        weights[nweights++] = uint8_t(fse.entries[s2].symbol);
+        break;
+      }
+      emit(&s2);
+      if (br.overflowed()) {
+        zcheck(nweights < 255);
+        weights[nweights++] = uint8_t(fse.entries[s1].symbol);
+        break;
+      }
+    }
+  }
+  uint32_t total = 0;
+  for (int i = 0; i < nweights; ++i) {
+    zcheck(weights[i] <= 12);
+    if (weights[i]) total += 1u << (weights[i] - 1);
+  }
+  zcheck(total > 0);
+  const int log = highbit32(total) + 1;
+  zcheck(log <= 12);
+  const uint32_t rest = (1u << log) - total;
+  zcheck((rest & (rest - 1)) == 0);  // a power of two
+  weights[nweights++] = uint8_t(highbit32(rest) + 1);
+  // Symbols fill the table by increasing weight, then by value.
+  uint32_t start[14] = {0};
+  for (int i = 0; i < nweights; ++i)
+    if (weights[i]) start[weights[i] + 1] += 1u << (weights[i] - 1);
+  for (int w = 1; w < 14; ++w) start[w] += start[w - 1];
+  t->log = log;
+  t->symbol.assign(size_t(1) << log, 0);
+  t->bits.assign(size_t(1) << log, 0);
+  for (int i = 0; i < nweights; ++i) {
+    const int w = weights[i];
+    if (!w) continue;
+    const uint32_t n = 1u << (w - 1);
+    for (uint32_t j = 0; j < n; ++j) {
+      t->symbol[start[w] + j] = uint8_t(i);
+      t->bits[start[w] + j] = uint8_t(log + 1 - w);
+    }
+    start[w] += n;
+  }
+  return used;
+}
+
+void huf_stream(const HufTable& t, const uint8_t* src, size_t size,
+                uint8_t* out, size_t n) {
+  BackBits br(src, size);
+  size_t i = 0;
+  // Four symbols per 8-byte load while 56 bits lie below the position
+  // (four codes take at most 48), then one symbol per read.
+  const uint32_t mask = (1u << t.log) - 1;
+  while (i + 4 <= n && br.pos >= 64) {
+    const size_t byte = size_t(br.pos >> 3) - 7;
+    uint64_t word;
+    std::memcpy(&word, src + byte, 8);
+    int top = int(br.pos - int64_t(byte) * 8);
+    for (int k = 0; k < 4; ++k, ++i) {
+      const uint32_t idx = uint32_t(word >> (top - t.log)) & mask;
+      out[i] = t.symbol[idx];
+      top -= t.bits[idx];
+    }
+    br.pos = int64_t(byte) * 8 + top;
+  }
+  for (; i < n; ++i) {
+    const uint32_t idx = br.peek(t.log);
+    out[i] = t.symbol[idx];
+    br.skip(t.bits[idx]);
+  }
+  zcheck(br.done());
+}
+
+// ---- sequences -----------------------------------------------------------
+
+const int16_t kLLDefault[36] = {4, 3, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+                                2, 1, 1, 1, 2, 2, 2, 2, 2, 2, 2, 2,
+                                2, 3, 2, 1, 1, 1, 1, 1, -1, -1, -1, -1};
+const int16_t kMLDefault[53] = {1, 4, 3, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1,
+                                1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                1, 1, 1, 1, -1, -1, -1, -1, -1, -1, -1};
+const int16_t kOFDefault[29] = {1, 1, 1, 1, 1, 1, 2, 2, 2, 1,
+                                1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+                                1, 1, 1, 1, -1, -1, -1, -1, -1};
+const uint32_t kLLBase[36] = {
+    0,  1,  2,   3,   4,   5,   6,    7,    8,    9,     10,    11,
+    12, 13, 14,  15,  16,  18,  20,   22,   24,   28,    32,    40,
+    48, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536};
+const uint8_t kLLBits[36] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,  0,
+                             0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3,  3,
+                             4, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+const uint32_t kMLBase[53] = {
+    3,  4,  5,  6,  7,  8,  9,  10,  11,  12,  13,   14,   15,   16,
+    17, 18, 19, 20, 21, 22, 23, 24,  25,  26,  27,   28,   29,   30,
+    31, 32, 33, 34, 35, 37, 39, 41,  43,  47,  51,   59,   67,   83,
+    99, 131, 259, 515, 1027, 2051, 4099, 8195, 16387, 32771, 65539};
+const uint8_t kMLBits[53] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                             0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 3, 3, 4, 4,
+                             5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16};
+
+// What persists from block to block within a frame.
+struct FrameState {
+  HufTable huf;
+  FseTable ll, of, ml;
+  uint32_t rep[3] = {1, 4, 8};
+};
+
+// Reads the table of one symbol type in `mode`; returns the bytes taken.
+size_t seq_table(int mode, const uint8_t* src, size_t size,
+                 const int16_t* dflt, int ndflt, int dflt_log, int max_symbol,
+                 int max_log, FseTable* t) {
+  switch (mode) {
+    case 0:
+      fse_build(dflt, ndflt, dflt_log, t);
+      return 0;
+    case 1:
+      zcheck(size >= 1, kZstdTruncated);
+      zcheck(src[0] <= max_symbol);
+      fse_rle(src[0], t);
+      return 1;
+    case 2:
+      return fse_read(src, size, max_symbol, max_log, t);
+    default:
+      zcheck(t->log >= 0);  // repeat: the previous block's table
+      return 0;
+  }
+}
+
+// Decodes one compressed block of `size` bytes, appending to `out`;
+// `frame_start` is where the frame's output begins.
+void decode_block(const uint8_t* src, size_t size, FrameState* fs,
+                  std::vector<uint8_t>* out, size_t frame_start) {
+  // Literals section.
+  zcheck(size >= 1, kZstdTruncated);
+  const int ltype = src[0] & 3, sf = (src[0] >> 2) & 3;
+  size_t regen, csize = 0, hsize;
+  bool four = false;
+  if (ltype < 2) {
+    if ((sf & 1) == 0) {
+      hsize = 1;
+      regen = src[0] >> 3;
+    } else if (sf == 1) {
+      hsize = 2;
+      zcheck(size >= hsize, kZstdTruncated);
+      regen = (src[0] >> 4) + (size_t(src[1]) << 4);
+    } else {
+      hsize = 3;
+      zcheck(size >= hsize, kZstdTruncated);
+      regen = (src[0] >> 4) + (size_t(src[1]) << 4) + (size_t(src[2]) << 12);
+    }
+  } else {
+    hsize = sf < 2 ? 3 : size_t(sf + 2);
+    zcheck(size >= hsize, kZstdTruncated);
+    uint64_t h = 0;
+    for (size_t i = 0; i < hsize; ++i) h |= uint64_t(src[i]) << (8 * i);
+    const int bits = sf < 2 ? 10 : (sf == 2 ? 14 : 18);
+    regen = size_t((h >> 4) & ((1u << bits) - 1));
+    csize = size_t((h >> (4 + bits)) & ((1u << bits) - 1));
+    four = sf != 0;
+  }
+  zcheck(regen <= (size_t(1) << 17));
+  std::vector<uint8_t> lit(regen);
+  size_t pos = hsize;
+  if (ltype == 0) {
+    zcheck(size - pos >= regen, kZstdTruncated);
+    if (regen) std::memcpy(lit.data(), src + pos, regen);
+    pos += regen;
+  } else if (ltype == 1) {
+    zcheck(size - pos >= 1, kZstdTruncated);
+    std::memset(lit.data(), src[pos], regen);
+    pos += 1;
+  } else {
+    zcheck(size - pos >= csize, kZstdTruncated);
+    const uint8_t* p = src + pos;
+    size_t n = csize;
+    if (ltype == 2) {
+      const size_t tree = huf_read(p, n, &fs->huf);
+      p += tree;
+      n -= tree;
+    } else {
+      zcheck(fs->huf.log > 0);  // treeless: the previous block's table
+    }
+    if (!four) {
+      huf_stream(fs->huf, p, n, lit.data(), regen);
+    } else {
+      zcheck(n >= 6, kZstdTruncated);
+      const size_t s1 = p[0] | (size_t(p[1]) << 8);
+      const size_t s2 = p[2] | (size_t(p[3]) << 8);
+      const size_t s3 = p[4] | (size_t(p[5]) << 8);
+      zcheck(6 + s1 + s2 + s3 <= n, kZstdTruncated);
+      const size_t s4 = n - 6 - s1 - s2 - s3;
+      const size_t seg = (regen + 3) / 4;
+      zcheck(3 * seg <= regen);
+      const uint8_t* q = p + 6;
+      huf_stream(fs->huf, q, s1, lit.data(), seg);
+      huf_stream(fs->huf, q + s1, s2, lit.data() + seg, seg);
+      huf_stream(fs->huf, q + s1 + s2, s3, lit.data() + 2 * seg, seg);
+      huf_stream(fs->huf, q + s1 + s2 + s3, s4, lit.data() + 3 * seg,
+                 regen - 3 * seg);
+    }
+    pos += csize;
+  }
+
+  // Sequences section.
+  zcheck(size - pos >= 1, kZstdTruncated);
+  size_t nseq = src[pos];
+  if (nseq < 128) {
+    pos += 1;
+  } else if (nseq < 255) {
+    zcheck(size - pos >= 2, kZstdTruncated);
+    nseq = ((nseq - 128) << 8) + src[pos + 1];
+    pos += 2;
+  } else {
+    zcheck(size - pos >= 3, kZstdTruncated);
+    nseq = src[pos + 1] + (size_t(src[pos + 2]) << 8) + 0x7F00;
+    pos += 3;
+  }
+  size_t lit_used = 0;
+  if (nseq > 0) {
+    zcheck(size - pos >= 1, kZstdTruncated);
+    const int modes = src[pos++];
+    zcheck((modes & 3) == 0);
+    pos += seq_table(modes >> 6, src + pos, size - pos, kLLDefault, 36, 6, 35,
+                     9, &fs->ll);
+    pos += seq_table((modes >> 4) & 3, src + pos, size - pos, kOFDefault, 29,
+                     5, 31, 8, &fs->of);
+    pos += seq_table((modes >> 2) & 3, src + pos, size - pos, kMLDefault, 53,
+                     6, 52, 9, &fs->ml);
+    zcheck(pos < size, kZstdTruncated);
+    BackBits br(src + pos, size - pos);
+    uint32_t sll = br.read(fs->ll.log), sof = br.read(fs->of.log),
+             sml = br.read(fs->ml.log);
+    uint32_t* rep = fs->rep;
+    for (size_t i = 0; i < nseq; ++i) {
+      const FseEntry& ell = fs->ll.entries[sll];
+      const FseEntry& eof = fs->of.entries[sof];
+      const FseEntry& eml = fs->ml.entries[sml];
+      const int ofcode = eof.symbol;
+      zcheck(ofcode <= 31 && ell.symbol <= 35 && eml.symbol <= 52);
+      uint32_t ofvalue = (1u << ofcode) + br.read(ofcode);
+      const size_t ml = kMLBase[eml.symbol] + br.read(kMLBits[eml.symbol]);
+      const size_t ll = kLLBase[ell.symbol] + br.read(kLLBits[ell.symbol]);
+      uint32_t offset;
+      if (ofvalue > 3) {
+        offset = ofvalue - 3;
+        rep[2] = rep[1];
+        rep[1] = rep[0];
+        rep[0] = offset;
+      } else {
+        if (ll == 0) ++ofvalue;
+        if (ofvalue == 1) {
+          offset = rep[0];
+        } else {
+          offset = ofvalue == 4 ? rep[0] - 1 : rep[ofvalue - 1];
+          if (ofvalue != 2) rep[2] = rep[1];
+          rep[1] = rep[0];
+          rep[0] = offset;
+        }
+      }
+      if (i + 1 < nseq) {
+        sll = ell.base + br.read(ell.bits);
+        sml = eml.base + br.read(eml.bits);
+        sof = eof.base + br.read(eof.bits);
+      }
+      zcheck(!br.overflowed());
+      zcheck(ll <= regen - lit_used);
+      out->insert(out->end(), lit.begin() + lit_used,
+                  lit.begin() + lit_used + ll);
+      lit_used += ll;
+      const size_t have = out->size() - frame_start;
+      zcheck(offset > 0 && offset <= have);
+      const size_t to = out->size();
+      out->resize(to + ml);
+      uint8_t* o = out->data();
+      if (offset >= ml) {
+        std::memcpy(o + to, o + to - offset, ml);
+      } else {
+        for (size_t k = 0; k < ml; ++k)  // the overlap repeats the pattern
+          o[to + k] = o[to - offset + k];
+      }
+    }
+    zcheck(br.done());
+  } else {
+    zcheck(pos == size);
+  }
+  out->insert(out->end(), lit.begin() + lit_used, lit.end());
+}
+
+// ---- XXH64, for the content checksum ------------------------------------
+
+const uint64_t kP1 = 11400714785074694791ULL, kP2 = 14029467366897019727ULL,
+               kP3 = 1609587929392839161ULL, kP4 = 9650029242287828579ULL,
+               kP5 = 2870177450012600261ULL;
+
+inline uint64_t rotl64(uint64_t x, int r) { return (x << r) | (x >> (64 - r)); }
+inline uint64_t xxh_round(uint64_t acc, uint64_t v) {
+  return rotl64(acc + v * kP2, 31) * kP1;
+}
+inline uint64_t xxh_merge(uint64_t acc, uint64_t v) {
+  return (acc ^ xxh_round(0, v)) * kP1 + kP4;
+}
+
+uint64_t xxh64(const uint8_t* p, size_t n) {
+  const uint8_t* end = p + n;
+  uint64_t h;
+  if (n >= 32) {
+    uint64_t v1 = kP1 + kP2, v2 = kP2, v3 = 0, v4 = 0 - kP1;
+    for (; p + 32 <= end; p += 32) {
+      v1 = xxh_round(v1, read_le64(p));
+      v2 = xxh_round(v2, read_le64(p + 8));
+      v3 = xxh_round(v3, read_le64(p + 16));
+      v4 = xxh_round(v4, read_le64(p + 24));
+    }
+    h = rotl64(v1, 1) + rotl64(v2, 7) + rotl64(v3, 12) + rotl64(v4, 18);
+    h = xxh_merge(h, v1);
+    h = xxh_merge(h, v2);
+    h = xxh_merge(h, v3);
+    h = xxh_merge(h, v4);
+  } else {
+    h = kP5;
+  }
+  h += uint64_t(n);
+  for (; p + 8 <= end; p += 8) h = rotl64(h ^ xxh_round(0, read_le64(p)), 27) * kP1 + kP4;
+  if (p + 4 <= end) {
+    h = rotl64(h ^ (uint64_t(read_le32(p)) * kP1), 23) * kP2 + kP3;
+    p += 4;
+  }
+  for (; p < end; ++p) h = rotl64(h ^ (uint64_t(*p) * kP5), 11) * kP1;
+  h ^= h >> 33;
+  h *= kP2;
+  h ^= h >> 29;
+  h *= kP3;
+  h ^= h >> 32;
+  return h;
+}
+
+// ---- frames --------------------------------------------------------------
+
+// Decodes the zstd frame at `src` (after its magic number has been
+// checked), appending to `out`; returns the bytes it took.
+size_t decode_frame(const uint8_t* src, size_t size,
+                    std::vector<uint8_t>* out) {
+  size_t pos = 4;
+  zcheck(size - pos >= 1, kZstdTruncated);
+  const int fhd = src[pos++];
+  const int fcs_flag = fhd >> 6, single = (fhd >> 5) & 1,
+            checksum = (fhd >> 2) & 1, did_flag = fhd & 3;
+  zcheck((fhd & 8) == 0);  // reserved bit
+  if (!single) {
+    zcheck(size - pos >= 1, kZstdTruncated);
+    zcheck((src[pos] >> 3) <= 31 - 10);  // window log at most 31
+    ++pos;
+  }
+  const size_t did_size = did_flag == 3 ? 4 : size_t(did_flag);
+  zcheck(size - pos >= did_size, kZstdTruncated);
+  uint32_t did = 0;
+  for (size_t i = 0; i < did_size; ++i) did |= uint32_t(src[pos + i]) << (8 * i);
+  if (did != 0) zfail(kZstdDictionary);
+  pos += did_size;
+  const size_t fcs_size =
+      fcs_flag == 0 ? size_t(single) : size_t(1) << fcs_flag;
+  zcheck(size - pos >= fcs_size, kZstdTruncated);
+  uint64_t content = 0;
+  for (size_t i = 0; i < fcs_size; ++i)
+    content |= uint64_t(src[pos + i]) << (8 * i);
+  if (fcs_size == 2) content += 256;
+  pos += fcs_size;
+  const size_t start = out->size();
+  if (fcs_size && content < (uint64_t(1) << 31)) out->reserve(start + content);
+  FrameState fs;
+  for (bool last = false; !last;) {
+    zcheck(size - pos >= 3, kZstdTruncated);
+    const uint32_t bh =
+        src[pos] | (uint32_t(src[pos + 1]) << 8) | (uint32_t(src[pos + 2]) << 16);
+    pos += 3;
+    last = bh & 1;
+    const int type = (bh >> 1) & 3;
+    const size_t bsize = bh >> 3;
+    zcheck(bsize <= (size_t(1) << 17));
+    if (type == 0) {
+      zcheck(size - pos >= bsize, kZstdTruncated);
+      out->insert(out->end(), src + pos, src + pos + bsize);
+      pos += bsize;
+    } else if (type == 1) {
+      zcheck(size - pos >= 1, kZstdTruncated);
+      out->insert(out->end(), bsize, src[pos]);
+      pos += 1;
+    } else {
+      zcheck(type == 2);
+      zcheck(size - pos >= bsize, kZstdTruncated);
+      decode_block(src + pos, bsize, &fs, out, start);
+      pos += bsize;
+    }
+    if (fcs_size) zcheck(out->size() - start <= content, kZstdSize);
+  }
+  if (fcs_size) zcheck(out->size() - start == content, kZstdSize);
+  if (checksum) {
+    zcheck(size - pos >= 4, kZstdTruncated);
+    const uint32_t want = read_le32(src + pos);
+    const uint32_t got =
+        uint32_t(xxh64(out->data() + start, out->size() - start));
+    if (want != got) zfail(kZstdChecksum);
+    pos += 4;
+  }
+  return pos;
+}
+
+// Every frame of `src`, zstd frames decoded and skippable frames skipped.
+void zstd_decompress(const uint8_t* src, size_t size,
+                     std::vector<uint8_t>* out) {
+  zcheck(size > 0, kZstdTruncated);
+  size_t pos = 0;
+  while (pos < size) {
+    zcheck(size - pos >= 4, kZstdTruncated);
+    const uint32_t magic = read_le32(src + pos);
+    if (magic == 0xFD2FB528u) {
+      pos += decode_frame(src + pos, size - pos, out);
+    } else if ((magic & 0xFFFFFFF0u) == 0x184D2A50u) {
+      zcheck(size - pos >= 8, kZstdTruncated);
+      const uint64_t skip = read_le32(src + pos + 4);
+      zcheck(size - pos - 8 >= skip, kZstdTruncated);
+      pos += 8 + size_t(skip);
+    } else {
+      zfail(kZstdMagic);
+    }
+  }
+}
+
+// Hands `buf`'s bytes to the caller in a malloc'd block (freed by
+// sn_free); returns their count, or -7 when memory runs out.
+int64_t hand_over(const std::vector<uint8_t>& buf, uint8_t** out) {
+  *out = static_cast<uint8_t*>(std::malloc(buf.empty() ? 1 : buf.size()));
+  if (!*out) return -7;
+  if (!buf.empty()) std::memcpy(*out, buf.data(), buf.size());
+  return int64_t(buf.size());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decodes every frame of `src` (zstd frames, skippable frames skipped)
+// into a new buffer at *out; returns its size, or a negative ZstdCode
+// (nothing is returned for a frame that fails anywhere).
+int64_t sn_zstd_decompress(const uint8_t* src, size_t size, uint8_t** out) {
+  *out = nullptr;
+  std::vector<uint8_t> buf;
+  try {
+    zstd_decompress(src, size, &buf);
+  } catch (const ZstdError& e) {
+    return e.code;
+  } catch (const std::bad_alloc&) {
+    return -7;
+  }
+  return hand_over(buf, out);
+}
+
+// Inflates a zlib or gzip stream (its header tells which) into a new
+// buffer at *out; returns its size, or -2 for a stream zlib refuses or
+// that ends early.
+int64_t sn_inflate(const uint8_t* src, size_t size, uint8_t** out) {
+  *out = nullptr;
+  z_stream zs;
+  std::memset(&zs, 0, sizeof(zs));
+  if (inflateInit2(&zs, 15 + 32) != Z_OK) return -2;
+  std::vector<uint8_t> buf;
+  uint8_t chunk[1 << 16];
+  zs.next_in = const_cast<uint8_t*>(src);
+  zs.avail_in = uInt(size);
+  int rc;
+  do {
+    zs.next_out = chunk;
+    zs.avail_out = sizeof(chunk);
+    rc = inflate(&zs, Z_NO_FLUSH);
+    if (rc != Z_OK && rc != Z_STREAM_END) break;
+    buf.insert(buf.end(), chunk, chunk + (sizeof(chunk) - zs.avail_out));
+  } while (rc != Z_STREAM_END);
+  inflateEnd(&zs);
+  if (rc != Z_STREAM_END) return -2;
+  return hand_over(buf, out);
+}
+
+void sn_free(void* p) { std::free(p); }
 
 }  // extern "C"

@@ -127,14 +127,27 @@ def load_stereo_npz(path: str) -> Dict[str, torch.Tensor]:
     return stereo_state_dict_from_flax(arrays)
 
 
-def flax_arrays_from_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
+def state_dict_from_flax(model: nn.Module, arrays: Dict[str, np.ndarray]
+                         ) -> Dict[str, torch.Tensor]:
+    """Flax variables keyed as in the npz checkpoints -> ``model``'s
+    ``state_dict`` (``deep3d_state_dict_from_flax`` for Deep3D, else
+    ``stereo_state_dict_from_flax``)."""
+    if isinstance(model, Deep3D):
+        return deep3d_state_dict_from_flax(arrays)
+    return stereo_state_dict_from_flax(arrays)
+
+
+def flax_arrays_from_state_dict(model: nn.Module,
+                                state: Optional[Dict[str, torch.Tensor]]
+                                = None) -> Dict[str, np.ndarray]:
     """The inverse of ``deep3d_state_dict_from_flax`` and
     ``stereo_state_dict_from_flax``: ``model``'s parameters and BatchNorm
-    statistics as float32 numpy arrays keyed and laid out as the Flax
-    variables (``"['params'][...]['kernel']"``, ``"['batch_stats'][...]
-    ['mean']"``)."""
+    statistics (or ``state``, tensors named and shaped as entries of its
+    ``state_dict``, say an optimizer's moments) as float32 numpy arrays
+    keyed and laid out as the Flax variables (``"['params'][...]
+    ['kernel']"``, ``"['batch_stats'][...]['mean']"``)."""
     arrays = {}
-    for key, t in model.state_dict().items():
+    for key, t in (model.state_dict() if state is None else state).items():
         *path, name = key.split(".")
         module = model.get_submodule(".".join(path))
         t = t.detach().float().cpu()
@@ -189,6 +202,107 @@ def load_npz_meta(npz_path: str) -> dict:
     with np.load(npz_path) as data:
         return {k[len(_NPZ_META_PREFIX):]: np.asarray(data[k])
                 for k in data.files if k.startswith(_NPZ_META_PREFIX)}
+
+
+def flatten_variables(tree, prefix: str = "") -> Dict[str, object]:
+    """A nested variables tree -> its leaves keyed as in the npz
+    checkpoints (``"['params']['Conv_0']['kernel']"``)."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    flat = {}
+    for key, value in tree.items():
+        flat.update(flatten_variables(value, f"{prefix}['{key}']"))
+    return flat
+
+
+def nest_variables(flat: Dict[str, object]) -> dict:
+    """The inverse of ``flatten_variables``."""
+    tree: dict = {}
+    for key, value in flat.items():
+        parts = re.findall(r"\['([^']+)'\]", key)
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def float_variables(tree, collections=("params", "batch_stats")
+                  ) -> Dict[str, np.ndarray]:
+    """The ``collections`` of a variables tree (say one ``load_params``
+    read) flattened to float32 numpy arrays, bfloat16 tensors included."""
+    flat = flatten_variables({k: tree[k] for k in collections if k in tree})
+    return {k: (v.float().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v, np.float32)) for k, v in flat.items()}
+
+
+def save_params(variables_or_model, checkpoint_dir: str) -> None:
+    """Write an Orbax checkpoint that ``stereo_tpu.models.load_params``
+    restores bit for bit, with or without a template: a variables tree
+    (nested dicts of arrays, tensors and numbers, say what ``load_params``
+    returned) or a network's Flax variables (``flax_arrays_from_state_dict``:
+    ``params``, and ``batch_stats`` where it has BatchNorm), in float32.
+    The arrays are stored uncompressed (the port has no zstd encoder)."""
+    from ..utils.orbax import write_tree
+
+    tree = variables_or_model
+    if isinstance(tree, nn.Module):
+        tree = nest_variables(flax_arrays_from_state_dict(tree))
+    write_tree(checkpoint_dir, tree)
+
+
+def load_params(checkpoint_dir: str, template=None):
+    """The variables tree of an Orbax checkpoint (``save_params``'s, or
+    one JAX's ``save_params`` or trainers wrote; ``utils.orbax.read_tree``):
+    nested dicts of numpy arrays, bfloat16 ones as ``torch.bfloat16``
+    tensors.  With a ``template`` (a tree of arrays, tensors and numbers)
+    the result has the template's structure and leaf types, and a leaf the
+    checkpoint lacks or holds at another shape raises ``ValueError``."""
+    from ..utils.orbax import read_tree
+
+    tree = read_tree(checkpoint_dir)
+    return tree if template is None else _like(template, tree,
+                                               checkpoint_dir)
+
+
+def _like(template, tree, where: str, path: str = ""):
+    """``tree`` in ``template``'s structure and leaf dtypes (``load_params``
+    with a template)."""
+    if isinstance(template, dict):
+        if not isinstance(tree, dict) or not set(template) <= set(tree):
+            raise ValueError(f"{where!r} does not hold the template's "
+                             f"keys at {path or '/'}")
+        return {k: _like(v, tree[k], where, f"{path}/{k}")
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        if not isinstance(tree, list) or len(tree) != len(template):
+            raise ValueError(f"{where!r}: {path} is not a sequence of "
+                             f"{len(template)}")
+        return type(template)(_like(v, tree[i], where, f"{path}/{i}")
+                              for i, v in enumerate(template))
+    if template is None:
+        return None
+    if tuple(np.shape(tree)) != tuple(np.shape(template)):
+        raise ValueError(f"{where!r}: {path} has shape "
+                         f"{tuple(np.shape(tree))}, the template "
+                         f"{tuple(np.shape(template))}")
+    if isinstance(template, (bool, int, float)):
+        return type(template)(tree)
+    if isinstance(template, torch.Tensor):
+        return torch.as_tensor(tree).to(template.dtype)
+    if isinstance(tree, torch.Tensor):
+        tree = tree.float().numpy()
+    return np.asarray(tree).astype(np.asarray(template).dtype)
+
+
+def load_deep3d_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """Deep3D weights from an npz file (``load_deep3d_npz``) or an Orbax
+    directory (its ``params``; an Orbax export carries no ``meta``) ->
+    ``(state_dict in float32, meta)``."""
+    if os.path.isdir(path):
+        return deep3d_state_dict_from_flax(
+            float_variables(load_params(path), ("params",))), {}
+    return load_deep3d_npz(path)
 
 
 def adopt_matching_leaves(model: nn.Module,
@@ -285,22 +399,33 @@ def load_or_init_params(model: nn.Module, name: str,
                         checkpoint_dir: Optional[str] = None,
                         seed: int = 0) -> str:
     """Load trained parameters into ``model`` (``strict=True``) from the
-    first npz found, ``checkpoint_dir`` (with or without ``.npz``) then the
-    committed ``data/checkpoints/<name>.npz``; else a seeded init.  Returns
-    the file used, or ``"seeded"``.  The arguments are the reference's;
-    ``image_shape`` is unused (see ``init_stereo_params``)."""
+    first checkpoint found, in the JAX package's order: for
+    ``checkpoint_dir`` then the committed ``data/checkpoints/<name>``, the
+    path itself when it is an npz file, then the path with ``.npz``
+    appended, then the path as a non-empty Orbax directory
+    (``load_params``); else a seeded init.  Returns the path used, or
+    ``"seeded"``.  The arguments are the reference's; ``image_shape`` is
+    unused (see ``init_stereo_params``)."""
+    from ..utils.orbax import is_orbax_dir
     from ..utils.paths import model_checkpoint_dir
 
     del image_shape
     for cand in (checkpoint_dir, model_checkpoint_dir(name)):
         if not cand:
             continue
-        npz = cand if cand.endswith(".npz") else cand + ".npz"
-        if os.path.isfile(npz):
-            state = load_stereo_npz(npz)
-            _check_shapes(model, state, npz)
-            model.load_state_dict(state, strict=True)
-            return npz
+        if os.path.isfile(cand) and cand.endswith(".npz"):
+            path, state = cand, load_stereo_npz(cand)
+        elif os.path.isfile(cand + ".npz"):
+            path, state = cand + ".npz", load_stereo_npz(cand + ".npz")
+        elif is_orbax_dir(cand):
+            path = cand
+            state = stereo_state_dict_from_flax(float_variables(
+                load_params(cand)))
+        else:
+            continue
+        _check_shapes(model, state, path)
+        model.load_state_dict(state, strict=True)
+        return path
     init_params(model, seed)
     return "seeded"
 
@@ -309,7 +434,9 @@ __all__ = ["Deep3D", "GwcNet", "MSNet2D", "MSNet3D", "build_stereo_model",
            "GWCNET_LOSS_WEIGHTS", "MSNET_LOSS_WEIGHTS", "gwcnet_loss",
            "msnet_loss", "flax_arrays_from_state_dict", "save_params_npz",
            "load_params_npz", "load_npz_meta", "adopt_matching_leaves",
-           "init_deep3d_params",
+           "init_deep3d_params", "save_params", "load_params",
+           "flatten_variables", "nest_variables", "state_dict_from_flax",
+           "load_deep3d_checkpoint", "float_variables",
            "deep3d_state_dict_from_flax", "load_deep3d_npz",
            "stereo_state_dict_from_flax", "load_stereo_npz", "init_params",
            "init_stereo_params", "load_or_init_params", "build_concat_volume",

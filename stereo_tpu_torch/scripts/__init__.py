@@ -5,6 +5,7 @@
     python -m stereo_tpu_torch.scripts.run_middlebury_pipeline --middlebury-dir SCENES
     python -m stereo_tpu_torch.scripts.train_right_view_synthesis_model --synthetic ...
     python -m stereo_tpu_torch.scripts.train_stereo_model --model gwcnet --synthetic ...
+    python -m stereo_tpu_torch.scripts.export_rvs_model --checkpoint CKPT --export-dir DIR
 
 They take the flags and defaults of the JAX package's scripts of the same
 names, plus ``--device`` (default ``cuda``)."""

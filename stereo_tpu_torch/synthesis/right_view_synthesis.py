@@ -31,11 +31,12 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device, set_float32_precision
-from ..models import Deep3D, init_deep3d_params, load_deep3d_npz
+from ..models import Deep3D, init_deep3d_params, load_deep3d_checkpoint
 from ..models.deep3d import _fused_blend_eligible
 from ..ops import rows
 from ..ops.cuda import upsample_blend
 from ..ops.imageops import rescale_generated_view
+from ..utils.orbax import is_orbax_dir
 from ..utils.paths import DEEP3D_CHECKPOINT_DIR
 
 # Native Deep3D operating resolution.
@@ -125,7 +126,8 @@ class RightViewSynthesis:
     """Owns a Deep3D model on one device.
 
     ``state_dict``: Deep3D weights (from ``models.load_deep3d_npz``); when
-    None the checkpoint is loaded: ``checkpoint_dir``, which raises
+    None the checkpoint is loaded: ``checkpoint_dir`` (an npz file, with or
+    without its ``.npz``, or an Orbax directory), which raises
     ``FileNotFoundError`` when it is missing, else the committed default.
     Without either, fresh weights are drawn (``init_deep3d_params``, seed
     0) with a warning, as the JAX package initialises its model.  ``seed``:
@@ -160,7 +162,7 @@ class RightViewSynthesis:
                     f"using fresh (untrained) weights", RuntimeWarning,
                     stacklevel=2)
             else:
-                state_dict, meta = load_deep3d_npz(path)
+                state_dict, meta = load_deep3d_checkpoint(path)
         if "full_shape" in meta:
             self.model_full_shape = tuple(int(v) for v in meta["full_shape"])
         if "down_shape" in meta:
@@ -225,15 +227,24 @@ class RightViewSynthesis:
 
 
 def _checkpoint_path(checkpoint_dir: Optional[str]) -> Optional[str]:
-    """The npz file for ``checkpoint_dir`` (a path with or without
-    ``.npz``), else the committed default, else None.  A missing explicit
-    path raises instead of falling back to the default weights."""
-    cand = checkpoint_dir or DEEP3D_CHECKPOINT_DIR
-    npz = cand if cand.endswith(".npz") else cand + ".npz"
-    if os.path.isfile(npz):
-        return npz
-    if checkpoint_dir:
-        raise FileNotFoundError(f"Deep3D checkpoint not found: {npz!r}")
+    """The checkpoint for ``checkpoint_dir``, else for the committed
+    default, else None, in the JAX package's order: an npz file (the path
+    itself, or with ``.npz`` appended), then a non-empty Orbax directory.
+    A missing explicit path raises instead of falling back to the default
+    weights."""
+    for cand in (checkpoint_dir, DEEP3D_CHECKPOINT_DIR):
+        if not cand:
+            continue
+        npz = cand if (os.path.isfile(cand) and cand.endswith(".npz")) \
+            else cand + ".npz"
+        if os.path.isfile(npz):
+            return npz
+        if is_orbax_dir(cand):
+            return cand
+        if cand is checkpoint_dir:
+            raise FileNotFoundError(
+                f"Deep3D checkpoint not found: {checkpoint_dir!r} (no {npz} "
+                f"and no non-empty Orbax directory)")
     return None
 
 

@@ -5,8 +5,9 @@ The multi-output smooth-L1 losses (``gwcnet_loss``, ``msnet_loss``) over
 ground truth masked to ``0 < gt < max_disparity``, AdamW (decoupled weight
 decay, ``optax.adamw``'s rule), random-crop batches of KITTI 2015 style
 triplets, and BatchNorm statistics updated by the networks' training mode
-(Flax's rule).  Checkpoints are ``torch.save`` files for resume, exports
-npz files both packages load.
+(Flax's rule).  Checkpoints are ``torch.save`` files for resume (or Orbax
+trees as JAX's trainer writes them), exports npz files both packages
+load.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ from ..models import (build_stereo_model, gwcnet_loss, init_params,
 from ..pipeline.backends import normalize_imagenet
 from ..utils.image_io import read_image_chw
 from ..utils.png import decode_png
-from .trainer import load_training_state, save_training_state, to_device
+from .trainer import (load_training_state, optax_adam_state,
+                      save_orbax_training_state, save_training_state,
+                      to_device)
 
 LOSSES = {"gwcnet": gwcnet_loss, "msnet2d": msnet_loss, "msnet3d": msnet_loss}
 
@@ -162,11 +165,22 @@ class StereoTrainer:
                 self.save_checkpoint(cfg.save_path)
         return epoch_losses
 
-    def save_checkpoint(self, path: str) -> None:
-        """Model (BatchNorm statistics included), optimizer and epoch."""
-        save_training_state(path, self.model, self.optimizer, self.epoch)
+    def save_checkpoint(self, path: str, format: str = "torch") -> None:
+        """Model (BatchNorm statistics included), optimizer and epoch: a
+        ``torch.save`` file, or with ``format="orbax"`` the tree JAX's
+        ``StereoTrainer.save_checkpoint`` writes ({params, batch_stats,
+        opt_state, epoch}, the optax state of ``adamw``)."""
+        if format == "orbax":
+            save_orbax_training_state(
+                path, self.model,
+                [optax_adam_state(self.model, self.optimizer), None, None],
+                self.epoch)
+        else:
+            save_training_state(path, self.model, self.optimizer, self.epoch)
 
     def load_checkpoint(self, path: str) -> None:
+        """Resume from ``save_checkpoint``'s file or from an Orbax training
+        checkpoint (a directory) of either package."""
         self.epoch = load_training_state(path, self.model, self.optimizer,
                                          self.device)
 

@@ -6,9 +6,10 @@ weight decay (``torch.optim.Adam(weight_decay=...)`` adds ``wd * param``
 to the gradient before the moments: the JAX package's
 ``add_decayed_weights`` ahead of ``scale_by_adam``); the StepLR learning
 rate per epoch; per-epoch mean losses; a checkpoint per epoch for resume
-(``torch.save`` of model, optimizer and epoch: the port's counterpart of
-the JAX package's Orbax save, which it cannot write) and an npz export in
-the committed format.  The model trains in its training mode: the
+(``torch.save`` of model, optimizer and epoch, or, with
+``format="orbax"``, the JAX trainer's Orbax tree of params, optax state and
+epoch, which ``load_checkpoint`` also reads) and an npz export in the
+committed format.  The model trains in its training mode: the
 differentiable blend and the global branch's dropout, drawn from the
 trainer's own ``torch.Generator``.
 """
@@ -19,12 +20,16 @@ import os
 import time
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from ..core.config import TrainerConfig
 from ..core.device import resolve_device, set_float32_precision
-from ..models import Deep3D, init_deep3d_params, save_params_npz
+from ..models import (Deep3D, flax_arrays_from_state_dict, float_variables,
+                      init_deep3d_params, load_params, nest_variables,
+                      save_params_npz, state_dict_from_flax)
+from ..utils.orbax import write_tree
 from .kitti_dataset import (RVS_DOWNSCALED_SHAPE, RVS_FULL_SHAPE,
                             KittiStereoDataset, batch_iterator)
 
@@ -117,11 +122,32 @@ class Trainer:
                 self.save_checkpoint(cfg.save_path)
         return epoch_losses
 
-    def save_checkpoint(self, path: str) -> None:
-        """Model, optimizer state and epoch, for ``load_checkpoint``."""
-        save_training_state(path, self.model, self.optimizer, self.epoch)
+    def save_checkpoint(self, path: str, format: str = "torch") -> None:
+        """Model, optimizer state and epoch, for ``load_checkpoint``: a
+        ``torch.save`` file, or with ``format="orbax"`` the tree JAX's
+        ``Trainer.save_checkpoint`` writes ({params, opt_state, epoch},
+        the optax state of ``inject_hyperparams`` over coupled Adam), which
+        its ``load_checkpoint`` resumes."""
+        if format == "orbax":
+            cfg = self.config
+            opt_state = {
+                "count": np.asarray(adam_count(self.optimizer), np.int32),
+                "hyperparams": {k: np.asarray(v, np.float32) for k, v in (
+                    ("b1", cfg.momentum), ("b2", 0.999),
+                    ("learning_rate",
+                     self.optimizer.param_groups[0]["lr"]),
+                    ("weight_decay", cfg.weight_decay))},
+                "hyperparams_states": {},
+                "inner_state": [None, optax_adam_state(self.model,
+                                                       self.optimizer), None]}
+            save_orbax_training_state(path, self.model, opt_state,
+                                      self.epoch)
+        else:
+            save_training_state(path, self.model, self.optimizer, self.epoch)
 
     def load_checkpoint(self, path: str) -> None:
+        """Resume from ``save_checkpoint``'s file or from an Orbax training
+        checkpoint (a directory) of either package."""
         self.epoch = load_training_state(path, self.model, self.optimizer,
                                          self.device)
 
@@ -156,9 +182,95 @@ def save_training_state(path: str, model: nn.Module,
 
 def load_training_state(path: str, model: nn.Module,
                         optimizer: torch.optim.Optimizer, device) -> int:
-    """Restore ``save_training_state``'s file into ``model`` and
-    ``optimizer``; returns the epoch."""
+    """Restore ``save_training_state``'s file, or an Orbax training
+    checkpoint directory (JAX's trainers' or ``save_orbax_training_state``'s),
+    into ``model`` and ``optimizer``; returns the epoch."""
+    if os.path.isdir(path):
+        tree = load_params(path)
+        model.load_state_dict(state_dict_from_flax(model,
+                                                   float_variables(tree)))
+        load_optax_state(model, optimizer, tree["opt_state"])
+        return int(tree["epoch"])
     state = torch.load(path, map_location=device, weights_only=True)
     model.load_state_dict(state["model"])
     optimizer.load_state_dict(state["optimizer"])
     return int(state["epoch"])
+
+
+def save_orbax_training_state(path: str, model: nn.Module, opt_state,
+                              epoch: int) -> None:
+    """An Orbax training checkpoint as the JAX trainers write it: the
+    model's Flax variables (``params``, and ``batch_stats`` where it has
+    BatchNorm), ``opt_state`` (an optax state tree) and ``epoch``."""
+    tree = nest_variables(flax_arrays_from_state_dict(model))
+    tree.update(opt_state=opt_state, epoch=int(epoch))
+    write_tree(path, tree)
+
+
+def adam_count(optimizer: torch.optim.Optimizer) -> int:
+    """The optimizer's step count (optax's ``count``): 0 before the first
+    step."""
+    for state in optimizer.state.values():
+        if "step" in state:
+            return int(state["step"])
+    return 0
+
+
+def optax_adam_state(model: nn.Module,
+                     optimizer: torch.optim.Optimizer) -> dict:
+    """torch Adam's or AdamW's moments as optax's ``ScaleByAdamState``
+    fields: ``count`` and the Flax-layout trees ``mu`` and ``nu`` of
+    ``exp_avg`` and ``exp_avg_sq`` (zeros before the first step)."""
+    moments = {"mu": {}, "nu": {}}
+    for name, p in model.named_parameters():
+        state = optimizer.state.get(p, {})
+        for field, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            moments[field][name] = state.get(key, torch.zeros_like(p))
+    return {"count": np.asarray(adam_count(optimizer), np.int32),
+            **{field: nest_variables(flax_arrays_from_state_dict(
+                model, named))["params"]
+               for field, named in moments.items()}}
+
+
+def _find_adam_state(tree):
+    """The ``ScaleByAdamState`` (a dict with ``count``, ``mu`` and ``nu``)
+    inside an optax state tree read from Orbax, or None."""
+    if isinstance(tree, dict):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree
+        nodes = list(tree.values())
+    elif isinstance(tree, list):
+        nodes = tree
+    else:
+        return None
+    for node in nodes:
+        found = _find_adam_state(node)
+        if found is not None:
+            return found
+    return None
+
+
+def load_optax_state(model: nn.Module, optimizer: torch.optim.Optimizer,
+                     opt_state) -> None:
+    """Map an optax Adam or AdamW state onto ``optimizer``: ``mu`` and
+    ``nu`` become each parameter's ``exp_avg`` and ``exp_avg_sq`` through
+    the Flax -> torch key map, ``count`` its ``step``; the learning rate of
+    ``inject_hyperparams`` (JAX's Deep3D trainer) becomes every group's."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no optax Adam state (count, mu, nu) in the "
+                         "checkpoint's opt_state")
+    count = int(np.asarray(adam["count"]))
+    optimizer.state.clear()
+    if count:
+        mu, nu = (state_dict_from_flax(model, float_variables(
+            {"params": adam[field]}, ("params",))) for field in ("mu", "nu"))
+        for name, p in model.named_parameters():
+            optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu[name].to(p.device, p.dtype),
+                "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+    hyper = opt_state.get("hyperparams") if isinstance(opt_state, dict) \
+        else None
+    if hyper and "learning_rate" in hyper:
+        set_learning_rate(optimizer, float(np.asarray(hyper["learning_rate"])))

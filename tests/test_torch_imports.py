@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``stereo_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, Flax, optax, PIL, OpenCV or ``stereo_tpu`` (the
-card's machine has none of them), and its entry points never fall back to
-the CPU on their own."""
+``chip_smoke.py`` imports JAX, Flax, optax, PIL, OpenCV, ``stereo_tpu``,
+Orbax, tensorstore or zstandard (the card's machine has none of them), and
+its entry points never fall back to the CPU on their own."""
 
 import ast
 import os
@@ -15,7 +15,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "stereo_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "cv2", "stereo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "cv2", "stereo_tpu",
+             "orbax", "tensorstore", "zstandard")
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
