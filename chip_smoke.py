@@ -148,7 +148,18 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              disparities equal to the single device's or within JAX's gate,
              the right views' largest difference, and the ms/frame of the
              split (device ms, busy share), of whole frames dealt and of
-             the single device.
+             the single device;
+   multiprocess: the mesh across processes: two ranks spawned on cuda:0,
+             a gloo group on a file store (``initialize_distributed``),
+             each rank listing its own entries of cuda:0 and ``make_mesh``
+             joining them in rank order: KITTI's classical kernel path on
+             (1,2,1) and (1,4,1) with the ring across the ranks, the
+             blockwise path on (1,1,3) with the argmax and the owned gather
+             across them, and the single view and GwcNet on (2,2,1) with
+             ``data`` across the ranks; every rank's result equal bit for
+             bit to the same mesh in one process; ms/frame of both, the
+             bytes staged through the host per frame (gloo moves host
+             tensors), the launches of both ranks.
 
 The kernel launch counts are zeroed just before each path of phases 5-9
 (the exported networks' inference included) is driven and read just
@@ -158,7 +169,8 @@ none: the networks train in their training mode, which runs the
 differentiable plain compositions, as the JAX package trains through XLA.
 A line ``{"training": ...}`` gives each trainer's ms/step and peak
 memory.  Then a JSON line with every kernel's numbers (its launches
-summed over those paths; the Middlebury entries' over the ``middlebury``
+summed over those paths, the ranks of ``multiprocess`` included, each
+counting its own; the Middlebury entries' over the ``middlebury``
 phase and the Middlebury meshes; the row-halo entries,
 ``matching_core[rows_prepadded]`` and ``sampled_window[rows_prepadded]``,
 timed at shard 1 of KITTI's tile 4), the ``nvidia-smi`` line, and last
@@ -167,6 +179,14 @@ exits non-zero without that last line; so does a machine without CUDA.
 Every network loads its committed checkpoint (``data/checkpoints/*.npz``)
 when it is present, else seeded random weights at the same width; the
 phase lines say which.
+
+    python3 chip_smoke.py --phases multiprocess synthetic
+
+runs the device and build phases and then only the named phases, with
+their gates (``multiprocess``, ``synthetic``; the latter with the
+committed Deep3D when ``data/checkpoints/deep3d.npz`` is present, which
+the whole smoke's copy may leave out), ending with the ``nvidia-smi``
+line and no kernels line.
 
     python3 chip_smoke.py --compare NAME=DIR [NAME=DIR ...]
 
@@ -1754,16 +1774,22 @@ def phase_evaluation(torch, dev, synthesis):
 # weights: results/evaluation/evaluation_r05_native_protocol.json.
 RECORD_D1 = {"classical": 0.055478671099990606,
              "gwcnet": 0.00038426719038398005}
+# The same record's depth-prior scenes with Deep3D's right view (rvs on):
+# held only with the committed Deep3D weights.
+RECORD_RVS_ON_D1 = {"classical": 0.09480642108246684,
+                    "gwcnet": 0.017927043576491997}
 
 
-def phase_synthetic(torch, dev, synthesis):
+def phase_synthetic(torch, dev, synthesis, deep3d_weights: str):
     """The ``--synthetic`` evaluation at the JAX script's defaults, the
     record's protocol (``SyntheticStereoCamera``: seed 20260817, 8 frames,
     384x1280; random-disparity scenes with the real right view, depth-prior
     scenes with Deep3D's), classical and GwcNet on the committed weights:
     every arm against the plain versions, and the rvs-off D1 within 1e-3
-    of the record; GwcNet also in bf16 with the real right view, its maps
-    held to the float32 arm's."""
+    of the record, the rvs-on D1 too when ``deep3d_weights`` is
+    ``"committed"`` (seeded Deep3D weights synthesize no usable view; their
+    D1 is printed, not held); GwcNet also in bf16 with the real right
+    view, its maps held to the float32 arm's."""
     from stereo_tpu_torch.pipeline.camera import SyntheticStereoCamera
 
     needed = {("classical", "off"): ("matching_core", "sampled_window"),
@@ -1782,6 +1808,14 @@ def phase_synthetic(torch, dev, synthesis):
         d1[backend] = dict(port=got, record=want, diff=got - want)
         require(abs(got - want) <= 1e-3,
                 f"synthetic D1 {backend}: {got} against the record {want}")
+    rvs_on = {"deep3d_weights": deep3d_weights,
+              "held": deep3d_weights == "committed"}
+    for backend, want in RECORD_RVS_ON_D1.items():
+        got = arms[f"{backend}/rvs_on"]["metrics"]["D1"]
+        rvs_on[backend] = dict(port=got, record=want, diff=got - want)
+        require(not rvs_on["held"] or abs(got - want) <= 1e-3,
+                f"synthetic rvs-on D1 {backend}: {got} against the record "
+                f"{want} (committed Deep3D)")
     # The bf16 GwcNet arm held to the float32 one on the same frames: the
     # CPU test's mean bound (0.02 px) and the record's D1 within 1e-3, as
     # the float32 arm.  The CPU test's 0.5 px max bound does not hold for
@@ -1798,7 +1832,8 @@ def phase_synthetic(torch, dev, synthesis):
     require(bf16["mean_abs"] <= 0.02
             and abs(bf16["d1"] - RECORD_D1["gwcnet"]) <= 1e-3,
             f"bf16 GwcNet against float32: {bf16}")
-    return counts, dict(arms=arms, d1_vs_record=d1, bf16_vs_float32=bf16)
+    return counts, dict(arms=arms, d1_vs_record=d1,
+                        rvs_on_d1_vs_record=rvs_on, bf16_vs_float32=bf16)
 
 
 def timed_steps(torch, step, reps: int) -> list:
@@ -3009,6 +3044,198 @@ def phase_mesh_single_view_rows(torch, dev, config, synthesis):
                         single_batch_spread=spread, cases=cases), failed
 
 
+# The mesh across processes: (label, engine, mesh, entries of cuda:0 each
+# of the two ranks lists).  KITTI's kernel path with the ring across the
+# ranks ((1,2,1): one entry each; (1,4,1): two each), the blockwise path
+# with the argmax and the owned gather across them ((1,1,3): two entries
+# on rank 0, one on rank 1), and the single view and GwcNet with ``data``
+# across the ranks and each tile pair split by rows within a rank.
+MULTIPROCESS_CASES = (
+    ("kitti_kernels_121", "classical", (1, 2, 1), (1, 1)),
+    ("kitti_kernels_141", "classical", (1, 4, 1), (2, 2)),
+    ("kitti_blockwise_113", "classical", (1, 1, 3), (2, 1)),
+    ("single_view_221", "single_view", (2, 2, 1), (2, 2)),
+    ("gwcnet_221", "gwcnet", (2, 2, 1), (2, 2)),
+)
+MULTIPROCESS_RANKS = 2
+
+
+def multiprocess_case(torch, kind, mc, mesh, synthesis, dev):
+    """The engine of one case on ``mesh`` and its inputs at 384x1280: a
+    call returning its outputs as a tuple, and the frames per call."""
+    from stereo_tpu_torch.core.config import PipelineConfig
+    from stereo_tpu_torch.parallel import (ShardedClassicalEngine,
+                                           ShardedDnnEngine,
+                                           ShardedSingleViewEngine)
+
+    cfg = PipelineConfig().matching_config()
+    if kind == "classical":
+        engine = ShardedClassicalEngine(cfg, mc, mesh=mesh)
+        left, right = (torch.from_numpy(np.stack([x] * mc.data)).to(dev)
+                       for x in kitti_pair())
+        return (lambda: (engine.compute_disparity_maps(left, right),),
+                mc.data, engine.use_kernels)
+    n = 2 * mc.data * mc.disp
+    left = torch.stack(seeded_frames(torch, dev, (384, 1280), 9, n))
+    if kind == "single_view":
+        engine = ShardedSingleViewEngine(cfg, mc, mesh=mesh,
+                                         synthesis=synthesis)
+        return (lambda: engine.process_batch(left, return_right=True), n,
+                engine.row_split)
+    engine = ShardedDnnEngine("gwcnet", (384, 1280), mc, mesh=mesh,
+                              max_disparity=64)
+    right = torch.roll(left, -7, dims=-1)
+    return (lambda: (engine.process_batch(left, right),), n,
+            engine.row_split)
+
+
+def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
+    """One rank of phase ``multiprocess``: every case of
+    ``MULTIPROCESS_CASES`` across the gloo group on cuda:0 (a warm-up
+    call, the counted call, five timed ones), its outputs saved to
+    ``out/rank{rank}.pt``; then rank 0 runs each case's mesh in this
+    process alone, saved to ``out/one_process.pt``.  A failure writes
+    ``out/rank{rank}.err`` and exits 1."""
+    import traceback
+
+    try:
+        sys.path.insert(0, ROOT)
+        import torch
+        import torch.distributed as dist
+        from stereo_tpu_torch.core.config import MeshConfig
+        from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+        from stereo_tpu_torch.parallel import (initialize_distributed,
+                                               make_mesh)
+        from stereo_tpu_torch.parallel.mesh import Mesh
+
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        initialize_distributed(init, world, rank, backend="gloo")
+        synthesis, weights = make_synthesis(dev)
+
+        def timed(run, n, sync):
+            times = []
+            for _ in range(5):
+                sync()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times) / n
+
+        maps, numbers = {}, {}
+        for label, kind, shape, entries in MULTIPROCESS_CASES:
+            mc = MeshConfig(*shape)
+            mesh = make_mesh(mc, [dev] * entries[rank])
+            run, n, path = multiprocess_case(torch, kind, mc, mesh,
+                                             synthesis, dev)
+            run()       # a row split captures its CUDA graph here
+            dist.barrier()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            staged = mesh.transport.staged_bytes
+            got = run()
+            torch.cuda.synchronize()
+            counts = dict(LAUNCHES)
+            staged = mesh.transport.staged_bytes - staged
+            maps[label] = [x.cpu() for x in got]
+            numbers[label] = dict(
+                path=path, ms_per_frame_median=timed(run, n, dist.barrier),
+                staged_bytes_per_frame=staged / n, launches=counts,
+                entries=int(sum(mesh.is_local(i)
+                                for i in np.ndindex(*shape))))
+            del run, mesh
+            torch.cuda.empty_cache()
+        torch.save(dict(maps=maps, numbers=numbers, weights=weights,
+                        backend=dist.get_backend()),
+                   os.path.join(out, f"rank{rank}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+        if rank == 0:
+            maps, numbers = {}, {}
+            for label, kind, shape, _ in MULTIPROCESS_CASES:
+                mc = MeshConfig(*shape)
+                grid = np.empty(mc.num_devices, dtype=object)
+                grid[:] = [dev] * mc.num_devices
+                run, n, _ = multiprocess_case(
+                    torch, kind, mc, Mesh(grid.reshape(shape)), synthesis,
+                    dev)
+                run()
+                maps[label] = [x.cpu() for x in run()]
+                numbers[label] = timed(run, n, lambda: None)
+                del run
+                torch.cuda.empty_cache()
+            torch.save(dict(maps=maps, ms_per_frame_median=numbers),
+                       os.path.join(out, "one_process.pt"))
+    except BaseException:
+        with open(os.path.join(out, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def phase_multiprocess(torch, tmp: str):
+    """The mesh across processes: ``MULTIPROCESS_RANKS`` ranks spawned on
+    cuda:0 (``parallel.transport.spawn_ranks``), a gloo group on a file
+    store, each rank listing its entries of cuda:0 (``make_mesh``'s global
+    mesh); each case of ``MULTIPROCESS_CASES`` on every rank equal bit for
+    bit to the same mesh in one process, ms/frame (median of 5) of both,
+    the bytes staged through the host per frame, and the ranks' launches
+    summed (the classical kernel path in its row-halo mode).  The ranks are
+    joined within a time limit; a failed or hung rank fails the phase."""
+    from stereo_tpu_torch.parallel.transport import spawn_ranks
+
+    os.makedirs(tmp)
+    codes = spawn_ranks(multiprocess_rank, MULTIPROCESS_RANKS,
+                        os.path.join(tmp, "store"), args=(tmp,),
+                        timeout_s=480)
+    errors = {name: open(os.path.join(tmp, name)).read()[-3000:]
+              for name in os.listdir(tmp) if name.endswith(".err")}
+    require(codes == [0] * MULTIPROCESS_RANKS,
+            f"multiprocess ranks exited {codes}: {errors}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                        weights_only=False)
+             for r in range(MULTIPROCESS_RANKS)]
+    one = torch.load(os.path.join(tmp, "one_process.pt"), weights_only=False)
+    counts = {k: sum(r["numbers"][label]["launches"][k] for r in ranks
+                     for label, *_ in MULTIPROCESS_CASES)
+              for k in ranks[0]["numbers"][MULTIPROCESS_CASES[0][0]][
+                  "launches"]}
+    cases = {}
+    for label, kind, shape, _ in MULTIPROCESS_CASES:
+        want = one["maps"][label]
+        equal = all(len(r["maps"][label]) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(r["maps"][label], want))
+            for r in ranks)
+        launches = {k: sum(r["numbers"][label]["launches"][k]
+                           for r in ranks) for k in counts}
+        path = ranks[0]["numbers"][label]["path"]
+        needed = {"classical": ("matching_core" + ROW_HALO,
+                                "sampled_window" + ROW_HALO) if path else (),
+                  "single_view": CLASSICAL_KERNELS,
+                  "gwcnet": ("gwc_volume",)}[kind]
+        require(equal, f"multiprocess {label}: differs from one process")
+        require(all(launches[k] >= 1 for k in needed),
+                f"multiprocess {label}: launches {launches}")
+        if kind == "gwcnet":
+            # One launch per shard on its group's frames: tile x groups.
+            require(launches["gwc_volume"] == shape[0] * shape[1] * shape[2],
+                    f"multiprocess {label}: gwc_volume launches "
+                    f"{launches['gwc_volume']}")
+        cases[label] = dict(
+            mesh=shape, equal=equal, kernel_path_or_row_split=path,
+            entries_per_rank=[r["numbers"][label]["entries"] for r in ranks],
+            ms_per_frame_median=[r["numbers"][label]["ms_per_frame_median"]
+                                 for r in ranks],
+            one_process_ms_per_frame_median=one["ms_per_frame_median"][label],
+            staged_bytes_per_frame=[
+                r["numbers"][label]["staged_bytes_per_frame"] for r in ranks],
+            launches=launches)
+    return counts, dict(backend=ranks[0]["backend"],
+                        ranks=MULTIPROCESS_RANKS,
+                        deep3d_weights=ranks[0]["weights"], cases=cases)
+
+
 def phase_mesh_server(torch, dev, config, synthesis):
     """A server on a classical (2,1,1) virtual-mesh pipeline of ``config``,
     micro-batch 2, answers PNG uploads (``phase_server``), and
@@ -3120,7 +3347,8 @@ def main() -> int:
     report("evaluation", t, deep3d_weights=deep3d_weights, arms=arms)
 
     t = time.perf_counter()
-    synthetic_counts, numbers = phase_synthetic(torch, dev, synthesis)
+    synthetic_counts, numbers = phase_synthetic(torch, dev, synthesis,
+                                                deep3d_weights)
     counts.update({f"synthetic/{k}": v for k, v in synthetic_counts.items()})
     report("synthetic", t, deep3d_weights=deep3d_weights, **numbers)
 
@@ -3211,6 +3439,11 @@ def main() -> int:
     counts["mesh_single_view_rows"], numbers, failed_sv = (
         phase_mesh_single_view_rows(torch, dev, PipelineConfig(), synthesis))
     report("mesh_single_view_rows", t, **numbers)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        counts["multiprocess"], numbers = phase_multiprocess(
+            torch, os.path.join(tmp, "multiprocess"))
+        report("multiprocess", t, **numbers)
     require(not failed, f"mesh_dnn_rows failed its gates: {failed}")
     require(not failed_sv,
             f"mesh_single_view_rows failed its gates: {failed_sv}")
@@ -3419,6 +3652,45 @@ def compare_gwc(torch, libs, dev) -> None:
                ms=times, order=order)
 
 
+def only(names) -> int:
+    """``--phases``: see the module's docstring."""
+    import tempfile
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    require(set(names) <= {"multiprocess", "synthetic"},
+            f"--phases takes multiprocess and synthetic, not {names}")
+    sys.path.insert(0, ROOT)
+    from stereo_tpu_torch.ops.cuda import build
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    report("device", time.perf_counter(), name=torch.cuda.get_device_name(0),
+           nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    t = time.perf_counter()
+    build.library()
+    report("build", t, nvcc_seconds=round(build.build_seconds, 3))
+    if "multiprocess" in names:
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            counts, numbers = phase_multiprocess(
+                torch, os.path.join(tmp, "multiprocess"))
+            report("multiprocess", t, launches=counts, **numbers)
+    if "synthetic" in names:
+        synthesis, deep3d_weights = make_synthesis(dev)
+        t = time.perf_counter()
+        _, numbers = phase_synthetic(torch, dev, synthesis, deep3d_weights)
+        report("synthetic", t, deep3d_weights=deep3d_weights, **numbers)
+    for line in smi:
+        print(line, flush=True)
+    return 0
+
+
 def compare(specs) -> int:
     """``--compare``: see the module's docstring."""
     import torch
@@ -3474,4 +3746,6 @@ def compare(specs) -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--compare":
         sys.exit(compare(sys.argv[2:]))
+    if len(sys.argv) > 2 and sys.argv[1] == "--phases":
+        sys.exit(only(sys.argv[2:]))
     sys.exit(main())

@@ -23,6 +23,16 @@ shard's device and handed to the others.  No shard writes in place into a
 tensor it received: on a mesh that repeats a device, ``.to()`` hands over
 the sender's own tensor.
 
+On a mesh that spans processes (``Mesh.processes``) any axis may cross
+ranks.  A rank holds values for its own entries only (None elsewhere),
+runs the local maps on those, and each collective whose list crosses
+ranks takes that list's ``parallel.transport.Line``: the ring's exchanges
+become point-to-point messages to the ring neighbours, the argmax and the
+sums become all-reduces over the disp group (each rank reducing its own
+entries first), the row gather an all-gather.  Every maximum, minimum and
+sum is exact (each sum has one non-zero term per element), so the result
+equals the same mesh in one process bit for bit.
+
 Correctness contract: equal to the single-device engine
 (``stereo_tpu_torch.matching.classical``).
 """
@@ -34,6 +44,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.distributed import ReduceOp
 
 from .. import ops
 from ..core.config import MatchingConfig, MeshConfig
@@ -52,101 +63,165 @@ def k_halo_rows(config: MatchingConfig) -> int:
 
 
 # -- collectives over one ring (tile) or one disp group ----------------------
+#
+# Each takes the list of the ring or group and, where the list crosses
+# processes, its ``line`` (None at other ranks' entries, which the line's
+# transport reaches); each returns values at the local entries only.
 
-def _ring_halo_rows(xs: List[torch.Tensor], halo: int) -> List[torch.Tensor]:
+def _ring_fetch(xs: List[Optional[torch.Tensor]], wants, line=None) -> list:
+    """For each local entry i and each ``(offset, piece)`` of ``wants``,
+    ``piece(xs[(i + offset) % n])`` on entry i's device."""
+    if line is not None:
+        return line.ring_fetch(xs, wants)
+    n = len(xs)
+    return [[piece(xs[(i + offset) % n]).to(x.device)
+             for offset, piece in wants] for i, x in enumerate(xs)]
+
+
+def _ring_halo_rows(xs: List[torch.Tensor], halo: int,
+                    line=None) -> List[torch.Tensor]:
     """Extend each shard's rows with ``halo`` rows of its ring neighbours
     (wrap-around at the global borders, the ``pad_index`` wrap; a ring of
     one wraps onto itself).  (H_local, W) -> (H_local + 2*halo, W)."""
-    n = len(xs)
-    return [torch.cat([xs[(i - 1) % n][-halo:].to(x.device), x,
-                       xs[(i + 1) % n][:halo].to(x.device)], dim=0)
-            for i, x in enumerate(xs)]
+    pieces = _ring_fetch(xs, [(-1, lambda x: x[-halo:]),
+                              (1, lambda x: x[:halo])], line)
+    return [None if x is None else torch.cat([above, x, below], dim=0)
+            for x, (above, below) in zip(xs, [p or (None, None)
+                                              for p in pieces])]
 
 
-def _ring_from_previous(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+def _ring_from_previous(xs: List[torch.Tensor],
+                        line=None) -> List[torch.Tensor]:
     """Each shard receives the previous shard's value (wrap at the top)."""
-    n = len(xs)
-    return [xs[(i - 1) % n].to(x.device) for i, x in enumerate(xs)]
+    return [p and p[0] for p in _ring_fetch(xs, [(-1, lambda x: x)], line)]
 
 
 def _to_each(value: torch.Tensor, xs: List[torch.Tensor]) -> List[torch.Tensor]:
-    """``value`` handed to the device of each of ``xs``."""
-    return [value.to(x.device) for x in xs]
+    """``value`` handed to the device of each of ``xs`` (None stays)."""
+    return [None if x is None else value.to(x.device) for x in xs]
+
+
+def _local_reduce(op, xs: List[Optional[torch.Tensor]]) -> torch.Tensor:
+    """``op`` over this process's entries, on the first one's device."""
+    local = [x for x in xs if x is not None]
+    dev = local[0].device
+    return functools.reduce(op, [x.to(dev) for x in local])
 
 
 def _cross_chip_argmax(values: List[torch.Tensor],
-                       global_idx: List[torch.Tensor]):
+                       global_idx: List[torch.Tensor], line=None):
     """First-maximum-wins argmax across shards: the max of the values, then
     the least global index among the shards that reach it (ties -> the
-    smallest global index, the reference's strict ``>`` scan)."""
-    dev = values[0].device
-    vals = [v.to(dev) for v in values]
-    gmax = functools.reduce(torch.maximum, vals)
-    big = torch.iinfo(global_idx[0].dtype).max
-    cand = [torch.where(v == gmax, i.to(dev), big)
-            for v, i in zip(vals, global_idx)]
-    return (_to_each(gmax, values),
-            _to_each(functools.reduce(torch.minimum, cand), values))
+    smallest global index, the reference's strict ``>`` scan).  Across
+    processes each rank reduces its own shards, then the ranks all-reduce
+    (MAX, then MIN on the candidates)."""
+    gmax = _local_reduce(torch.maximum, values)
+    if line is not None:
+        gmax = line.all_reduce(gmax, ReduceOp.MAX)
+    dev = gmax.device
+    big = torch.iinfo(_first(global_idx).dtype).max
+    cand = _local_reduce(torch.minimum, [
+        None if v is None else torch.where(v.to(dev) == gmax, i.to(dev), big)
+        for v, i in zip(values, global_idx)])
+    if line is not None:
+        cand = line.all_reduce(cand, ReduceOp.MIN)
+    return _to_each(gmax, values), _to_each(cand, values)
 
 
-def _psum(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+def _psum(xs: List[torch.Tensor], line=None) -> List[torch.Tensor]:
     """The sum over the shards.  Each use has one non-zero term per
     element, so the shards' order cannot change a bit."""
-    dev = xs[0].device
-    total = xs[0]
-    for x in xs[1:]:
-        total = total + x.to(dev)
+    total = _local_reduce(torch.add, xs)
+    if line is not None:
+        total = line.all_reduce(total, ReduceOp.SUM)
     return _to_each(total, xs)
 
 
 def _owned_gather(volumes: List[torch.Tensor], local_pos: List[torch.Tensor],
-                  chunk: int) -> List[torch.Tensor]:
+                  chunk: int, line=None) -> List[torch.Tensor]:
     """Fetch ``volume[..., local_pos]`` from whichever disp shard owns it:
     mask out-of-chunk positions locally, sum across the shards."""
     parts = []
     for volume, pos in zip(volumes, local_pos):
+        if volume is None:
+            parts.append(None)
+            continue
         owned = (pos >= 0) & (pos < chunk)
         vals = take_lane(volume, torch.clamp(pos, 0, chunk - 1))
         parts.append(torch.where(owned, vals, 0.0))
-    return _psum(parts)
+    return _psum(parts, line)
 
 
-def _all_gather_rows(xs: List[torch.Tensor]) -> List[torch.Tensor]:
-    """Every shard's rows, concatenated in ring order, on each device."""
+def _all_gather_rows(xs: List[torch.Tensor],
+                     line=None) -> List[torch.Tensor]:
+    """Every shard's rows, concatenated in ring order, on each local
+    shard's own device."""
+    parts = xs if line is None else line.all_gather(xs, _first(xs).device)
     by_device = {}
+    out = []
     for x in xs:
+        if x is None:
+            out.append(None)
+            continue
         if x.device not in by_device:
-            by_device[x.device] = torch.cat([y.to(x.device) for y in xs])
-    return [by_device[x.device] for x in xs]
+            by_device[x.device] = torch.cat([y.to(x.device) for y in parts])
+        out.append(by_device[x.device])
+    return out
 
 
 # -- per-device maps over a (tile, disp) grid of shards ----------------------
+#
+# A grid holds None at the entries of other processes; the maps run the
+# local shards only.
+
+def _first(xs):
+    """The first value that is not None."""
+    return next(x for x in xs if x is not None)
+
+
+def _first_shard(grid):
+    """The first local shard of a (tile, disp) grid."""
+    return _first(x for row in grid for x in row)
+
 
 def _each(fn, *grids):
-    """``fn`` on every shard of the grids."""
-    return [[fn(*args) for args in zip(*rows)] for rows in zip(*grids)]
+    """``fn`` on every local shard of the grids."""
+    return [[None if any(a is None for a in args) else fn(*args)
+             for args in zip(*rows)] for rows in zip(*grids)]
 
 
-def _along_tile(fn, *grids):
-    """``fn`` on the lists of each ring (one per disp index)."""
+def _along_tile(fn, *grids, lines=None):
+    """``fn`` on the lists of each ring (one per disp index) that holds a
+    local shard, with that ring's line (``lines[p]``)."""
     n_tile, n_disp = len(grids[0]), len(grids[0][0])
-    cols = [fn(*[[g[t][p] for t in range(n_tile)] for g in grids])
-            for p in range(n_disp)]
+    cols = []
+    for p in range(n_disp):
+        lists = [[g[t][p] for t in range(n_tile)] for g in grids]
+        if all(x is None for x in lists[0]):
+            cols.append([None] * n_tile)
+        else:
+            cols.append(fn(*lists, line=lines and lines[p]))
     return [[cols[p][t] for p in range(n_disp)] for t in range(n_tile)]
 
 
-def _along_disp(fn, *grids):
-    """``fn`` on the lists of each disp group (one per tile index)."""
-    return [fn(*rows) for rows in zip(*grids)]
+def _along_disp(fn, *grids, lines=None):
+    """``fn`` on the lists of each disp group (one per tile index) that
+    holds a local shard, with that group's line (``lines[t]``)."""
+    return [[None] * len(rows[0]) if all(x is None for x in rows[0])
+            else fn(*rows, line=lines and lines[t])
+            for t, rows in enumerate(zip(*grids))]
 
 
 def _sharded_frame(left_rgb, right_rgb, config: MatchingConfig,
-                   use_kernels: bool = False):
+                   use_kernels: bool = False, lines=None):
     """One frame over a (tile, disp) grid of shards.
 
     ``left_rgb``/``right_rgb``: ``[ti][pi]`` (3, H_local, W) row shards,
-    each on its device.  Returns the ``[ti][pi]`` (H_local, W) disparity
-    rows.
+    each on its device (None at other processes' entries).  Returns the
+    ``[ti][pi]`` (H_local, W) disparity rows.  ``lines``: for a grid that
+    spans processes, ``(tile_lines, disp_lines)``, the ``Line`` of each
+    ring (by disp index) and of each disp group (by tile index), None
+    where one process holds it.
 
     With ``use_kernels=True`` (requires a disp axis of 1) cost volume,
     aggregation, WTA and the dense-SAD window run in ``matching_core`` and
@@ -166,8 +241,11 @@ def _sharded_frame(left_rgb, right_rgb, config: MatchingConfig,
     halo_full = k * halo_down
     c0 = [[p * chunk for p in range(n_disp)] for _ in range(n_tile)]
     tile_index = [[t] * n_disp for t in range(n_tile)]
+    tile_lines, disp_lines = lines or (None, None)
+    along_tile = functools.partial(_along_tile, lines=tile_lines)
+    along_disp = functools.partial(_along_disp, lines=disp_lines)
 
-    local_h = left_rgb[0][0].shape[-2]
+    local_h = _first_shard(left_rgb).shape[-2]
     local_hd = local_h // k
     h_full = local_h * n_tile
 
@@ -177,13 +255,13 @@ def _sharded_frame(left_rgb, right_rgb, config: MatchingConfig,
 
     # Halo exchange: one ring exchange of input rows makes every windowed
     # stage local.
-    lg_e = _along_tile(lambda xs: _ring_halo_rows(xs, halo_full), lg)
-    rg_e = _along_tile(lambda xs: _ring_halo_rows(xs, halo_full), rg)
+    lg_e = along_tile(functools.partial(_ring_halo_rows, halo=halo_full), lg)
+    rg_e = along_tile(functools.partial(_ring_halo_rows, halo=halo_full), rg)
 
     # Stage 2: mean-pool downscale (local, halo rows aligned to k).
     ld = _each(lambda x: ops.mean_pool(x, k), lg_e)
     rd = _each(lambda x: ops.mean_pool(x, k), rg_e)
-    w_d = ld[0][0].shape[-1]
+    w_d = _first_shard(ld).shape[-1]
 
     if use_kernels:
         if n_disp != 1:
@@ -206,8 +284,9 @@ def _sharded_frame(left_rgb, right_rgb, config: MatchingConfig,
         scaled = _each(refine_shard, ld, rd, lg_e, rg_e)
         # The vertical fill needs the row above each local block: the
         # previous shard's last refined row over the ring.
-        neighbor_last = _along_tile(
-            lambda xs: _ring_from_previous([x[-1:] for x in xs]), scaled)
+        neighbor_last = along_tile(
+            lambda xs, line: _ring_from_previous(
+                [None if x is None else x[-1:] for x in xs], line), scaled)
         prev_row = _each(lambda n, s: torch.cat([n, s[:-1]], dim=0),
                          neighbor_last, scaled)
     else:
@@ -232,8 +311,9 @@ def _sharded_frame(left_rgb, right_rgb, config: MatchingConfig,
         local_val = _each(lambda a: torch.amax(a, dim=-1), aggregated)
         local_best = _each(lambda a, c0: torch.argmax(a, dim=-1) + c0,
                            aggregated, c0)
-        d_idx = _along_disp(lambda v, i: _cross_chip_argmax(v, i)[1],
-                            local_val, local_best)
+        d_idx = along_disp(
+            lambda v, i, line: _cross_chip_argmax(v, i, line)[1],
+            local_val, local_best)
         disparity = _each(lambda d: (d + c.min_disparity_down).to(
             torch.float32), d_idx)
 
@@ -253,9 +333,9 @@ def _sharded_frame(left_rgb, right_rgb, config: MatchingConfig,
             window = take_window_lanes(dense, start, win)
             return torch.where(owned[..., None], window, 0.0)
 
-        window = _along_disp(_psum, _each(owned_window, dense, d_idx, c0))
-        mbm = [_along_disp(
-            lambda vol, pos: _owned_gather(vol, pos, chunk), aggregated,
+        window = along_disp(_psum, _each(owned_window, dense, d_idx, c0))
+        mbm = [along_disp(
+            functools.partial(_owned_gather, chunk=chunk), aggregated,
             _each(lambda d, c0: torch.remainder(d + j, num_dd) - c0,
                   d_idx, c0)) for j in (-1, 0, 1)]
         refined = _each(lambda w, d, a, b, e: refine_from_window(
@@ -268,8 +348,8 @@ def _sharded_frame(left_rgb, right_rgb, config: MatchingConfig,
     # Stages 7-8: fills.  The vertical fill's bilateral colours index rows
     # k*x, (k+1)*x, k*x+i of the global stride-k column grid: gather the
     # (H, W_d) grid once over the ring, keep everything else local.
-    grid = _along_tile(_all_gather_rows,
-                       _each(lambda x: x[:, ::k][:, :w_d], lg))
+    grid = along_tile(_all_gather_rows,
+                      _each(lambda x: x[:, ::k][:, :w_d], lg))
 
     def fill_shard(scaled, prev_row, grid, lg, ti):
         x_abs = ti * local_hd + torch.arange(local_hd, device=scaled.device)
@@ -297,6 +377,11 @@ class ShardedClassicalEngine:
     divisible by ``k * tile``, each row shard at least the ring's halo
     (``k_halo_rows``); downscaled disparity count divisible by ``disp``.
     Results are gathered on the mesh's first device.
+
+    On a mesh that spans processes every rank calls with the same global
+    batch, runs its own entries, and receives the whole result on its
+    first device.  The rings and disp groups that cross ranks get their
+    ``Line`` (and process group) here, in one order on every rank.
     """
 
     def __init__(self, config: MatchingConfig, mesh_config: MeshConfig,
@@ -319,6 +404,11 @@ class ShardedClassicalEngine:
         self.use_kernels = self._select_kernels(config, mc, self.mesh)
         self._in = Placement(self.mesh, ("data", None, "tile", None))
         self._out = Placement(self.mesh, ("data", "tile", None))
+        self._lines = [
+            ([self.mesh.line([(d, t, p) for t in range(mc.tile)])
+              for p in range(mc.disp)],
+             [self.mesh.line([(d, t, p) for p in range(mc.disp)])
+              for t in range(mc.tile)]) for d in range(mc.data)]
 
     @staticmethod
     def _select_kernels(config: MatchingConfig, mc: MeshConfig,
@@ -355,16 +445,23 @@ class ShardedClassicalEngine:
             raise ValueError("batch size must divide data axis")
         lefts, rights = self._in.shard(left), self._in.shard(right)
         out = np.empty(self.mesh.shape, dtype=object)
+
+        def frame_of(shards, d, f):
+            return [[None if shards[d, t, p] is None else shards[d, t, p][f]
+                     for p in range(n_disp)] for t in range(n_tile)]
+
         with torch.no_grad():
             for d in range(data):
+                if all(x is None for x in lefts[d].flat):
+                    continue        # another process's data row
                 frames = [_sharded_frame(
-                    [[lefts[d, t, p][f] for p in range(n_disp)]
-                     for t in range(n_tile)],
-                    [[rights[d, t, p][f] for p in range(n_disp)]
-                     for t in range(n_tile)], self.config, self.use_kernels)
-                    for f in range(lefts[d, 0, 0].shape[0])]
+                    frame_of(lefts, d, f), frame_of(rights, d, f),
+                    self.config, self.use_kernels, self._lines[d])
+                    for f in range(left.shape[0] // data)]
                 for t, p in np.ndindex(n_tile, n_disp):
-                    out[d, t, p] = torch.stack([fr[t][p] for fr in frames])
+                    if lefts[d, t, p] is not None:
+                        out[d, t, p] = torch.stack([fr[t][p]
+                                                    for fr in frames])
         return self._out.gather(out)
 
     def warmup(self) -> None:

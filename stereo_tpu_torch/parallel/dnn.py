@@ -30,6 +30,15 @@ group's ``tile`` devices; :attr:`ShardedDnnEngine.row_split` says which
 was taken.  Both give the single device's result up to float rounding.
 Each distinct device of the mesh holds one replica of the weights, loaded
 once and copied to the others.
+
+On a mesh that spans processes every rank calls with the same global
+batch and builds replicas on its own devices only; it runs the frames
+:func:`frame_slots` deals to them (or the groups whose ``tile`` devices
+are its own), and every rank receives the whole batch of maps on its
+first device through an all-gather (``parallel.transport``).  A row split
+whose ``tile`` group spans processes would need the per-layer halo
+exchange (``ops/rows.py``) across processes, which is not ported: the
+engine refuses such a mesh.
 """
 
 from __future__ import annotations
@@ -48,18 +57,50 @@ from .mesh import Mesh, make_mesh
 ROW_STRIDE = 16
 
 
-def frame_devices(mesh: Mesh, n: int) -> list:
-    """The device of each frame of an n-frame batch: the batch splits into
-    the ``data`` x ``disp`` groups (data major), and a group's frames are
-    dealt round-robin over its ``tile`` devices."""
+def frame_slots(mesh: Mesh, n: int) -> list:
+    """The mesh index of each frame of an n-frame batch: the batch splits
+    into the ``data`` x ``disp`` groups (data major), and a group's frames
+    are dealt round-robin over its ``tile`` devices."""
     data, tile, disp = mesh.shape
     per_group = n // (data * disp)
-    devices = []
+    slots = []
     for i in range(n):
         group, j = divmod(i, per_group)
         d, p = divmod(group, disp)
-        devices.append(mesh.devices[d, j % tile, p])
-    return devices
+        slots.append((d, j % tile, p))
+    return slots
+
+
+def frame_devices(mesh: Mesh, n: int) -> list:
+    """The device of each frame of an n-frame batch (:func:`frame_slots`)."""
+    return [mesh.devices[s] for s in frame_slots(mesh, n)]
+
+
+def refuse_split_across_processes(mesh: Mesh) -> None:
+    """Raise ``ValueError`` when a ``tile`` group of ``mesh`` spans
+    processes: its row split would exchange halo rows between processes
+    at every layer, which is not ported."""
+    data, tile, disp = mesh.shape
+    spanning = [(d, p) for d in range(data) for p in range(disp)
+                if mesh.spans([(d, t, p) for t in range(tile)])]
+    if spanning:
+        raise ValueError(
+            f"mesh {mesh.shape} with ranks {mesh.processes.tolist()}: the "
+            f"row split's tile groups (data, disp) {spanning} span "
+            f"processes, and the split's per-layer halo exchange does not "
+            f"cross processes; keep each tile group on one process (data "
+            f"across processes, tile within)")
+
+
+def gather_frames(mesh: Mesh, frames: list, slots: list) -> torch.Tensor:
+    """(N, ...) on the mesh's first device from per-frame results:
+    ``frames[i]`` computed at mesh index ``slots[i]`` (None on the
+    processes that do not hold it)."""
+    first = mesh.first_device
+    if mesh.processes is None:
+        return torch.stack([f.to(first) for f in frames])
+    return torch.stack(mesh.transport.all_gather_parts(
+        frames, [int(mesh.processes[s]) for s in slots], first))
 
 
 class ShardedDnnEngine:
@@ -92,17 +133,20 @@ class ShardedDnnEngine:
                              f"by the tile mesh extent {self._tile}")
         self.row_split = (self._tile > 1
                           and image_shape[0] % (ROW_STRIDE * self._tile) == 0)
+        if self.row_split:
+            refuse_split_across_processes(self.mesh)
         self.halo = None
         self._shard_threads = rows.ShardThreads()
-        first, *others = self.mesh.distinct_devices()
-        self.graph_splits = first.type == "cuda" and not others
+        devices = self.mesh.distinct_devices()
+        self.graph_splits = len(devices) == 1 and devices[0].type == "cuda"
         backend = DnnStereoMatchingBackend(
             model_name, image_shape, max_disparity=max_disparity,
             state_dict=state_dict, checkpoint_dir=checkpoint_dir,
-            compute_dtype=compute_dtype, device=first)
+            compute_dtype=compute_dtype,
+            device=devices[0] if devices else self.mesh.first_device)
         self.weights = backend.weights
-        self.replicas = {first: backend}
-        self.replicas.update({dev: backend.to(dev) for dev in others})
+        self.replicas = {dev: backend if i == 0 else backend.to(dev)
+                         for i, dev in enumerate(devices)}
 
     def process_batch(self, left_batch, right_batch) -> torch.Tensor:
         """(N, 3, H, W) x2 in 0..255 -> (N, H, W) float32 disparities on
@@ -110,28 +154,57 @@ class ShardedDnnEngine:
         :attr:`batch_group`."""
         left = torch.as_tensor(left_batch)
         right = torch.as_tensor(right_batch)
-        if left.shape[0] % self.batch_group:
-            raise ValueError(f"batch {left.shape[0]} not divisible by the "
+        n = left.shape[0]
+        if n % self.batch_group:
+            raise ValueError(f"batch {n} not divisible by the "
                              f"data x disp mesh extent {self.batch_group}")
+        mesh = self.mesh
         if self.row_split:
-            data, _, disp = self.mesh.shape
-            groups = [list(self.mesh.devices[d, :, p]) for d in range(data)
-                      for p in range(disp)]
-            return self._split_rows(left, right, groups)
-        out = [self.replicas[dev].process(l, r) for dev, l, r in
-               zip(frame_devices(self.mesh, left.shape[0]), left, right)]
-        first = self.mesh.first_device
-        return torch.stack([d.to(first) for d in out])
+            data, _, disp = mesh.shape
+            keys = [(d, p) for d in range(data) for p in range(disp)]
+            if mesh.processes is None:
+                return self._split_rows(left, right, [
+                    list(mesh.devices[d, :, p]) for d, p in keys])
+            # This process's groups, their frames split by rows over their
+            # (local) tile devices; every group's maps gathered.
+            per_group = n // len(keys)
+            mine = [g for g, (d, p) in enumerate(keys)
+                    if mesh.is_local((d, 0, p))]
+            idx = [g * per_group + j for g in mine for j in range(per_group)]
+            frames = [None] * n
+            if mine:
+                out = self._split_rows(left[idx], right[idx], [
+                    list(mesh.devices[keys[g][0], :, keys[g][1]])
+                    for g in mine])
+                for k, i in enumerate(idx):
+                    frames[i] = out[k]
+            slots = [(keys[i // per_group][0], 0, keys[i // per_group][1])
+                     for i in range(n)]
+            return gather_frames(mesh, frames, slots)
+        slots = frame_slots(mesh, n)
+        out = [self.replicas[mesh.devices[s]].process(l, r)
+               if mesh.is_local(s) else None
+               for s, l, r in zip(slots, left, right)]
+        return gather_frames(mesh, out, slots)
 
     def process(self, left_image, right_image) -> torch.Tensor:
         """One (3, H, W) pair -> (H, W): split by rows over the first
-        group's ``tile`` devices, or whole on the mesh's first device."""
+        group's ``tile`` devices, or whole on the mesh's first entry (on
+        the process that holds it, the map then gathered to every
+        process)."""
+        mesh = self.mesh
+        if not mesh.is_local((0, 0, 0)):
+            return gather_frames(mesh, [None], [(0, 0, 0)])[0]
         if not self.row_split:
-            return self.replicas[self.mesh.first_device].process(
+            out = self.replicas[mesh.devices[0, 0, 0]].process(
                 left_image, right_image)
-        return self._split_rows(torch.as_tensor(left_image)[None],
-                                torch.as_tensor(right_image)[None],
-                                [list(self.mesh.devices[0, :, 0])])[0]
+        else:
+            out = self._split_rows(torch.as_tensor(left_image)[None],
+                                   torch.as_tensor(right_image)[None],
+                                   [list(mesh.devices[0, :, 0])])[0]
+        if mesh.processes is None:
+            return out
+        return gather_frames(mesh, [out], [(0, 0, 0)])[0]
 
     @property
     def graphs_captured(self) -> int:

@@ -31,6 +31,12 @@ was taken.  When every device of the mesh is one card, the split synthesis
 is replayed from a CUDA graph (``ShardThreads.replay``).  On the card the
 path launches ``upsample_blend`` on every shard, and ``matching_core`` and
 ``sampled_window`` per frame.
+
+On a mesh that spans processes every rank calls with the same global
+batch, holds replicas on its own devices only and runs the groups (split)
+or frames (dealt) that lie on them; the disparities and right views are
+gathered to every rank (``parallel.dnn.gather_frames``).  A split whose
+``tile`` group spans processes is refused, as in ``parallel.dnn``.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import torch
 
 from ..core.config import MatchingConfig, MeshConfig
 from . import rows
-from .dnn import frame_devices
+from .dnn import frame_slots, gather_frames, refuse_split_across_processes
 from .mesh import Mesh, make_mesh, same_device
 
 # The product of the strides of Deep3D's first three pools (VggBlock_0-2).
@@ -83,10 +89,10 @@ class ShardedSingleViewEngine:
         devices = self.mesh.distinct_devices()
         if synthesis is None:
             from ..synthesis.right_view_synthesis import RightViewSynthesis
-            synthesis = RightViewSynthesis(output_shape=out_shape,
-                                           checkpoint_dir=checkpoint_dir,
-                                           compute_dtype=compute_dtype,
-                                           device=devices[0])
+            synthesis = RightViewSynthesis(
+                output_shape=out_shape, checkpoint_dir=checkpoint_dir,
+                compute_dtype=compute_dtype,
+                device=devices[0] if devices else self.mesh.first_device)
         self.synthesis = synthesis
         self.replicas = {dev: synthesis if same_device(synthesis.device, dev)
                          else synthesis.to(dev) for dev in devices}
@@ -95,8 +101,10 @@ class ShardedSingleViewEngine:
         self.row_split = (self._tile > 1
                           and dh % (DEEP3D_ROW_STRIDE * self._tile) == 0
                           and (fh, fw) == (4 * dh, 4 * dw))
+        if self.row_split:
+            refuse_split_across_processes(self.mesh)
         self.halo = None
-        self.graph_splits = devices[0].type == "cuda" and len(devices) == 1
+        self.graph_splits = len(devices) == 1 and devices[0].type == "cuda"
         self._shard_threads = rows.ShardThreads()
 
     @property
@@ -117,33 +125,51 @@ class ShardedSingleViewEngine:
         from ..matching.classical import compute_disparity_map
 
         left = torch.as_tensor(left_batch)
-        if left.shape[0] % self.batch_group:
-            raise ValueError(f"batch {left.shape[0]} not divisible by the "
+        n = left.shape[0]
+        if n % self.batch_group:
+            raise ValueError(f"batch {n} not divisible by the "
                              f"data x disp mesh extent {self.batch_group}")
-        placement = frame_devices(self.mesh, left.shape[0])
+        mesh = self.mesh
+        slots = frame_slots(mesh, n)
+        frames = [None] * n
         with torch.no_grad():
             if self.row_split:
-                rights = self._synthesize_split(left)
-                frames = [(compute_disparity_map(
-                    l.to(dev, torch.float32), r.to(dev), self.config), r)
-                    for dev, l, r in zip(placement, left, rights)]
+                # A group's frames are dealt within its tile devices, so a
+                # frame is this process's exactly when its group is.
+                mine = [i for i, s in enumerate(slots) if mesh.is_local(s)]
+                rights = self._synthesize_split(left, mine)
+                for i, r in zip(mine, rights):
+                    dev = mesh.devices[slots[i]]
+                    frames[i] = (compute_disparity_map(
+                        left[i].to(dev, torch.float32), r.to(dev),
+                        self.config), r)
             else:
-                frames = [self._frame(dev, l)
-                          for dev, l in zip(placement, left)]
-        first = self.mesh.first_device
-        disparity = torch.stack([d.to(first) for d, _ in frames])
+                for i, (s, l) in enumerate(zip(slots, left)):
+                    if mesh.is_local(s):
+                        frames[i] = self._frame(mesh.devices[s], l)
+        disparity = gather_frames(mesh, [f and f[0] for f in frames], slots)
         if not return_right:
             return disparity
-        return disparity, torch.stack([r.to(first) for _, r in frames])
+        return disparity, gather_frames(mesh, [f and f[1] for f in frames],
+                                        slots)
 
-    def _synthesize_split(self, left: torch.Tensor) -> torch.Tensor:
-        """(N, 3, H, W) 0..255 -> the right views (N, 3, *output shape) on
-        the mesh's first device, each group's frames split by rows over its
-        ``tile`` devices; replayed from a CUDA graph when
-        :attr:`graph_splits`."""
+    def _synthesize_split(self, left: torch.Tensor, mine: list):
+        """The right views (3, *output shape) of frames ``mine`` of the
+        (N, 3, H, W) 0..255 batch, on the mesh's first device: each
+        group's frames split by rows over its ``tile`` devices; replayed
+        from a CUDA graph when :attr:`graph_splits`.  ``mine`` holds whole
+        groups (all of them on a mesh of one process)."""
         data, _, disp = self.mesh.shape
-        groups = [list(self.mesh.devices[d, :, p]) for d in range(data)
-                  for p in range(disp)]
+        per_group = left.shape[0] // (data * disp)
+        keys = [(d, p) for d in range(data) for p in range(disp)]
+        held = sorted({i // per_group for i in mine})
+        if not held:
+            return []
+        if len(held) < len(keys):
+            left = left[[g * per_group + j for g in held
+                         for j in range(per_group)]]
+        groups = [list(self.mesh.devices[keys[g][0], :, keys[g][1]])
+                  for g in held]
         program = functools.partial(self._split_program, groups)
         if not self.graph_splits:
             (right,), self.halo = program(left)

@@ -61,7 +61,11 @@ class DepthEstimationPipeline:
     ``mesh_devices`` when given (a list may repeat a device: a virtual
     mesh), else ``["cpu"] * n`` for ``device="cpu"`` and the first n cards
     for ``device="cuda"``, which raises when there are fewer.  Results are
-    delivered on the mesh's first device.
+    delivered on the mesh's first device.  Under a process group of more
+    than one rank (``parallel.initialize_distributed``) the mesh spans the
+    ranks (``parallel.make_mesh``): ``mesh_devices`` is then this rank's
+    list (default: its cards, or n / world size entries of ``"cpu"``),
+    every rank calls with the same frames and receives the whole result.
     """
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
@@ -71,8 +75,10 @@ class DepthEstimationPipeline:
         self.mesh = None
         if config.mesh is not None and config.mesh.num_devices > 1:
             from ..parallel import make_mesh
+            from ..parallel.transport import world_size
             if mesh_devices is None and self.device.type == "cpu":
-                mesh_devices = [self.device] * config.mesh.num_devices
+                mesh_devices = [self.device] * -(-config.mesh.num_devices
+                                                 // world_size())
             self.mesh = make_mesh(config.mesh, mesh_devices)
         self._right_view_synthesis = synthesis
         self._single_view = None

@@ -7,8 +7,10 @@
         --synthetic --steps 2000 --export-dir /tmp/deep3d.npz
 
 KITTI mode trains at the native 384x1280 / 96x320 for ``--n-epochs`` with
-a checkpoint per epoch (``--checkpoint``, a ``torch.save`` file; ``--resume``
-continues from it) and exports the weights as npz to ``--export-dir``.
+a checkpoint per epoch (``--checkpoint``: a ``torch.save`` file, or an
+Orbax directory as the JAX script writes it, which then stays one;
+``--resume`` continues from either) and exports the weights as npz to
+``--export-dir``.
 ``--synthetic`` trains on generated depth-prior scenes at ``--crop`` and
 exports every ``--export-every`` steps (``--warm-start`` adopts a
 checkpoint's matching-shape weights).  The defaults write to the committed
@@ -114,7 +116,7 @@ def parse_args(argv=None):
                              "weights seed the model")
     parser.add_argument("--checkpoint", default="data/checkpoints/deep3d_train",
                         help="KITTI mode: the per-epoch training state "
-                             "(torch.save file)")
+                             "(a torch.save file, or an Orbax directory)")
     parser.add_argument("--export-dir", default=DEEP3D_CHECKPOINT_DIR)
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--device", default="cuda")
@@ -139,7 +141,7 @@ def main(argv=None):
                            learning_rate=args.learning_rate,
                            save_path=args.checkpoint)
     trainer = Trainer(config=config, device=args.device)
-    if args.resume and os.path.isfile(args.checkpoint):
+    if args.resume and os.path.exists(args.checkpoint):
         trainer.load_checkpoint(args.checkpoint)
         print(f"Resumed from epoch {trainer.epoch}.")
     dataset = KittiStereoDataset(args.drive_dirs)

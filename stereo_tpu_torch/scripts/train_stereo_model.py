@@ -8,8 +8,9 @@
 
 KITTI 2015 mode reads ``image_2/``, ``image_3/`` and ``disp_occ_0/``
 (16-bit disparities) under ``--data-dir``, random-crops to ``--crop``,
-checkpoints every epoch (``--checkpoint``, a ``torch.save`` file) and
-exports the weights as npz.  ``--synthetic`` trains on generated scenes
+checkpoints every epoch (``--checkpoint``: a ``torch.save`` file, or an
+Orbax directory, which then stays one; ``--resume`` continues from either)
+and exports the weights as npz.  ``--synthetic`` trains on generated scenes
 and exports to ``--checkpoint`` every ``--export-every`` steps
 (``--resume`` starts from the weights there); ``--warmup-steps`` (the
 trainer's 100 by default, fixed in the JAX script) must stay under
@@ -125,7 +126,7 @@ def main(argv=None):
                            save_path=checkpoint)
     trainer = StereoTrainer(args.model, args.max_disparity, config,
                             image_shape=tuple(args.crop), device=args.device)
-    if args.resume and os.path.isfile(checkpoint):
+    if args.resume and os.path.exists(checkpoint):
         trainer.load_checkpoint(checkpoint)
         print(f"Resumed from epoch {trainer.epoch}.")
     losses = trainer.train(dataset)

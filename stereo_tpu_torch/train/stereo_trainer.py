@@ -25,7 +25,7 @@ from ..models import (build_stereo_model, gwcnet_loss, init_params,
 from ..pipeline.backends import normalize_imagenet
 from ..utils.image_io import read_image_chw
 from ..utils.png import decode_png
-from .trainer import (load_training_state, optax_adam_state,
+from .trainer import (checkpoint_format, load_training_state, optax_adam_state,
                       save_orbax_training_state, save_training_state,
                       to_device)
 
@@ -165,12 +165,13 @@ class StereoTrainer:
                 self.save_checkpoint(cfg.save_path)
         return epoch_losses
 
-    def save_checkpoint(self, path: str, format: str = "torch") -> None:
+    def save_checkpoint(self, path: str, format: Optional[str] = None) -> None:
         """Model (BatchNorm statistics included), optimizer and epoch: a
         ``torch.save`` file, or with ``format="orbax"`` the tree JAX's
         ``StereoTrainer.save_checkpoint`` writes ({params, batch_stats,
-        opt_state, epoch}, the optax state of ``adamw``)."""
-        if format == "orbax":
+        opt_state, epoch}, the optax state of ``adamw``).  The default
+        format is ``checkpoint_format``'s."""
+        if checkpoint_format(path, format) == "orbax":
             save_orbax_training_state(
                 path, self.model,
                 [optax_adam_state(self.model, self.optimizer), None, None],

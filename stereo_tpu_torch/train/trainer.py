@@ -122,13 +122,14 @@ class Trainer:
                 self.save_checkpoint(cfg.save_path)
         return epoch_losses
 
-    def save_checkpoint(self, path: str, format: str = "torch") -> None:
+    def save_checkpoint(self, path: str, format: Optional[str] = None) -> None:
         """Model, optimizer state and epoch, for ``load_checkpoint``: a
         ``torch.save`` file, or with ``format="orbax"`` the tree JAX's
         ``Trainer.save_checkpoint`` writes ({params, opt_state, epoch},
         the optax state of ``inject_hyperparams`` over coupled Adam), which
-        its ``load_checkpoint`` resumes."""
-        if format == "orbax":
+        its ``load_checkpoint`` resumes.  The default format is
+        :func:`checkpoint_format`'s."""
+        if checkpoint_format(path, format) == "orbax":
             cfg = self.config
             opt_state = {
                 "count": np.asarray(adam_count(self.optimizer), np.int32),
@@ -164,6 +165,14 @@ def export_deep3d(model: Deep3D, npz_path: str, full_shape) -> None:
     save_params_npz(model, npz_path, meta={
         "full_shape": [h, w], "down_shape": [h // 4, w // 4],
         "prob_volume_scale": model.prob_volume_scale})
+
+
+def checkpoint_format(path: str, format: Optional[str] = None) -> str:
+    """The format of a trainer's checkpoint at ``path``: ``format`` when
+    given, else ``"orbax"`` where ``path`` is a directory (the JAX
+    trainers' checkpoint, which ``torch.save`` cannot overwrite; a resumed
+    directory is saved back in place), else ``"torch"``."""
+    return format or ("orbax" if os.path.isdir(path) else "torch")
 
 
 def save_training_state(path: str, model: nn.Module,

@@ -9,6 +9,7 @@ image, 64x256 or less.
 """
 
 import json
+import os
 import urllib.request
 
 import jax
@@ -327,6 +328,43 @@ def test_d1_at_the_native_protocol():
                                   gt, (gt > 0) & (gt <= hi))
                        for left, right, gt in frames])
         print(f"{name}: D1 {got:.6f} (recorded {want:.6f})")
+        assert abs(got - want) <= 0.001, (name, got, want)
+
+
+# D1 with Deep3D's right view (rvs on), the same record: the committed
+# Deep3D and each backend's committed weights.
+RVS_ON_D1 = {"classical": 0.09480642108246684,
+             "gwcnet": 0.017927043576491997,
+             "msnet2d": 0.02935918339062482,
+             "msnet3d": 0.020157878432655707}
+
+
+@pytest.mark.slow
+def test_rvs_on_d1_at_the_native_protocol():
+    """The evaluation's rvs-on arms: the held-out depth-prior scenes of the
+    port's ``SyntheticStereoCamera`` (seed 20260817, 8 frames, 384x1280,
+    disparities 0..64, mask 0 < gt <= 64), the right view synthesized by
+    the committed Deep3D (``data/checkpoints/deep3d.npz``, one synthesis
+    shared by the arms, as the evaluation script shares it), each of the
+    four backends on its committed weights: D1 within 0.001 of the
+    record."""
+    from stereo_tpu_torch.pipeline.camera import SyntheticStereoCamera
+    from stereo_tpu_torch.pipeline.runner import (
+        run_depth_estimation_pipeline_evaluation)
+
+    camera = SyntheticStereoCamera(n_frames=8, height=384, width=1280,
+                                   return_right_view=False, seed=20260817,
+                                   depth_prior=True)
+    lo, hi = camera.get_disparity_boundaries()
+    assert os.path.isfile(paths.DEEP3D_CHECKPOINT_DIR + ".npz")
+    synthesis = RightViewSynthesis(output_shape=(384, 1280), device="cpu")
+    for name, want in RVS_ON_D1.items():
+        pipe = DepthEstimationPipeline(PipelineConfig(
+            image_shape=(384, 1280), min_disparity=lo, max_disparity=hi,
+            stereo_matching_backend=name), synthesis=synthesis, device="cpu")
+        got = run_depth_estimation_pipeline_evaluation(
+            camera, pipe, [metrics.D1Metric()], verbose=False)["D1"]
+        print(f"{name}: rvs-on D1 {got:.6f} (recorded {want:.6f})")
         assert abs(got - want) <= 0.001, (name, got, want)
 
 

@@ -17,7 +17,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "stereo_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "cv2", "stereo_tpu",
              "orbax", "tensorstore", "zstandard")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# The port, the smoke, and the ranks the multi-process tests spawn.
+SOURCES = sorted(PORT.rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_multiprocess_ranks.py"]
 
 
 def imported_roots(path):
@@ -116,7 +118,8 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     assert '"ok"' not in proc.stdout
 
 
-PARALLEL_MODULES = ("mesh", "classical", "dnn", "synthesis", "health")
+PARALLEL_MODULES = ("mesh", "classical", "dnn", "synthesis", "health",
+                    "transport")
 
 
 @pytest.mark.parametrize("name", PARALLEL_MODULES)
