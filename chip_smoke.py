@@ -3048,21 +3048,28 @@ def phase_mesh_single_view_rows(torch, dev, config, synthesis):
 # of the two ranks lists).  KITTI's kernel path with the ring across the
 # ranks ((1,2,1): one entry each; (1,4,1): two each), the blockwise path
 # with the argmax and the owned gather across them ((1,1,3): two entries
-# on rank 0, one on rank 1), and the single view and GwcNet with ``data``
-# across the ranks and each tile pair split by rows within a rank.
+# on rank 0, one on rank 1), the single view and GwcNet with ``data``
+# across the ranks and each tile pair split by rows within a rank, and
+# (``*_rows_*``) row splits whose tile group spans the ranks: GwcNet and
+# the single view on (1,2,1), one shard a rank, and the single view on
+# (1,4,1), two shards a rank taking turns, the middle edge across.
 MULTIPROCESS_CASES = (
     ("kitti_kernels_121", "classical", (1, 2, 1), (1, 1)),
     ("kitti_kernels_141", "classical", (1, 4, 1), (2, 2)),
     ("kitti_blockwise_113", "classical", (1, 1, 3), (2, 1)),
     ("single_view_221", "single_view", (2, 2, 1), (2, 2)),
     ("gwcnet_221", "gwcnet", (2, 2, 1), (2, 2)),
+    ("gwcnet_rows_121", "gwcnet", (1, 2, 1), (1, 1)),
+    ("single_view_rows_121", "single_view", (1, 2, 1), (1, 1)),
+    ("single_view_rows_141", "single_view", (1, 4, 1), (2, 2)),
 )
 MULTIPROCESS_RANKS = 2
 
 
 def multiprocess_case(torch, kind, mc, mesh, synthesis, dev):
     """The engine of one case on ``mesh`` and its inputs at 384x1280: a
-    call returning its outputs as a tuple, and the frames per call."""
+    call returning its outputs as a tuple, the frames per call, the path
+    taken (the kernel path or the row split) and the engine."""
     from stereo_tpu_torch.core.config import PipelineConfig
     from stereo_tpu_torch.parallel import (ShardedClassicalEngine,
                                            ShardedDnnEngine,
@@ -3074,19 +3081,19 @@ def multiprocess_case(torch, kind, mc, mesh, synthesis, dev):
         left, right = (torch.from_numpy(np.stack([x] * mc.data)).to(dev)
                        for x in kitti_pair())
         return (lambda: (engine.compute_disparity_maps(left, right),),
-                mc.data, engine.use_kernels)
+                mc.data, engine.use_kernels, engine)
     n = 2 * mc.data * mc.disp
     left = torch.stack(seeded_frames(torch, dev, (384, 1280), 9, n))
     if kind == "single_view":
         engine = ShardedSingleViewEngine(cfg, mc, mesh=mesh,
                                          synthesis=synthesis)
         return (lambda: engine.process_batch(left, return_right=True), n,
-                engine.row_split)
+                engine.row_split, engine)
     engine = ShardedDnnEngine("gwcnet", (384, 1280), mc, mesh=mesh,
                               max_disparity=64)
     right = torch.roll(left, -7, dims=-1)
     return (lambda: (engine.process_batch(left, right),), n,
-            engine.row_split)
+            engine.row_split, engine)
 
 
 def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
@@ -3128,8 +3135,8 @@ def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
         for label, kind, shape, entries in MULTIPROCESS_CASES:
             mc = MeshConfig(*shape)
             mesh = make_mesh(mc, [dev] * entries[rank])
-            run, n, path = multiprocess_case(torch, kind, mc, mesh,
-                                             synthesis, dev)
+            run, n, path, engine = multiprocess_case(torch, kind, mc, mesh,
+                                                     synthesis, dev)
             run()       # a row split captures its CUDA graph here
             dist.barrier()
             torch.cuda.synchronize()
@@ -3143,9 +3150,10 @@ def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
             numbers[label] = dict(
                 path=path, ms_per_frame_median=timed(run, n, dist.barrier),
                 staged_bytes_per_frame=staged / n, launches=counts,
+                halo=getattr(engine, "halo", None),
                 entries=int(sum(mesh.is_local(i)
                                 for i in np.ndindex(*shape))))
-            del run, mesh
+            del run, mesh, engine
             torch.cuda.empty_cache()
         torch.save(dict(maps=maps, numbers=numbers, weights=weights,
                         backend=dist.get_backend()),
@@ -3153,20 +3161,22 @@ def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
         dist.barrier()
         dist.destroy_process_group()
         if rank == 0:
-            maps, numbers = {}, {}
+            maps, numbers, halos = {}, {}, {}
             for label, kind, shape, _ in MULTIPROCESS_CASES:
                 mc = MeshConfig(*shape)
                 grid = np.empty(mc.num_devices, dtype=object)
                 grid[:] = [dev] * mc.num_devices
-                run, n, _ = multiprocess_case(
+                run, n, _, engine = multiprocess_case(
                     torch, kind, mc, Mesh(grid.reshape(shape)), synthesis,
                     dev)
                 run()
                 maps[label] = [x.cpu() for x in run()]
+                halos[label] = getattr(engine, "halo", None)
                 numbers[label] = timed(run, n, lambda: None)
-                del run
+                del run, engine
                 torch.cuda.empty_cache()
-            torch.save(dict(maps=maps, ms_per_frame_median=numbers),
+            torch.save(dict(maps=maps, ms_per_frame_median=numbers,
+                            halo=halos),
                        os.path.join(out, "one_process.pt"))
     except BaseException:
         with open(os.path.join(out, f"rank{rank}.err"), "w") as f:
@@ -3181,8 +3191,13 @@ def phase_multiprocess(torch, tmp: str):
     mesh); each case of ``MULTIPROCESS_CASES`` on every rank equal bit for
     bit to the same mesh in one process, ms/frame (median of 5) of both,
     the bytes staged through the host per frame, and the ranks' launches
-    summed (the classical kernel path in its row-halo mode).  The ranks are
-    joined within a time limit; a failed or hung rank fails the phase."""
+    summed (the classical kernel path in its row-halo mode); for a row
+    split, each rank's halo rounds, and the rounds, bytes and host seconds
+    that crossed ranks per forward.  A split whose tile group spans the
+    ranks must split rows, launch ``gwc_volume`` or ``upsample_blend``
+    once per shard and the matcher at least once a frame, and exchange as
+    often as one process, every time across.  The ranks are joined within
+    a time limit; a failed or hung rank fails the phase."""
     from stereo_tpu_torch.parallel.transport import spawn_ranks
 
     os.makedirs(tmp)
@@ -3217,11 +3232,33 @@ def phase_multiprocess(torch, tmp: str):
         require(equal, f"multiprocess {label}: differs from one process")
         require(all(launches[k] >= 1 for k in needed),
                 f"multiprocess {label}: launches {launches}")
+        shards = shape[0] * shape[1] * shape[2]
         if kind == "gwcnet":
             # One launch per shard on its group's frames: tile x groups.
-            require(launches["gwc_volume"] == shape[0] * shape[1] * shape[2],
+            require(launches["gwc_volume"] == shards,
                     f"multiprocess {label}: gwc_volume launches "
                     f"{launches['gwc_volume']}")
+        halos = [r["numbers"][label]["halo"] for r in ranks]
+        if "_rows_" in label:
+            # A tile group across the ranks: split, not dealt; one blend
+            # per shard; the matcher on every frame, on the rank it is
+            # dealt to; each rank exchanges as often as one process does,
+            # every exchange across the ranks.
+            frames = 2 * shape[0] * shape[2]
+            require(path, f"multiprocess {label}: no row split")
+            if kind == "single_view":
+                require(launches["upsample_blend"] == shards,
+                        f"multiprocess {label}: upsample_blend launches "
+                        f"{launches['upsample_blend']}")
+                require(all(launches[k] >= frames for k in
+                            ("matching_core", "sampled_window")),
+                        f"multiprocess {label}: matcher launches "
+                        f"{launches}")
+            rounds = one["halo"][label]["rounds"]
+            require(all(h is not None and h["rounds"] == h["cross_rounds"]
+                        == rounds for h in halos),
+                    f"multiprocess {label}: halo {halos}, one process "
+                    f"{rounds} rounds")
         cases[label] = dict(
             mesh=shape, equal=equal, kernel_path_or_row_split=path,
             entries_per_rank=[r["numbers"][label]["entries"] for r in ranks],
@@ -3231,6 +3268,16 @@ def phase_multiprocess(torch, tmp: str):
             staged_bytes_per_frame=[
                 r["numbers"][label]["staged_bytes_per_frame"] for r in ranks],
             launches=launches)
+        if halos[0] is not None:
+            cases[label].update(
+                halo_rounds_per_forward=[h["rounds"] for h in halos],
+                cross_rank_rounds_per_forward=[h["cross_rounds"]
+                                               for h in halos],
+                cross_rank_bytes_per_forward=[h["cross_bytes"]
+                                              for h in halos],
+                cross_rank_seconds_per_forward=[h["cross_seconds"]
+                                                for h in halos],
+                one_process_halo_rounds=one["halo"][label]["rounds"])
     return counts, dict(backend=ranks[0]["backend"],
                         ranks=MULTIPROCESS_RANKS,
                         deep3d_weights=ranks[0]["weights"], cases=cases)

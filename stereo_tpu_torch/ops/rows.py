@@ -39,12 +39,28 @@ the turn to the next shard thread; when the turn comes back, every shard
 has published, and it copies the rows it needs from its neighbours' (a peer
 copy between cards, a plain read on one device).  Two slots alternate, so
 a slot is written again only after every shard has read it.
+
+A split whose shards lie on more than one process (a mesh over
+``torch.distributed`` ranks) has the ``Line`` of its ranks
+(``parallel.transport``), and each process runs only its own shards.
+Once every local shard of a run has published at an exchange, the first
+shard thread to get the turn back runs the exchange's cross-rank step
+(:class:`Crossing`), for each split that spans ranks in split order: it
+sends the rows that remote neighbours need (the last ``above`` rows to the
+shard below, the first ``below`` rows to the shard above; every shard's
+rows for :func:`gather`) with a digest of the exchange's key, and receives
+the rows its own shards need into the slot, where they are read as a local
+neighbour's are.  Every process runs the steps in one order (exchange,
+then split), from one thread at a time, so two processes whose splits
+share ranks wait on no step the other has not reached.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -56,22 +72,58 @@ _local = threading.local()
 
 class RowExchange:
     """What the shards of one row split share: the two alternating slots
-    of published tensors, and what was exchanged (``rounds`` exchanges,
-    ``bytes`` read from neighbours)."""
+    of published tensors, the ``line`` of the split's ranks when its
+    shards lie on more than one process (None when all are this
+    process's), and what was exchanged: ``rounds`` exchanges, ``bytes``
+    read from neighbours, and of those ``cross_rounds`` exchanges and
+    ``cross_bytes`` received from other processes, which took
+    ``cross_seconds`` on the host clock (waits for the other processes
+    included)."""
 
-    def __init__(self, count: int):
+    def __init__(self, count: int, line=None):
         self.count = count
+        self.line = line
         self.rounds = 0
         self.bytes = 0
+        self.cross_rounds = 0
+        self.cross_bytes = 0
+        self.cross_seconds = 0.0
         self._slots = [[None] * count, [None] * count]
+        self.first = next((j for j in range(count) if self.local(j)), None)
+
+    def local(self, j: int) -> bool:
+        """Whether shard ``j`` runs in this process."""
+        return self.line is None or self.line.local(j)
+
+
+class Crossing:
+    """The cross-rank steps of one run of row splits, over those of its
+    splits' ``exchanges`` whose shards lie on more than one process.  Called
+    with an exchange's round by the first thread to hold the turn after
+    every local shard has published it; the later calls of that round do
+    nothing.  ``timeout_s`` bounds each wait on another process."""
+
+    def __init__(self, exchanges: Sequence[RowExchange], timeout_s: float):
+        self.exchanges = [ex for ex in exchanges if ex.line is not None]
+        self.timeout_s = timeout_s
+        self.crossed = -1
+
+    def __call__(self, r: int) -> None:
+        if r <= self.crossed:
+            return
+        self.crossed = r
+        for ex in self.exchanges:
+            _cross(ex, r, self.timeout_s)
 
 
 @dataclass
 class Shard:
     """The calling thread's part of a row split: shard ``index`` of
-    ``exchange.count``, thread ``thread`` of the run's ``turns`` (which
-    has ``pass_on(thread)`` and ``wait(thread)``), on ``stream`` (None on
-    the CPU)."""
+    ``exchange.count`` (its index in the whole split, which may have
+    shards in other processes), thread ``thread`` of the run's ``turns``
+    (which has ``pass_on(thread)`` and ``wait(thread)``), on ``stream``
+    (None on the CPU); ``crossing``, the run's :class:`Crossing` when a
+    split of it spans processes."""
 
     index: int
     exchange: RowExchange
@@ -79,6 +131,7 @@ class Shard:
     thread: int
     stream: Optional[Any] = None
     rounds: int = 0
+    crossing: Optional[Crossing] = None
 
     @property
     def count(self) -> int:
@@ -155,7 +208,7 @@ def halo(x: torch.Tensor, above: int, below: int,
     and last shards gain rows on one side only).  Every shard of the
     split calls it at the same point."""
     key = (tuple(x.shape[:-2]), x.shape[-1], x.dtype, above, below, edge)
-    shard, slot, key = _publish(x, key)
+    shard, slot, key = _publish(x, key, (above, below))
     i = shard.index
     parts = [_neighbour(shard, slot, i - 1, above, key, x, edge, True), x,
              _neighbour(shard, slot, i + 1, below, key, x, edge, False)]
@@ -201,7 +254,8 @@ def gather(x: torch.Tensor) -> torch.Tensor:
     the shard then runs on the frame's rows under :func:`unsplit`."""
     if current() is None:
         return x
-    shard, slot, key = _publish(x, (tuple(x.shape), x.dtype, "gather"))
+    shard, slot, key = _publish(x, (tuple(x.shape), x.dtype, "gather"),
+                                None)
     parts = [x if j == shard.index else _fetch(shard, slot, j, key, x, None)
              for j in range(shard.count)]
     return torch.cat(parts, dim=-2)
@@ -233,21 +287,112 @@ def unsplit():
         set_current(shard)
 
 
-def _publish(x: torch.Tensor, key: tuple):
+def _publish(x: torch.Tensor, key: tuple, rows: Optional[Tuple[int, int]]):
     """Publish ``x`` at the calling shard's next exchange and wait until
     every shard has: returns ``(shard, slot, key)``, the slot holding each
-    shard's ``(tensor, stream, key)`` and the exchange's key."""
+    shard's ``(tensor, stream, key, rows)`` and the exchange's key.
+    ``rows``: the ``(above, below)`` rows a shard reads of its neighbours,
+    None for all of every shard's."""
     shard = current()
     ex, i, r = shard.exchange, shard.index, shard.rounds
     key = key + (r,)
     slot = ex._slots[r % 2]
     shard.rounds += 1
-    if i == 0:
+    if i == ex.first:
         ex.rounds += 1
-    slot[i] = (x, shard.stream, key)
+    slot[i] = (x, shard.stream, key, rows)
     shard.turns.pass_on(shard.thread)
     shard.turns.wait(shard.thread)
+    if shard.crossing is not None:
+        shard.crossing(r)
     return shard, slot, key
+
+
+def _digest(key: tuple) -> int:
+    """A digest of an exchange's key that every process computes alike."""
+    return int.from_bytes(hashlib.blake2b(repr(key).encode(),
+                                          digest_size=8).digest(),
+                          "little", signed=True)
+
+
+@contextlib.contextmanager
+def _streams(entries):
+    """The published entries' streams as their devices' current ones
+    (transfers of a shard's tensor then follow the work that made it)."""
+    with contextlib.ExitStack() as stack:
+        for _, stream, _, _ in entries:
+            if stream is not None:
+                stack.enter_context(torch.cuda.stream(stream))
+        yield
+
+
+def _cross(ex: RowExchange, r: int, timeout_s: float) -> None:
+    """Round ``r``'s cross-rank step of split ``ex``: each remote shard
+    next to a local one gets, in the slot, the rows the local one reads
+    (a dict of ``{True: its last rows, False: its first rows}``), or for
+    a gather its whole tensor; the key of each is the local one when the
+    remote digest agrees, else a key that :func:`_fetch` reports."""
+    start = time.perf_counter()
+    slot, line = ex._slots[r % 2], ex.line
+    local = [j for j in range(ex.count) if ex.local(j)]
+    x0, _, _, rows = slot[local[0]]
+    # The digests go where the backend sends from: the host on gloo.
+    home = "cpu" if line.transport.staging else x0.device
+    digests = {j: torch.tensor([_digest(slot[j][2])], device=home)
+               for j in local}
+
+    def received(j, i, tensor, digest):
+        """Count remote shard ``j``'s ``tensor``; the key under which local
+        shard ``i`` reads it: ``i``'s own when ``j``'s ``digest`` agrees,
+        else one that names the digest and its rank."""
+        ex.cross_bytes += tensor.numel() * tensor.element_size()
+        key = slot[i][2]
+        if int(digest) != _digest(key):
+            key = (f"digest {int(digest)} from rank {line.ranks[j]}",)
+        return key
+
+    with _streams([slot[j] for j in local]):
+        if rows is None:
+            whole = line.all_gather([slot[j][0] if j in digests else None
+                                     for j in range(ex.count)], x0.device,
+                                    timeout_s)
+            keys = line.all_gather([digests.get(j)
+                                    for j in range(ex.count)], home,
+                                   timeout_s)
+            for j in range(ex.count):
+                if j not in digests:
+                    slot[j] = (whole[j], None,
+                               received(j, local[0], whole[j], keys[j]), rows)
+        else:
+            above, below = rows
+            deepest = max(above, below)
+            if x0.shape[-2] < deepest:
+                raise ValueError(f"a halo of {deepest} rows is deeper than a "
+                                 f"shard's {x0.shape[-2]} rows")
+            wants = [(-1, lambda e: e[1]), (1, lambda e: e[1])]
+            if above:
+                wants.append((-1, lambda e: e[0].narrow(
+                    -2, e[0].shape[-2] - above, above)))
+            if below:
+                wants.append((1, lambda e: e[0].narrow(-2, 0, below)))
+            got = line.ring_fetch([(slot[j][0], digests[j])
+                                   if j in digests else None
+                                   for j in range(ex.count)],
+                                  wants, wrap=False, timeout_s=timeout_s)
+            for j in range(ex.count):
+                if not ex.local(j):
+                    slot[j] = ({}, None, None, rows)
+            for i in local:
+                for w, (offset, _) in enumerate(wants[2:], 2):
+                    j = i + offset
+                    if got[i][w] is None or ex.local(j):
+                        continue
+                    pieces = slot[j][0]
+                    pieces[offset < 0] = got[i][w]
+                    slot[j] = (pieces, None, received(
+                        j, i, got[i][w], got[i][offset > 0]), rows)
+    ex.cross_rounds += 1
+    ex.cross_seconds += time.perf_counter() - start
 
 
 def _edge(x: torch.Tensor, rows: int, top: bool, edge: str) -> torch.Tensor:
@@ -279,11 +424,13 @@ def _fetch(shard: Shard, slot: list, j: int, key, x,
            part: Optional[Tuple[int, bool]]) -> torch.Tensor:
     """Shard ``j``'s published tensor, or its last (``part = (rows,
     True)``) or first (``(rows, False)``) rows, on ``x``'s device."""
-    other, stream, other_key = slot[j]
+    other, stream, other_key, _ = slot[j]
     if other_key != key:
         raise RuntimeError(f"row split out of step: shard {shard.index} "
                            f"exchanges {key}, shard {j} {other_key}")
-    if part is not None:
+    if isinstance(other, dict):         # rows received from another rank
+        other = other[part[1]]
+    elif part is not None:
         rows, above = part
         if other.shape[-2] < rows:
             raise ValueError(f"a halo of {rows} rows is deeper than shard "

@@ -33,12 +33,14 @@ once and copied to the others.
 
 On a mesh that spans processes every rank calls with the same global
 batch and builds replicas on its own devices only; it runs the frames
-:func:`frame_slots` deals to them (or the groups whose ``tile`` devices
-are its own), and every rank receives the whole batch of maps on its
-first device through an all-gather (``parallel.transport``).  A row split
-whose ``tile`` group spans processes would need the per-layer halo
-exchange (``ops/rows.py``) across processes, which is not ported: the
-engine refuses such a mesh.
+:func:`frame_slots` deals to them, or its own shards of each ``tile``
+group, and every rank receives the whole batch of maps on its first
+device through an all-gather (``parallel.transport``).  A ``tile`` group
+may span processes, as GSPMD splits rows across hosts: each rank runs its
+shards of the group, and the per-layer halo exchange crosses ranks
+(``ops/rows.py``, through the group's ``Line``).  Such a split runs
+eagerly (gloo's host staging cannot be captured in a CUDA graph); a split
+within one rank is still replayed where :attr:`graph_splits` holds.
 """
 
 from __future__ import annotations
@@ -76,22 +78,6 @@ def frame_devices(mesh: Mesh, n: int) -> list:
     return [mesh.devices[s] for s in frame_slots(mesh, n)]
 
 
-def refuse_split_across_processes(mesh: Mesh) -> None:
-    """Raise ``ValueError`` when a ``tile`` group of ``mesh`` spans
-    processes: its row split would exchange halo rows between processes
-    at every layer, which is not ported."""
-    data, tile, disp = mesh.shape
-    spanning = [(d, p) for d in range(data) for p in range(disp)
-                if mesh.spans([(d, t, p) for t in range(tile)])]
-    if spanning:
-        raise ValueError(
-            f"mesh {mesh.shape} with ranks {mesh.processes.tolist()}: the "
-            f"row split's tile groups (data, disp) {spanning} span "
-            f"processes, and the split's per-layer halo exchange does not "
-            f"cross processes; keep each tile group on one process (data "
-            f"across processes, tile within)")
-
-
 def gather_frames(mesh: Mesh, frames: list, slots: list) -> torch.Tensor:
     """(N, ...) on the mesh's first device from per-frame results:
     ``frames[i]`` computed at mesh index ``slots[i]`` (None on the
@@ -103,6 +89,58 @@ def gather_frames(mesh: Mesh, frames: list, slots: list) -> torch.Tensor:
         frames, [int(mesh.processes[s]) for s in slots], first))
 
 
+def split_keys(mesh: Mesh) -> list:
+    """The (data, disp) pair of each ``tile`` group, data major: the order
+    in which a batch's frames are dealt to the groups."""
+    data, _, disp = mesh.shape
+    return [(d, p) for d in range(data) for p in range(disp)]
+
+
+def split_devices(mesh: Mesh, groups) -> list:
+    """The devices of each ``tile`` group of ``groups`` (indices into
+    :func:`split_keys`), None at the shards of other processes."""
+    keys = split_keys(mesh)
+    return [[mesh.devices[keys[g][0], t, keys[g][1]]
+             if mesh.is_local((keys[g][0], t, keys[g][1])) else None
+             for t in range(mesh.shape[1])] for g in groups]
+
+
+def split_kinds(devices: list, lines: list) -> tuple:
+    """``(within, spanning)``: the positions of the groups whose shards
+    (``devices[k]``, None at another process's shard) are all this
+    process's, and of those that span processes (``lines[k]`` not None)
+    with a shard here.  Groups with no shard here are in neither."""
+    within = [k for k, devs in enumerate(devices)
+              if lines[k] is None and None not in devs]
+    spanning = [k for k, devs in enumerate(devices)
+                if lines[k] is not None and any(d is not None for d in devs)]
+    return within, spanning
+
+
+def frames_of(tensors, positions: list, per_group: int) -> list:
+    """Each of ``tensors`` cut to the frames of the groups at
+    ``positions`` (each group ``per_group`` consecutive frames)."""
+    idx = [k * per_group + j for k in positions for j in range(per_group)]
+    return [x if idx == list(range(x.shape[0])) else x[idx]
+            for x in tensors]
+
+
+def gather_pieces(mesh: Mesh, pieces: dict, groups: list, tile: int,
+                  like: torch.Tensor) -> list:
+    """Every shard's rows of the ``tile`` groups ``groups`` (indices into
+    :func:`split_keys`) on every process, on its first device:
+    ``pieces[k, t]`` is shard t's of group ``groups[k]``, on the process
+    that holds it; all have the shape and dtype of ``like``.  Returns
+    ``[k][t]``.  Called by every rank."""
+    keys = split_keys(mesh)
+    owners = [int(mesh.processes[keys[g][0], t, keys[g][1]])
+              for g in groups for t in range(tile)]
+    parts = mesh.transport.all_gather_parts(
+        [pieces.get((k, t)) for k in range(len(groups)) for t in range(tile)],
+        owners, mesh.first_device, like=like)
+    return [parts[k * tile:(k + 1) * tile] for k in range(len(groups))]
+
+
 class ShardedDnnEngine:
     """Batched DNN stereo inference over a (data, tile, disp) mesh
     (default: the first ``mesh_config.num_devices`` cards).
@@ -110,11 +148,13 @@ class ShardedDnnEngine:
     (= data x disp) and the image height divisible by ``tile``.
     :attr:`row_split` says whether frames are split by rows over ``tile``
     (else dealt whole), and :attr:`halo` what the last row-split call
-    exchanged: ``rounds`` (halo exchanges per forward) and ``bytes`` (read
-    from neighbouring shards, over all groups), recorded at capture for a
-    replay.  :attr:`graph_splits` says whether a split is replayed from a
-    CUDA graph (every device of the mesh one card); set it False to run
-    the split eagerly.  ``graphs_captured`` counts the graphs."""
+    exchanged (``rows.exchanged``): ``rounds`` (halo exchanges per
+    forward), ``bytes`` (read from neighbouring shards, over all groups),
+    and of those ``cross_rounds`` and ``cross_bytes`` received from other
+    processes, recorded at capture for a replay.  :attr:`graph_splits`
+    says whether a split within one process is replayed from a CUDA graph
+    (every device of the mesh one card); set it False to run the split
+    eagerly.  ``graphs_captured`` counts the graphs."""
 
     def __init__(self, model_name: str, image_shape: Tuple[int, int],
                  mesh_config: MeshConfig, *, mesh: Optional[Mesh] = None,
@@ -133,8 +173,8 @@ class ShardedDnnEngine:
                              f"by the tile mesh extent {self._tile}")
         self.row_split = (self._tile > 1
                           and image_shape[0] % (ROW_STRIDE * self._tile) == 0)
-        if self.row_split:
-            refuse_split_across_processes(self.mesh)
+        self._lines = (self.mesh.tile_lines() if self.row_split
+                       else [None] * self.batch_group)
         self.halo = None
         self._shard_threads = rows.ShardThreads()
         devices = self.mesh.distinct_devices()
@@ -160,27 +200,7 @@ class ShardedDnnEngine:
                              f"data x disp mesh extent {self.batch_group}")
         mesh = self.mesh
         if self.row_split:
-            data, _, disp = mesh.shape
-            keys = [(d, p) for d in range(data) for p in range(disp)]
-            if mesh.processes is None:
-                return self._split_rows(left, right, [
-                    list(mesh.devices[d, :, p]) for d, p in keys])
-            # This process's groups, their frames split by rows over their
-            # (local) tile devices; every group's maps gathered.
-            per_group = n // len(keys)
-            mine = [g for g, (d, p) in enumerate(keys)
-                    if mesh.is_local((d, 0, p))]
-            idx = [g * per_group + j for g in mine for j in range(per_group)]
-            frames = [None] * n
-            if mine:
-                out = self._split_rows(left[idx], right[idx], [
-                    list(mesh.devices[keys[g][0], :, keys[g][1]])
-                    for g in mine])
-                for k, i in enumerate(idx):
-                    frames[i] = out[k]
-            slots = [(keys[i // per_group][0], 0, keys[i // per_group][1])
-                     for i in range(n)]
-            return gather_frames(mesh, frames, slots)
+            return self._split_groups(left, right, range(self.batch_group))
         slots = frame_slots(mesh, n)
         out = [self.replicas[mesh.devices[s]].process(l, r)
                if mesh.is_local(s) else None
@@ -189,19 +209,19 @@ class ShardedDnnEngine:
 
     def process(self, left_image, right_image) -> torch.Tensor:
         """One (3, H, W) pair -> (H, W): split by rows over the first
-        group's ``tile`` devices, or whole on the mesh's first entry (on
-        the process that holds it, the map then gathered to every
-        process)."""
+        group's ``tile`` devices (on every process that holds one of
+        them), or whole on the mesh's first entry (on the process that
+        holds it); on a mesh that spans processes the map is then gathered
+        to every process."""
         mesh = self.mesh
+        if self.row_split:
+            return self._split_groups(torch.as_tensor(left_image)[None],
+                                      torch.as_tensor(right_image)[None],
+                                      [0])[0]
         if not mesh.is_local((0, 0, 0)):
             return gather_frames(mesh, [None], [(0, 0, 0)])[0]
-        if not self.row_split:
-            out = self.replicas[mesh.devices[0, 0, 0]].process(
-                left_image, right_image)
-        else:
-            out = self._split_rows(torch.as_tensor(left_image)[None],
-                                   torch.as_tensor(right_image)[None],
-                                   [list(mesh.devices[0, :, 0])])[0]
+        out = self.replicas[mesh.devices[0, 0, 0]].process(left_image,
+                                                           right_image)
         if mesh.processes is None:
             return out
         return gather_frames(mesh, [out], [(0, 0, 0)])[0]
@@ -210,10 +230,51 @@ class ShardedDnnEngine:
     def graphs_captured(self) -> int:
         return self._shard_threads.graphs_captured
 
+    def _split_groups(self, left, right, groups) -> torch.Tensor:
+        """The frames dealt in equal runs to the ``tile`` groups
+        ``groups`` (indices, data major), each run split by rows over its
+        group: (N, H, W) on the mesh's first device.  On a mesh that spans
+        processes each rank runs its own shards (a group within it as one
+        program, replayed where :attr:`graph_splits` holds; the groups
+        that span processes eagerly, together), then every shard's rows
+        are all-gathered."""
+        mesh, tile, groups = self.mesh, self._tile, list(groups)
+        devices = split_devices(mesh, groups)
+        if mesh.processes is None:
+            return self._split_rows(left, right, devices)
+        per_group = left.shape[0] // len(groups)
+        rows_per = left.shape[-2] // tile
+        within, spanning = split_kinds(devices,
+                                       [self._lines[g] for g in groups])
+        pieces, halos = {}, []
+        if within:
+            out = self._split_rows(
+                *frames_of((left, right), within, per_group),
+                [devices[k] for k in within])
+            halos.append(self.halo)
+            for m, k in enumerate(within):
+                for t in range(tile):
+                    pieces[k, t] = out[m * per_group:(m + 1) * per_group,
+                                       t * rows_per:(t + 1) * rows_per]
+        if spanning:
+            results, halo = self._shard_program(
+                [devices[k] for k in spanning],
+                [self._lines[groups[k]] for k in spanning],
+                *frames_of((left, right), spanning, per_group))
+            halos.append(halo)
+            for m, k in enumerate(spanning):
+                for t, r in enumerate(results[m]):
+                    if r is not None:
+                        pieces[k, t] = r.to(mesh.first_device)
+        self.halo = rows.merge_halos(halos) if halos else None
+        joined = gather_pieces(mesh, pieces, groups, tile, torch.empty(
+            (per_group, rows_per, left.shape[-1]), device="meta"))
+        return torch.cat([torch.cat(shards, dim=-2) for shards in joined])
+
     def _split_rows(self, left, right, groups) -> torch.Tensor:
         """The frames dealt in equal runs to ``groups`` (each a list of
-        ``tile`` devices), each run split by rows over its group; replayed
-        from a CUDA graph when :attr:`graph_splits`."""
+        ``tile`` devices, all this process's), each run split by rows over
+        its group; replayed from a CUDA graph when :attr:`graph_splits`."""
         if not self.graph_splits:
             (out,), self.halo = self._split_program(groups, left, right)
             return out
@@ -224,21 +285,28 @@ class ShardedDnnEngine:
             key, functools.partial(self._split_program, groups), left, right)
         return out
 
-    def _split_program(self, groups, left, right):
+    def _shard_program(self, groups, lines, left, right):
+        """Each group's frames split by rows over its devices (None: a
+        shard of another process, reached through ``lines``): the shards'
+        results, shaped as ``groups`` (None at other processes' shards),
+        and what they exchanged."""
         per_group = left.shape[0] // len(groups)
         rows_per = left.shape[-2] // self._tile
-        splits = [[(dev, functools.partial(
+        splits = [[None if dev is None else (dev, functools.partial(
             self.replicas[dev].process_batch,
             *(x[g * per_group:(g + 1) * per_group, :,
                 t * rows_per:(t + 1) * rows_per] for x in (left, right))))
                    for t, dev in enumerate(devices)]
                   for g, devices in enumerate(groups)]
-        results, exchanges = self._shard_threads.run(splits)
+        results, exchanges = self._shard_threads.run(splits, lines)
+        return results, rows.exchanged(exchanges)
+
+    def _split_program(self, groups, left, right):
+        results, halo = self._shard_program(groups, None, left, right)
         first = self.mesh.first_device
         out = torch.cat([torch.cat([r.to(first) for r in shards], dim=-2)
                          for shards in results])
-        return (out,), dict(rounds=exchanges[0].rounds,
-                            bytes=sum(e.bytes for e in exchanges))
+        return (out,), halo
 
     def warmup(self) -> None:
         x = torch.zeros((self.batch_group, 3, *self.image_shape))

@@ -93,6 +93,15 @@ class Mesh:
         return Line(self.transport, [int(self.processes[i])
                                      for i in indices])
 
+    def tile_lines(self) -> list:
+        """The :meth:`line` of each ``tile`` group (one per (data, disp)
+        pair, data major): where a row split's shards span processes, the
+        line its exchanges cross; None where one process holds the group.
+        Made at engine construction, on every rank in the same order."""
+        data, tile, disp = self.shape
+        return [self.line([(d, t, p) for t in range(tile)])
+                for d in range(data) for p in range(disp)]
+
     def distinct_devices(self) -> list:
         """Each of this process's devices of the mesh once, in mesh
         order."""

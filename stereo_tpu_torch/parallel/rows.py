@@ -14,6 +14,14 @@ and a new thread plans every convolution anew.  A shard that raises marks
 the run failed: the others raise at their next turn, and
 :meth:`ShardThreads.run` raises the first shard's error.
 
+A split may have shards in other processes (a mesh over
+``torch.distributed`` ranks): this process runs threads for its own
+shards only, and the exchanges cross ranks through the split's ``Line``
+(``ops.rows.Crossing``).  A process that holds shards of several such
+splits crosses them in one order, from the thread that holds the turn.
+A cross-rank wait is bounded by ``TURN_TIMEOUT_S`` too: a process whose
+shard failed leaves its peers waiting that long at most, and they raise.
+
 When every shard of a split lies on one card, the launches of all shards
 still come from one thread at a time, and they bound the split (each
 shard launches the whole network).  :meth:`ShardThreads.replay` then
@@ -30,17 +38,19 @@ import functools
 import queue
 import threading
 import weakref
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
 from ..ops import rows
 from ..ops.cuda.graphs import CapturedGraph, GraphPool
 from ..ops.cuda.launch import capturing_counts, thread_counts
-from ..ops.rows import RowExchange, Shard
+from ..ops.rows import Crossing, RowExchange, Shard
 
-# Seconds a shard waits for its turn before the run is given up (a build
-# or a first cuDNN call of another shard may take a while).
+# Seconds a shard waits for its turn, or for another process's rows, before
+# the run is given up (a build or a first cuDNN call of another shard may
+# take a while).
 TURN_TIMEOUT_S = 300.0
 
 
@@ -132,36 +142,49 @@ class ShardThreads:
             outputs, meta = graph.replay(*inputs)
             return tuple(t.clone() for t in outputs), meta
 
-    def run(self, splits: Sequence[Sequence[Tuple[torch.device,
-                                                  Callable[[], Any]]]]
+    def run(self, splits: Sequence[Sequence[Optional[Tuple[
+            torch.device, Callable[[], Any]]]]],
+            lines: Optional[Sequence] = None
             ) -> Tuple[List[List[Any]], List[RowExchange]]:
         """Run every ``(device, work)`` shard of every split, each
         ``work()`` in a thread of its own, the threads taking turns; the
         shards of one split exchange halos with each other, in split order
-        (shard 0 holds the frame's top rows).  Each thread takes the
+        (shard 0 holds the frame's top rows).  A None shard runs in
+        another process: ``lines[s]`` is then split ``s``'s
+        ``parallel.transport.Line``, whose ranks run the other shards of
+        the split at the same time (``lines`` None: every shard is
+        here).  Each thread takes the
         caller's grad mode and, on CUDA, the device and the caller's
         current stream of that device, and the counts of the graph the
-        caller captures.  Returns the results, shaped as ``splits``, and
-        each split's exchange; raises the first error of any shard."""
+        caller captures.  Returns the results, shaped as ``splits`` (None
+        at other processes' shards), and each split's exchange; raises the
+        first error of any shard."""
         with self._lock:
-            return self._run(splits)
+            return self._run(splits, lines)
 
-    def _run(self, splits):
+    def _run(self, splits, lines):
         if not self._finalizer.alive:
             raise RuntimeError("ShardThreads.run after close()")
         grad = torch.is_grad_enabled()
-        exchanges = [RowExchange(len(split)) for split in splits]
+        lines = list(lines) if lines else [None] * len(splits)
+        exchanges = [RowExchange(len(split), line)
+                     for split, line in zip(splits, lines)]
+        crossing = Crossing(exchanges, TURN_TIMEOUT_S)
+        crossing = crossing if crossing.exchanges else None
         results = [[None] * len(split) for split in splits]
-        jobs = [(s, i, torch.device(device), work)
+        jobs = [(s, i, torch.device(shard[0]), shard[1])
                 for s, split in enumerate(splits)
-                for i, (device, work) in enumerate(split)]
+                for i, shard in enumerate(split) if shard is not None]
+        if not jobs:
+            return results, exchanges
         turns = _Turns(len(jobs))
         errors = []
         done = queue.SimpleQueue()
         counts = thread_counts()
 
         def shard_main(k, s, i, device, work, stream):
-            rows.set_current(Shard(i, exchanges[s], turns, k, stream))
+            rows.set_current(Shard(i, exchanges[s], turns, k, stream,
+                                   crossing=crossing))
             try:
                 turns.wait(k)
                 with _on(device, stream), torch.set_grad_enabled(grad), (
@@ -198,6 +221,27 @@ class ShardThreads:
 
     def close(self) -> None:
         self._finalizer()
+
+
+def exchanged(exchanges: Sequence[RowExchange]) -> dict:
+    """What the splits of one run exchanged per forward: ``rounds``
+    exchanges, of which ``cross_rounds`` crossed processes, ``bytes``
+    read from neighbouring shards over all splits, of which
+    ``cross_bytes`` were received from other processes, and the host
+    seconds of the cross-process steps (``cross_seconds``)."""
+    return merge_halos([dict(rounds=e.rounds, bytes=e.bytes,
+                             cross_rounds=e.cross_rounds,
+                             cross_bytes=e.cross_bytes,
+                             cross_seconds=e.cross_seconds)
+                        for e in exchanges])
+
+
+def merge_halos(halos: Sequence[dict]) -> dict:
+    """Several :func:`exchanged` records of splits run side by side as
+    one: their rounds the most of any, their bytes and seconds summed."""
+    return {k: (max if k.endswith("rounds") else sum)(h[k] for h in halos)
+            for k in ("rounds", "bytes", "cross_rounds", "cross_bytes",
+                      "cross_seconds")}
 
 
 def _serve(jobs: queue.SimpleQueue) -> None:

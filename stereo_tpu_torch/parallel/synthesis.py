@@ -33,10 +33,18 @@ path launches ``upsample_blend`` on every shard, and ``matching_core`` and
 ``sampled_window`` per frame.
 
 On a mesh that spans processes every rank calls with the same global
-batch, holds replicas on its own devices only and runs the groups (split)
-or frames (dealt) that lie on them; the disparities and right views are
-gathered to every rank (``parallel.dnn.gather_frames``).  A split whose
-``tile`` group spans processes is refused, as in ``parallel.dnn``.
+batch, holds replicas on its own devices only and runs its shards of each
+``tile`` group (split) or the frames dealt to it; the disparities and
+right views are gathered to every rank (``parallel.dnn.gather_frames``).
+A group may span processes, as GSPMD splits rows across hosts: each rank
+resizes the group's whole frames itself (every rank has the global
+batch), runs its shards' rows, and the halo exchanges cross ranks
+(``ops/rows.py``); the synthesized rows of such groups are then
+all-gathered, so that the rank each frame is dealt to
+(:func:`~stereo_tpu_torch.parallel.dnn.frame_slots`) joins them and runs
+the classical matcher on the whole frame.  A split across processes runs
+eagerly; one within a process is replayed where :attr:`graph_splits`
+holds, as in ``parallel.dnn``.
 """
 
 from __future__ import annotations
@@ -48,7 +56,8 @@ import torch
 
 from ..core.config import MatchingConfig, MeshConfig
 from . import rows
-from .dnn import frame_slots, gather_frames, refuse_split_across_processes
+from .dnn import (frame_slots, frames_of, gather_frames, gather_pieces,
+                  split_devices, split_kinds)
 from .mesh import Mesh, make_mesh, same_device
 
 # The product of the strides of Deep3D's first three pools (VggBlock_0-2).
@@ -69,10 +78,12 @@ class ShardedSingleViewEngine:
 
     :attr:`row_split` says whether Deep3D is split by rows over ``tile``
     (else frames are dealt whole; set it False to deal them), and
-    :attr:`halo` what the last split exchanged (``rounds`` per forward and
-    ``bytes`` over all groups).  :attr:`graph_splits` says whether the
-    split synthesis is replayed from a CUDA graph (every device of the
-    mesh one card); set it False to run it eagerly."""
+    :attr:`halo` what the last split exchanged (``parallel.rows.exchanged``:
+    ``rounds`` per forward, ``bytes`` over all groups, and of those the
+    ``cross_rounds`` and ``cross_bytes`` received from other processes).
+    :attr:`graph_splits` says whether a split synthesis within one
+    process is replayed from a CUDA graph (every device of the mesh one
+    card); set it False to run it eagerly."""
 
     def __init__(self, matching_config: MatchingConfig,
                  mesh_config: MeshConfig, *, mesh: Optional[Mesh] = None,
@@ -101,8 +112,8 @@ class ShardedSingleViewEngine:
         self.row_split = (self._tile > 1
                           and dh % (DEEP3D_ROW_STRIDE * self._tile) == 0
                           and (fh, fw) == (4 * dh, 4 * dw))
-        if self.row_split:
-            refuse_split_across_processes(self.mesh)
+        self._lines = (self.mesh.tile_lines() if self.row_split
+                       else [None] * self.batch_group)
         self.halo = None
         self.graph_splits = len(devices) == 1 and devices[0].type == "cuda"
         self._shard_threads = rows.ShardThreads()
@@ -134,8 +145,6 @@ class ShardedSingleViewEngine:
         frames = [None] * n
         with torch.no_grad():
             if self.row_split:
-                # A group's frames are dealt within its tile devices, so a
-                # frame is this process's exactly when its group is.
                 mine = [i for i, s in enumerate(slots) if mesh.is_local(s)]
                 rights = self._synthesize_split(left, mine)
                 for i, r in zip(mine, rights):
@@ -153,23 +162,60 @@ class ShardedSingleViewEngine:
         return disparity, gather_frames(mesh, [f and f[1] for f in frames],
                                         slots)
 
-    def _synthesize_split(self, left: torch.Tensor, mine: list):
+    def _synthesize_split(self, left: torch.Tensor, mine: list) -> list:
         """The right views (3, *output shape) of frames ``mine`` of the
-        (N, 3, H, W) 0..255 batch, on the mesh's first device: each
-        group's frames split by rows over its ``tile`` devices; replayed
-        from a CUDA graph when :attr:`graph_splits`.  ``mine`` holds whole
-        groups (all of them on a mesh of one process)."""
-        data, _, disp = self.mesh.shape
-        per_group = left.shape[0] // (data * disp)
-        keys = [(d, p) for d in range(data) for p in range(disp)]
-        held = sorted({i // per_group for i in mine})
-        if not held:
-            return []
-        if len(held) < len(keys):
-            left = left[[g * per_group + j for g in held
-                         for j in range(per_group)]]
-        groups = [list(self.mesh.devices[keys[g][0], :, keys[g][1]])
-                  for g in held]
+        (N, 3, H, W) 0..255 batch (the frames dealt to this process), on
+        the mesh's first device: each group's frames split by rows over
+        its ``tile`` devices.  A group within this process runs as one
+        program, replayed from a CUDA graph when :attr:`graph_splits`; the
+        groups that span processes run eagerly, together, and their rows
+        are all-gathered (every rank calls this)."""
+        mesh, tile = self.mesh, self._tile
+        per_group = left.shape[0] // self.batch_group
+        devices = split_devices(mesh, range(self.batch_group))
+        within, spanning = split_kinds(devices, self._lines)
+        rights, halos, wanted = {}, [], set(mine)
+        if within:
+            right = self._split_rows(
+                frames_of((left,), within, per_group)[0],
+                [devices[g] for g in within])
+            halos.append(self.halo)
+            for m, g in enumerate(within):
+                for j in range(per_group):
+                    rights[g * per_group + j] = right[m * per_group + j]
+        crossing = [g for g, line in enumerate(self._lines)
+                    if line is not None]
+        if crossing:
+            pieces = {}
+            if spanning:
+                results, halo = self._shard_program(
+                    [devices[g] for g in spanning],
+                    [self._lines[g] for g in spanning],
+                    frames_of((left,), spanning, per_group)[0])
+                halos.append(halo)
+                for g, shards in zip(spanning, results):
+                    for t, r in enumerate(shards):
+                        if r is not None:
+                            pieces[crossing.index(g), t] = r.to(
+                                mesh.first_device)
+            fh, fw = self.synthesis.model_full_shape
+            joined = gather_pieces(mesh, pieces, crossing, tile, torch.empty(
+                (per_group, 3, fh // tile, fw), device="meta"))
+            for g, shards in zip(crossing, joined):
+                held = [j for j in range(per_group)
+                        if g * per_group + j in wanted]
+                if held:
+                    right = self._output(torch.cat(shards, dim=-2)[held])
+                    for j, r in zip(held, right):
+                        rights[g * per_group + j] = r
+        self.halo = rows.merge_halos(halos) if halos else None
+        return [rights[i] for i in mine]
+
+    def _split_rows(self, left: torch.Tensor, groups: list) -> torch.Tensor:
+        """The right views of the frames dealt in equal runs to ``groups``
+        (each a list of ``tile`` devices, all this process's), each run
+        split by rows over its group, on the mesh's first device; replayed
+        from a CUDA graph when :attr:`graph_splits`."""
         program = functools.partial(self._split_program, groups)
         if not self.graph_splits:
             (right,), self.halo = program(left)
@@ -179,7 +225,12 @@ class ShardedSingleViewEngine:
             (tuple(map(tuple, groups)), tuple(left.shape)), program, left)
         return right
 
-    def _split_program(self, groups, left):
+    def _shard_program(self, groups, lines, left):
+        """Each group's frames resized to Deep3D's full and down shapes on
+        its first device here, and split by rows over its devices (None: a
+        shard of another process, reached through ``lines``): the shards'
+        synthesized rows at the full shape, shaped as ``groups`` (None at
+        other processes' shards), and what they exchanged."""
         from ..synthesis.right_view_synthesis import (resize_nchw,
                                                       synthesize_rows)
 
@@ -188,26 +239,33 @@ class ShardedSingleViewEngine:
         splits = []
         for g, devices in enumerate(groups):
             # The resizes of synthesize_net_batch, on the whole frames.
-            lg = left[g * per_group:(g + 1) * per_group].to(devices[0],
-                                                             torch.float32)
+            home = next(d for d in devices if d is not None)
+            lg = left[g * per_group:(g + 1) * per_group].to(home,
+                                                           torch.float32)
             views = [resize_nchw(lg, shape) / 255.0
                      for shape in (s.model_full_shape, s.model_down_shape)]
             per = [v.shape[-2] // self._tile for v in views]
-            splits.append([(dev, functools.partial(
+            splits.append([None if dev is None else (dev, functools.partial(
                 synthesize_rows, self.replicas[dev].model,
                 *(v[..., t * p:(t + 1) * p, :].to(dev)
                   for v, p in zip(views, per)), s.compute_dtype))
                 for t, dev in enumerate(devices)])
-        results, exchanges = self._shard_threads.run(splits)
+        results, exchanges = self._shard_threads.run(splits, lines)
+        return results, rows.exchanged(exchanges)
+
+    def _split_program(self, groups, left):
+        results, halo = self._shard_program(groups, None, left)
         first = self.mesh.first_device
         right = torch.cat([torch.cat([r.to(devices[0]) for r in shards],
                                      dim=-2).to(first)
                            for devices, shards in zip(groups, results)])
-        out_shape = (self.config.height, self.config.width)
-        if tuple(out_shape) != tuple(s.model_full_shape):
-            right = resize_nchw(right, out_shape)
-        return (right,), dict(rounds=exchanges[0].rounds,
-                              bytes=sum(e.bytes for e in exchanges))
+        return (self._output(right),), halo
+
+    def _output(self, right: torch.Tensor) -> torch.Tensor:
+        """Synthesized views at Deep3D's full shape -> the output shape."""
+        from ..synthesis.right_view_synthesis import resize_nchw
+
+        return resize_nchw(right, (self.config.height, self.config.width))
 
     def warmup(self) -> None:
         x = torch.zeros((self.batch_group, 3, self.config.height,

@@ -12,7 +12,9 @@ list:
 
 * ``ring_fetch`` — each local entry receives a piece of its ring
   neighbours' values: point to point (``batch_isend_irecv``) where the
-  neighbour is remote, ``.to()`` where it is local;
+  neighbour is remote, ``.to()`` where it is local; with ``wrap=False``
+  the line is a row split's column of shards, whose first and last
+  entries have no neighbour past the frame's edges;
 * ``all_reduce`` — a reduction over the ranks of the line, after the
   caller reduced its local entries;
 * ``all_gather`` — every entry's value in entry order.
@@ -33,6 +35,7 @@ smoke phase run through it.
 
 from __future__ import annotations
 
+import datetime
 import math
 import multiprocessing
 import os
@@ -107,14 +110,16 @@ class Transport:
 
     def all_gather_parts(self, parts: Sequence[Optional[torch.Tensor]],
                          owners: Sequence[int], device, group=None,
-                         like: Optional[torch.Tensor] = None
+                         like: Optional[torch.Tensor] = None,
+                         timeout_s: Optional[float] = None
                          ) -> List[torch.Tensor]:
         """Every part of ``parts`` on ``device``.  ``owners[i]`` is the rank
         holding part i; ``parts[i]`` is that tensor on its owner and None
         elsewhere.  All parts have one shape and dtype: ``like``'s where
         the caller has a tensor of them, else learnt from the ranks that
         hold a part (one more collective; a rank may hold none).  Called
-        by every rank of ``group`` (default: all)."""
+        by every rank of ``group`` (default: all); ``timeout_s`` as in
+        :meth:`Line.ring_fetch`."""
         members = dist.get_process_group_ranks(group or dist.group.WORLD)
         mine = [p for p, o in zip(parts, owners) if o == self.rank]
         if like is not None:
@@ -133,7 +138,8 @@ class Transport:
                 [p.reshape(-1).to(device) for p in mine])
         sent = self._out(flat)
         bufs = [torch.empty_like(sent) for _ in members]
-        dist.all_gather(bufs, sent, group=group)
+        _wait(dist.all_gather(bufs, sent, group=group, async_op=True),
+              timeout_s)
         bufs = [self._back(b, device) for b in bufs]
         out, seen = [], {}
         for o in owners:
@@ -156,38 +162,48 @@ class Line:
     def local(self, i: int) -> bool:
         return self.ranks[i] == self.transport.rank
 
-    def ring_fetch(self, xs: Sequence[Optional[torch.Tensor]],
-                   wants: Sequence[tuple]) -> list:
+    def ring_fetch(self, xs: Sequence[Optional[object]],
+                   wants: Sequence[tuple], wrap: bool = True,
+                   timeout_s: Optional[float] = None) -> list:
         """For each local entry i and each ``(offset, piece)`` of
-        ``wants``: ``piece(xs[(i + offset) % n])`` on ``xs[i]``'s device;
-        None rows at remote entries.  Every value of the ring has one
-        shape, so a received piece has the shape of ``piece(xs[i])``.
-        Messages are posted in one global order (receiver, then want),
-        so both ends of a pair post theirs in the same order; each carries
-        its own tag."""
+        ``wants``: ``piece(xs[(i + offset) % n])`` on the device of
+        ``piece(xs[i])``; None rows at remote entries.  Without ``wrap``
+        there is no entry past either end: a want whose ``i + offset``
+        lies outside ``0..n-1`` stays None and posts no message.  Every
+        value of the line has one shape, so a received piece has the
+        shape of ``piece(xs[i])``.  Messages are posted in one global
+        order (receiver, then want), so both ends of a pair post theirs
+        in the same order; each carries its own tag.  ``timeout_s`` bounds
+        the wait for each message (None: the group's own limit); on gloo
+        a message that times out raises ``RuntimeError``."""
         tr, n = self.transport, len(xs)
         out = [[None] * len(wants) if self.local(i) else None
                for i in range(n)]
         ops, pending = [], []
         for i in range(n):
             for w, (offset, piece) in enumerate(wants):
-                j = (i + offset) % n
+                j = i + offset
+                if wrap:
+                    j %= n
+                elif not 0 <= j < n:
+                    continue
                 tag = i * len(wants) + w
                 if self.local(i) and self.local(j):
-                    out[i][w] = piece(xs[j]).to(xs[i].device)
+                    out[i][w] = piece(xs[j]).to(piece(xs[i]).device)
                 elif self.local(j):
                     ops.append(dist.P2POp(dist.isend, tr._out(piece(xs[j])),
                                           self.ranks[i], self.group, tag))
                 elif self.local(i):
-                    buf = tr._buffer(piece(xs[i]))
+                    mine = piece(xs[i])
+                    buf = tr._buffer(mine)
                     ops.append(dist.P2POp(dist.irecv, buf, self.ranks[j],
                                           self.group, tag))
-                    pending.append((i, w, buf))
+                    pending.append((i, w, buf, mine.device))
         if ops:
             for work in dist.batch_isend_irecv(ops):
-                work.wait()
-        for i, w, buf in pending:
-            out[i][w] = tr._back(buf, xs[i].device)
+                _wait(work, timeout_s)
+        for i, w, buf, device in pending:
+            out[i][w] = tr._back(buf, device)
         return out
 
     def all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
@@ -195,14 +211,22 @@ class Line:
         line's ranks."""
         return self.transport.all_reduce(t, op, self.group)
 
-    def all_gather(self, xs: Sequence[Optional[torch.Tensor]],
-                   device) -> List[torch.Tensor]:
+    def all_gather(self, xs: Sequence[Optional[torch.Tensor]], device,
+                   timeout_s: Optional[float] = None) -> List[torch.Tensor]:
         """Every entry's value (one shape for all) in entry order, on
         ``device``.  Every rank of the line holds an entry, so the shape
         and dtype come from a local one."""
         return self.transport.all_gather_parts(
             xs, self.ranks, device, self.group,
-            like=next(x for x in xs if x is not None))
+            like=next(x for x in xs if x is not None), timeout_s=timeout_s)
+
+
+def _wait(work, timeout_s: Optional[float]) -> None:
+    """Wait for ``work``, at most ``timeout_s`` seconds when given."""
+    if timeout_s is None:
+        work.wait()
+    else:
+        work.wait(datetime.timedelta(seconds=timeout_s))
 
 
 def spawn_ranks(target: Callable, world: int, store: str, args=(),

@@ -1,6 +1,8 @@
 """The ranks of ``tests/test_torch_multiprocess.py``: each case of
 :data:`CASES` run by every rank of a gloo group on the CPU, each rank
-saving what it received, and rank 0 also the same mesh in one process.
+saving what it received, and rank 0 also the same mesh in one process;
+before them each row-split funnel of :data:`FUNNELS` split over two of
+the ranks, and two splits across ranks that fail.
 
 A spawned child imports the module of the function it runs, so this one
 imports only numpy, torch and the port (the test modules import JAX).
@@ -11,6 +13,7 @@ traceback to ``OUT_DIR/rank{r}.err`` and exits 1 (it re-raises).
 """
 
 import os
+import time
 import traceback
 
 import numpy as np
@@ -23,7 +26,11 @@ from stereo_tpu_torch.parallel import (ShardedClassicalEngine,
                                        ShardedDnnEngine,
                                        ShardedSingleViewEngine,
                                        initialize_distributed, make_mesh)
+from stereo_tpu_torch.ops import rows
 from stereo_tpu_torch.parallel.mesh import Mesh
+from stereo_tpu_torch.parallel import rows as parallel_rows
+from stereo_tpu_torch.parallel.rows import ShardThreads
+from stereo_tpu_torch.parallel.transport import Line, Transport
 from stereo_tpu_torch.pipeline import DepthEstimationPipeline
 from stereo_tpu_torch.synthesis import RightViewSynthesis
 
@@ -54,11 +61,35 @@ CASES = {
     "gwcnet_split_221": ("gwcnet", (2, 2, 1), (2, 2, 2, 2), {}),
     "gwcnet_dealt_221": ("gwcnet", (2, 2, 1), (1, 1, 1, 1), dict(h=48)),
     "single_view_split_221": ("single_view", (2, 2, 1), (2, 2, 2, 2), {}),
+    # Row splits whose tile group spans ranks: the halo exchange crosses
+    # them at every row-mixing layer.  (1,2,1) leaves ranks 2 and 3
+    # outside the mesh; in the overlap case rank 1 holds a shard of both
+    # groups, of which one spans ranks 0-1 and the other ranks 1-2.
+    "gwcnet_split_121": ("gwcnet", (1, 2, 1), (1, 1, 1, 1), {}),
+    "gwcnet_split_141": ("gwcnet", (1, 4, 1), (1, 1, 1, 1), {}),
+    "gwcnet_split_221_overlap": ("gwcnet", (2, 2, 1), (1, 2, 1, 1), {}),
+    "msnet2d_split_121": ("msnet2d", (1, 2, 1), (1, 1, 1, 1), dict(d=64)),
+    "msnet3d_split_121": ("msnet3d", (1, 2, 1), (1, 1, 1, 1), {}),
+    "single_view_split_121": ("single_view", (1, 2, 1), (1, 1, 1, 1), {}),
+    "single_view_split_141": ("single_view", (1, 4, 1), (2, 1, 1, 1), {}),
 }
-# Row splits whose tile group spans ranks: refused at construction.
-REFUSED = {"gwcnet_refused_121": ("gwcnet", (1, 2, 1), (1, 1, 1, 1)),
-           "single_view_refused_121": ("single_view", (1, 2, 1),
-                                       (1, 1, 1, 1))}
+NETWORKS = ("gwcnet", "msnet2d", "msnet3d")
+# The row split's funnels, each split over ranks 0 and 1 (one shard each)
+# and compared with the whole frame: name -> (input shape, function of a
+# shard's rows, weight shape or None).
+FUNNELS = {
+    "halo_zeros": ((1, 2, 8, 5), lambda x, w: rows.halo(x, 1, 2), None),
+    "halo_replicate": ((1, 2, 8, 5),
+                       lambda x, w: rows.halo(x, 2, 1, edge="replicate"),
+                       None),
+    "halo_none": ((1, 2, 8, 5), lambda x, w: rows.halo(x, 1, 1, edge="none"),
+                  None),
+    "conv2d": ((2, 3, 8, 6), lambda x, w: rows.conv2d(x, w), (4, 3, 3, 3)),
+    "interpolate": ((1, 2, 8, 6), lambda x, w: rows.interpolate(
+        x, (x.shape[-2] * 4, 12), "bilinear"), None),
+    "gather": ((1, 2, 8, 5), lambda x, w: rows.gather(x), None),
+}
+FUNNEL_RANKS = (0, 1)
 # make_mesh's global order: ranks list 2, 1, 1, 1 entries.
 ORDER_COUNTS = (2, 1, 1, 1)
 
@@ -94,7 +125,8 @@ def one_process_mesh(mc: MeshConfig) -> Mesh:
 
 def run_case(name, across: bool):
     """Case ``name`` across the group (``across``) or on the same mesh in
-    this process alone: a dict of its outputs."""
+    this process alone: ``(outputs, halo)``, a dict of its outputs and
+    what a row split's last batch call exchanged (None without one)."""
     kind, shape, entries, opts = CASES[name]
     mc = MeshConfig(*shape)
 
@@ -110,7 +142,7 @@ def run_case(name, across: bool):
                        else real_batch)(base, n=2 * mc.data)
         engine = ShardedClassicalEngine(cfg, mc, mesh=mesh_of(mc, entries))
         return dict(disparity=engine.compute_disparity_maps(left, right),
-                    kernel_path=torch.tensor(engine.use_kernels))
+                    kernel_path=torch.tensor(engine.use_kernels)), None
     if kind == "pipeline":
         left, right = integer_batch(CFG)
         pcfg = PipelineConfig(image_shape=(32, 64), min_disparity=0,
@@ -120,47 +152,103 @@ def run_case(name, across: bool):
             engine = ShardedClassicalEngine(pcfg.matching_config(), mc,
                                             mesh=one_process_mesh(mc))
             maps = engine.compute_disparity_maps(left, right)
-            return dict(batch=maps, single=maps[0])
+            return dict(batch=maps, single=maps[0]), None
         # The pipeline's own mesh: one "cpu" entry a rank (n / world).
         pipeline = DepthEstimationPipeline(pcfg, device="cpu")
         return dict(batch=pipeline.process_batch(left, right).disparity_map,
-                    single=pipeline.process(left[0], right[0]).disparity_map)
+                    single=pipeline.process(left[0], right[0]).disparity_map
+                    ), None
     h = opts.get("h", 64)
     rng = np.random.default_rng(0)
     left = torch.from_numpy(rng.uniform(0, 255, (4, 3, h, 96)).astype(
         np.float32))
-    if kind == "gwcnet":
-        engine = ShardedDnnEngine("gwcnet", (h, 96), mc,
-                                  mesh=mesh_of(mc, entries), max_disparity=16)
-        return dict(disparity=engine.process_batch(
-                        left, torch.roll(left, -3, dims=-1)),
+    if kind in NETWORKS:
+        engine = ShardedDnnEngine(kind, (h, 96), mc, mesh=mesh_of(mc, entries),
+                                  max_disparity=opts.get("d", 16))
+        disparity = engine.process_batch(left, torch.roll(left, -3, dims=-1))
+        halo = engine.halo
+        return dict(disparity=disparity,
                     single=engine.process(left[0], torch.roll(
                         left[0], -3, dims=-1)),
-                    row_split=torch.tensor(engine.row_split))
+                    row_split=torch.tensor(engine.row_split)), halo
     engine = ShardedSingleViewEngine(
         MatchingConfig(height=h, width=96, min_disparity=1, max_disparity=15),
         mc, mesh=mesh_of(mc, entries), synthesis=small_synthesis(h))
     disparity, right = engine.process_batch(left, return_right=True)
     return dict(disparity=disparity, right=right,
-                row_split=torch.tensor(engine.row_split))
+                row_split=torch.tensor(engine.row_split)), engine.halo
 
 
-def refused(name):
-    """Case ``name`` of :data:`REFUSED`: the ``ValueError``'s message."""
-    kind, shape, entries = REFUSED[name]
-    mc = MeshConfig(*shape)
-    mesh = make_mesh(mc, ["cpu"] * entries[dist.get_rank()])
+def funnel_input(name):
+    """The seeded input and weight of funnel ``name``."""
+    shape, _, wshape = FUNNELS[name]
+    rng = np.random.default_rng(sorted(FUNNELS).index(name))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    w = (None if wshape is None else torch.from_numpy(
+        rng.standard_normal(wshape).astype(np.float32)))
+    return x, w
+
+
+def funnels():
+    """Each funnel split over :data:`FUNNEL_RANKS`, one shard a rank: this
+    rank's shard of the output and what the split exchanged across ranks
+    (None on the other ranks).  Every rank makes the line (its process
+    group is made collectively)."""
+    line = Line(Transport(), FUNNEL_RANKS)
+    rank = dist.get_rank()
+    threads = ShardThreads()
+    out = {}
     try:
-        if kind == "gwcnet":
-            ShardedDnnEngine("gwcnet", (64, 96), mc, mesh=mesh,
-                             max_disparity=16)
-        else:
-            ShardedSingleViewEngine(
-                MatchingConfig(height=64, width=96, min_disparity=1,
-                               max_disparity=15), mc, mesh=mesh,
-                synthesis=small_synthesis())
-    except ValueError as exc:
-        return str(exc)
+        for name in sorted(FUNNELS):
+            if rank not in FUNNEL_RANKS:
+                out[name] = None
+                continue
+            x, w = funnel_input(name)
+            t = FUNNEL_RANKS.index(rank)
+            per = x.shape[-2] // len(FUNNEL_RANKS)
+            split = [None] * len(FUNNEL_RANKS)
+            split[t] = ("cpu", lambda: FUNNELS[name][1](
+                x.narrow(-2, t * per, per), w))
+            results, exchanges = threads.run([split], [line])
+            ex = exchanges[0]
+            out[name] = dict(rows=results[0][t], rounds=ex.rounds,
+                             cross_rounds=ex.cross_rounds,
+                             cross_bytes=ex.cross_bytes)
+        # The two ranks' shards exchange with different edge rules: the
+        # keys' digests disagree.  Then rank 1's shard raises before its
+        # first exchange, on a line of its own (a timed-out wait closes
+        # the line's connections): rank 0 gives up after the timeout.
+        out["out_of_step"] = failure(threads, line, lambda t, x: rows.halo(
+            x, 1, 1, edge=("zeros", "replicate")[t]))
+        out["failing_shard"] = failure(
+            threads, Line(Transport(), FUNNEL_RANKS),
+            lambda t, x: rows.halo(x, 1, 1) if t == 0 else 1 / 0,
+            timeout_s=2.0)
+    finally:
+        threads.close()
+    return out
+
+
+def failure(threads, line, fn, timeout_s=None):
+    """``fn(t, rows)`` on shard t (this rank's) of a split over
+    :data:`FUNNEL_RANKS`: ``(error type, message, seconds)`` of what the
+    run raised, None on the other ranks or when nothing was raised."""
+    rank = dist.get_rank()
+    if rank not in FUNNEL_RANKS:
+        return None
+    t = FUNNEL_RANKS.index(rank)
+    split = [None] * len(FUNNEL_RANKS)
+    split[t] = ("cpu", lambda: fn(t, torch.ones(1, 1, 4, 3)))
+    saved = parallel_rows.TURN_TIMEOUT_S
+    if timeout_s is not None:
+        parallel_rows.TURN_TIMEOUT_S = timeout_s
+    start = time.monotonic()
+    try:
+        threads.run([split], [line])
+    except Exception as exc:
+        return type(exc).__name__, str(exc), time.monotonic() - start
+    finally:
+        parallel_rows.TURN_TIMEOUT_S = saved
     return None
 
 
@@ -188,17 +276,18 @@ def run(rank, world, init, out_dir, names):
         initialize_distributed(init, world, rank, backend="gloo")
         initialize_distributed()        # no address: a no-op
         got = {"world_size": dist.get_world_size(),
-               "mesh_order": mesh_order()}
+               "mesh_order": mesh_order(), "funnels": funnels(), "halo": {}}
         for name in names:
-            got[name] = (run_case(name, across=True) if name in CASES
-                         else refused(name))
+            got[name], got["halo"][name] = run_case(name, across=True)
         torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.barrier()
         dist.destroy_process_group()
         if rank == 0:
-            torch.save({name: run_case(name, across=False)
-                        for name in names if name in CASES},
-                       os.path.join(out_dir, "one_process.pt"))
+            alone = {"halo": {}}
+            for name in names:
+                alone[name], alone["halo"][name] = run_case(name,
+                                                            across=False)
+            torch.save(alone, os.path.join(out_dir, "one_process.pt"))
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
