@@ -149,6 +149,14 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              the right views' largest difference, and the ms/frame of the
              split (device ms, busy share), of whole frames dealt and of
              the single device;
+   mesh_train: Deep3D's sharded training step (``parallel.train``, the
+             graft entry's step (b)) at 384x1280 / 96x320, batch 2, on
+             (2,1,1), (1,2,1), (2,2,1) and (1,4,1): three steps from the
+             smoke's Deep3D weights against the single-device ``Trainer``,
+             dropout off and then on from one generator seed; the largest
+             loss and gradient gaps, replica equality, ms/step (median),
+             device ms and peak memory beside the single device's; no
+             kernel launches (training runs the plain compositions);
    multiprocess: the mesh across processes: two ranks spawned on cuda:0,
              a gloo group on a file store (``initialize_distributed``),
              each rank listing its own entries of cuda:0 and ``make_mesh``
@@ -159,7 +167,10 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              ``data`` across the ranks; every rank's result equal bit for
              bit to the same mesh in one process; ms/frame of both, the
              bytes staged through the host per frame (gloo moves host
-             tensors), the launches of both ranks.
+             tensors), the launches of both ranks; and Deep3D's training
+             step on (2,1,1) with ``data`` across the ranks, its losses,
+             weights and Adam state on both ranks equal bit for bit to
+             the same mesh in one process.
 
 The kernel launch counts are zeroed just before each path of phases 5-9
 (the exported networks' inference included) is driven and read just
@@ -183,8 +194,8 @@ phase lines say which.
     python3 chip_smoke.py --phases multiprocess synthetic
 
 runs the device and build phases and then only the named phases, with
-their gates (``multiprocess``, ``synthetic``; the latter with the
-committed Deep3D when ``data/checkpoints/deep3d.npz`` is present, which
+their gates (``mesh_train``, ``multiprocess``, ``synthetic``; Deep3D's
+committed weights when ``data/checkpoints/deep3d.npz`` is present, which
 the whole smoke's copy may leave out), ending with the ``nvidia-smi``
 line and no kernels line.
 
@@ -3044,6 +3055,148 @@ def phase_mesh_single_view_rows(torch, dev, config, synthesis):
                         single_batch_spread=spread, cases=cases), failed
 
 
+MESH_TRAIN_MESHES = ((2, 1, 1), (1, 2, 1), (2, 2, 1), (1, 4, 1))
+MESH_TRAIN_STEPS = 3
+# The gates of ``mesh_train``'s gaps, sharded against single-device steps in
+# float32 (TF32 off) on the card: the shards' convolutions round otherwise
+# than the whole batch's, a pre-activation or a pooling window within that
+# rounding of a tie flips its ReLU or its max, and a gradient near 0 may
+# flip its first Adam update (about lr * sign): so the gates are on the
+# loss's relative gap and the gradients' relative gap in global norm; the
+# largest gap in one array, relative to that array's largest entry, is
+# printed beside them.
+MESH_TRAIN_LOSS_RTOL = 1e-4
+MESH_TRAIN_GRAD_NORM_RTOL = 1e-2
+
+
+def train_batch(torch, dev, config):
+    """A batch of the fixture drive at Deep3D's 384x1280 / 96x320 on
+    ``dev``, as ``phase_train_deep3d`` takes it."""
+    from stereo_tpu_torch.train import KittiStereoDataset
+    from stereo_tpu_torch.train.kitti_dataset import batch_iterator
+    from stereo_tpu_torch.train.trainer import to_device
+
+    dataset = KittiStereoDataset([FIXTURE_DRIVE])
+    return to_device(next(batch_iterator(dataset, config.batch_size,
+                                         seed=0)), dev)
+
+
+def deep3d_weights_of(synthesis) -> dict:
+    """The smoke's Deep3D weights (``make_synthesis``'s) in float32, on
+    the CPU."""
+    return {k: v.detach().float().cpu()
+            for k, v in synthesis.model.state_dict().items()}
+
+
+def step_gaps(loss, grads, want_loss, want_grads) -> dict:
+    """A sharded step's gaps to the single device's: the loss's relative
+    gap, the gradients' relative gap in global norm, and the largest gap
+    in one array relative to that array's largest entry."""
+    num = sum(float(((grads[k] - want_grads[k]).double() ** 2).sum())
+              for k in want_grads)
+    den = sum(float((want_grads[k].double() ** 2).sum()) for k in want_grads)
+    worst, key = max((float((grads[k] - want_grads[k]).abs().max())
+                      / max(float(want_grads[k].abs().max()), 1e-30), k)
+                     for k in want_grads)
+    return dict(loss_rel=abs(loss - want_loss) / abs(want_loss),
+                grad_norm_rel=(num / den) ** 0.5, grad_array_rel=worst,
+                grad_array=key)
+
+
+def phase_mesh_train(torch, dev, synthesis, deep3d_weights: str):
+    """``ShardedTrainStep`` on each of ``MESH_TRAIN_MESHES`` (virtual
+    meshes of cuda:0) against ``Trainer`` on the whole batch, float32:
+    ``MESH_TRAIN_STEPS`` steps from the same weights, dropout off and then
+    on from generator seed 0; the gaps of every step within
+    ``MESH_TRAIN_LOSS_RTOL`` and ``MESH_TRAIN_GRAD_NORM_RTOL``, the
+    replicas identical, and ms/step (median of 5, host clock), device ms
+    and peak memory with dropout on beside the single device's.  The
+    kernels' launch counts over the phase must all be 0."""
+    from stereo_tpu_torch.core.config import MeshConfig, TrainerConfig
+    from stereo_tpu_torch.models import Deep3D
+    from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    from stereo_tpu_torch.parallel import make_mesh
+    from stereo_tpu_torch.parallel.train import ShardedTrainStep
+    from stereo_tpu_torch.train import Trainer
+
+    config = TrainerConfig(batch_size=2, log_every=0)
+    batch = train_batch(torch, dev, config)
+    weights = deep3d_weights_of(synthesis)
+
+    def fresh():
+        model = Deep3D()
+        model.load_state_dict(weights)
+        return model.to(dev)
+
+    def timed(step) -> dict:
+        return dict(ms_per_step_median=statistics.median(
+                        timed_steps(torch, step, 5)),
+                    device_ms_per_step=frame_device_ms(torch, step, 5),
+                    max_memory_allocated_bytes=peak_bytes(torch, step))
+
+    reset_launch_counts()
+    single, want = {}, {}
+    for dropout in (False, True):
+        trainer = Trainer(Deep3D(), config, state_dict=weights, device=dev,
+                          dropout=dropout)
+        trainer.generator.manual_seed(0)
+        want[dropout] = []
+        for _ in range(MESH_TRAIN_STEPS):
+            loss = float(trainer.train_step(*batch))
+            want[dropout].append((loss, {
+                n: p.grad.detach().clone()
+                for n, p in trainer.model.named_parameters()}))
+        if dropout:
+            single = timed(lambda: trainer.train_step(*batch))
+        del trainer
+    torch.cuda.empty_cache()
+
+    meshes, failed = {}, []
+    for shape in MESH_TRAIN_MESHES:
+        mc = MeshConfig(*shape)
+        mesh = make_mesh(mc, virtual_mesh(torch, mc.num_devices))
+        case = {}
+        for dropout in (False, True):
+            step = ShardedTrainStep(fresh(), config, mesh, dropout=dropout,
+                                    seed=0)
+            gaps = []
+            for want_loss, want_grads in want[dropout]:
+                loss = float(step.step(*batch))
+                gaps.append(step_gaps(loss, {
+                    n: p.grad for n, p in step.model.named_parameters()},
+                    want_loss, want_grads))
+            arm = dict(
+                loss_rel_max=max(g["loss_rel"] for g in gaps),
+                grad_norm_rel_max=max(g["grad_norm_rel"] for g in gaps),
+                grad_array_rel_max=max(g["grad_array_rel"] for g in gaps),
+                steps=gaps, replicas=len(step.replicas),
+                replicas_identical=step.replicas_identical(),
+                row_split=step.layout.row_split)
+            if dropout:
+                arm.update(timed(lambda: step.step(*batch)))
+            step.close()
+            del step
+            torch.cuda.empty_cache()
+            if not (arm["loss_rel_max"] <= MESH_TRAIN_LOSS_RTOL
+                    and arm["grad_norm_rel_max"] <= MESH_TRAIN_GRAD_NORM_RTOL
+                    and arm["replicas_identical"]
+                    and arm["row_split"] == (shape[1] > 1)):
+                failed.append((shape, dropout))
+            case["dropout" if dropout else "no_dropout"] = arm
+        meshes["x".join(map(str, shape))] = case
+    del want
+    torch.cuda.empty_cache()
+    counts = dict(LAUNCHES)
+    require(all(v == 0 for v in counts.values()),
+            f"mesh_train launched kernels: {counts}")
+    require(not failed, f"mesh_train gaps or replicas off the gates at "
+                        f"{failed}: {meshes}")
+    return dict(weights=deep3d_weights, batch=config.batch_size, steps=MESH_TRAIN_STEPS,
+                gates=dict(loss_rel=MESH_TRAIN_LOSS_RTOL,
+                           grad_norm_rel=MESH_TRAIN_GRAD_NORM_RTOL),
+                single_device=single, meshes=meshes, launches=counts)
+
+
 # The mesh across processes: (label, engine, mesh, entries of cuda:0 each
 # of the two ranks lists).  KITTI's kernel path with the ring across the
 # ranks ((1,2,1): one entry each; (1,4,1): two each), the blockwise path
@@ -3064,6 +3217,64 @@ MULTIPROCESS_CASES = (
     ("single_view_rows_141", "single_view", (1, 4, 1), (2, 2)),
 )
 MULTIPROCESS_RANKS = 2
+# Deep3D's training step in ``multiprocess``: ``data`` across the two
+# ranks, one entry each.
+MULTIPROCESS_TRAIN_MESH = (2, 1, 1)
+MULTIPROCESS_TRAIN_STEPS = 2
+
+
+def multiprocess_train(torch, dev, synthesis, mesh) -> dict:
+    """``ShardedTrainStep`` on ``mesh`` (``MULTIPROCESS_TRAIN_MESH``, across
+    the ranks or in one process) from the smoke's Deep3D weights on the
+    fixture batch, dropout on: each step's loss, a SHA-256 of the weights
+    and Adam state afterwards (their bytes in parameter order), whether
+    this process's replicas are identical, ms/step (host clock, each
+    step's median) and the bytes staged through the host per step.  The
+    steps run under ``torch.use_deterministic_algorithms`` (cuDNN's
+    deterministic algorithms; ``CUBLAS_WORKSPACE_CONFIG`` is set where the
+    rank starts): a shard's backward then gives the same bits in every
+    process, so the ranks' result can equal one process's.  Any
+    operation it flags as nondeterministic is listed."""
+    import hashlib
+    import warnings
+
+    from stereo_tpu_torch.core.config import TrainerConfig
+    from stereo_tpu_torch.models import Deep3D
+    from stereo_tpu_torch.parallel.train import ShardedTrainStep
+
+    config = TrainerConfig(batch_size=2, log_every=0)
+    batch = train_batch(torch, dev, config)
+    model = Deep3D()
+    model.load_state_dict(deep3d_weights_of(synthesis))
+    step = ShardedTrainStep(model.to(dev), config, mesh, dropout=True,
+                            seed=0)
+    staged = mesh.transport.staged_bytes if mesh.transport else 0
+    losses = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            times = timed_steps(torch, lambda: losses.append(
+                step.step(*batch)) or losses[-1], MULTIPROCESS_TRAIN_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    staged = (mesh.transport.staged_bytes if mesh.transport else 0) - staged
+    replica = next(iter(step.replicas))
+    digest = hashlib.sha256()
+    for p in step.replicas[replica].parameters():
+        for t in [p.detach()] + list(
+                step.optimizers[replica].state[p].values()):
+            digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+    numbers = dict(losses=torch.stack(losses).cpu(),
+                   digest=digest.hexdigest(), replicas=len(step.replicas),
+                   replicas_identical=step.replicas_identical(),
+                   ms_per_step=times,
+                   staged_bytes_per_step=staged / MULTIPROCESS_TRAIN_STEPS,
+                   nondeterministic=sorted({
+                       str(w.message)[:200] for w in caught
+                       if "deterministic" in str(w.message)}))
+    step.close()
+    return numbers
 
 
 def multiprocess_case(torch, kind, mc, mesh, synthesis, dev):
@@ -3107,6 +3318,9 @@ def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
 
     try:
         sys.path.insert(0, ROOT)
+        # cuBLAS's deterministic workspace, for the training case: set
+        # before the first cuBLAS call.
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         import torch
         import torch.distributed as dist
         from stereo_tpu_torch.core.config import MeshConfig
@@ -3155,8 +3369,13 @@ def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
                                 for i in np.ndindex(*shape))))
             del run, mesh, engine
             torch.cuda.empty_cache()
+        mesh = make_mesh(MeshConfig(*MULTIPROCESS_TRAIN_MESH), [dev])
+        dist.barrier()
+        train = multiprocess_train(torch, dev, synthesis, mesh)
+        del mesh
+        torch.cuda.empty_cache()
         torch.save(dict(maps=maps, numbers=numbers, weights=weights,
-                        backend=dist.get_backend()),
+                        backend=dist.get_backend(), train=train),
                    os.path.join(out, f"rank{rank}.pt"))
         dist.barrier()
         dist.destroy_process_group()
@@ -3175,8 +3394,12 @@ def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
                 numbers[label] = timed(run, n, lambda: None)
                 del run, engine
                 torch.cuda.empty_cache()
+            grid = np.empty(MULTIPROCESS_RANKS, dtype=object)
+            grid[:] = [dev] * MULTIPROCESS_RANKS
+            train = multiprocess_train(torch, dev, synthesis, Mesh(
+                grid.reshape(MULTIPROCESS_TRAIN_MESH)))
             torch.save(dict(maps=maps, ms_per_frame_median=numbers,
-                            halo=halos),
+                            halo=halos, train=train),
                        os.path.join(out, "one_process.pt"))
     except BaseException:
         with open(os.path.join(out, f"rank{rank}.err"), "w") as f:
@@ -3278,6 +3501,25 @@ def phase_multiprocess(torch, tmp: str):
                 cross_rank_seconds_per_forward=[h["cross_seconds"]
                                                 for h in halos],
                 one_process_halo_rounds=one["halo"][label]["rounds"])
+    # Deep3D's training step with data across the ranks: every rank's
+    # losses, weights and Adam state those of one process, bit for bit.
+    want = one["train"]
+    trained = [r["train"] for r in ranks]
+    equal = all(torch.equal(t["losses"], want["losses"])
+                and t["digest"] == want["digest"] for t in trained)
+    require(equal and want["replicas_identical"]
+            and all(t["replicas_identical"] for t in trained)
+            and bool(torch.isfinite(want["losses"]).all()),
+            f"multiprocess training: ranks {trained}, one process {want}")
+    cases["train_" + "".join(map(str, MULTIPROCESS_TRAIN_MESH))] = dict(
+        mesh=MULTIPROCESS_TRAIN_MESH, equal=equal,
+        losses=want["losses"].tolist(),
+        ms_per_step=[t["ms_per_step"] for t in trained],
+        one_process_ms_per_step=want["ms_per_step"],
+        staged_bytes_per_step=[t["staged_bytes_per_step"]
+                               for t in trained],
+        replicas_per_rank=[t["replicas"] for t in trained],
+        flagged_nondeterministic=want["nondeterministic"])
     return counts, dict(backend=ranks[0]["backend"],
                         ranks=MULTIPROCESS_RANKS,
                         deep3d_weights=ranks[0]["weights"], cases=cases)
@@ -3486,6 +3728,12 @@ def main() -> int:
     counts["mesh_single_view_rows"], numbers, failed_sv = (
         phase_mesh_single_view_rows(torch, dev, PipelineConfig(), synthesis))
     report("mesh_single_view_rows", t, **numbers)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    numbers = phase_mesh_train(torch, dev, synthesis, deep3d_weights)
+    counts["mesh_train"] = numbers["launches"]
+    report("mesh_train", t, **numbers)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
         counts["multiprocess"], numbers = phase_multiprocess(
@@ -3708,8 +3956,9 @@ def only(names) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    require(set(names) <= {"multiprocess", "synthetic"},
-            f"--phases takes multiprocess and synthetic, not {names}")
+    require(set(names) <= {"mesh_train", "multiprocess", "synthetic"},
+            f"--phases takes mesh_train, multiprocess and synthetic, not "
+            f"{names}")
     sys.path.insert(0, ROOT)
     from stereo_tpu_torch.ops.cuda import build
 
@@ -3722,6 +3971,13 @@ def only(names) -> int:
     t = time.perf_counter()
     build.library()
     report("build", t, nvcc_seconds=round(build.build_seconds, 3))
+    if "mesh_train" in names:
+        synthesis, deep3d_weights = make_synthesis(dev)
+        t = time.perf_counter()
+        report("mesh_train", t, **phase_mesh_train(torch, dev, synthesis,
+                                                   deep3d_weights))
+        del synthesis
+        torch.cuda.empty_cache()
     if "multiprocess" in names:
         with tempfile.TemporaryDirectory() as tmp:
             t = time.perf_counter()

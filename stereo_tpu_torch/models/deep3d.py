@@ -22,7 +22,10 @@ shards' rows are gathered before the first pool that would not pool a
 shard's rows whole, or before the global branch's Dense layers over the
 whole pool5 grid.  The levels below the gather run on the whole frame on
 every shard, and their branch outputs are narrowed back to the shard's
-rows.  Outside a split nothing changes.
+rows.  In training mode (``parallel.train``) the volume's upsample takes
+one volume row of each neighbour (``ops.rows.upsample_bilinear``), and the
+blend, which shifts along columns only, runs on the shard's own rows.
+Outside a split nothing changes.
 """
 
 from __future__ import annotations
@@ -112,6 +115,14 @@ class DeconvBranch(nn.Module):
         return self.ConvTranspose_0(x)
 
 
+def dropout_keep(generator: torch.Generator, shape,
+                 device) -> torch.Tensor:
+    """The global branch's dropout mask of ``shape`` (N, hidden): True
+    where a hidden unit is kept, each with probability 1/2, drawn from
+    ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < 0.5
+
+
 class FeedForwardBranch(nn.Module):
     """Global branch: fc (h*w*512 -> 4096) -> relu -> fc (-> h*w*65),
     reshaped NHWC to (h, w, 65) and deconvolved x16.
@@ -121,7 +132,10 @@ class FeedForwardBranch(nn.Module):
     output is cast back to the input dtype before summation.  Training
     keeps them in float32 and drops half the hidden units (scaling the
     rest by 2, Flax's ``Dropout(0.5)``), drawing the mask from the
-    ``generator`` passed to ``forward``; without one, no dropout.
+    ``generator`` passed to ``forward`` (:func:`dropout_keep`), or taking
+    the mask itself in its place (a boolean (N, hidden) tensor: a shard's
+    frames of the mask drawn for the whole batch); without either, no
+    dropout.
     """
 
     def __init__(self, grid: Tuple[int, int], in_channels: int = 512,
@@ -140,7 +154,7 @@ class FeedForwardBranch(nn.Module):
         # Product, then bias, each rounded in the working dtype.
         return F.linear(x, layer.weight.to(x.dtype)) + layer.bias.to(x.dtype)
 
-    def forward(self, x_nchw, generator: Optional[torch.Generator] = None):
+    def forward(self, x_nchw, generator=None):
         n = x_nchw.shape[0]
         x = x_nchw.permute(0, 2, 3, 1).reshape(n, -1)
         dtype = torch.float32 if self.training else self.dense_dtype
@@ -148,8 +162,9 @@ class FeedForwardBranch(nn.Module):
             x = x.to(dtype)
         x = F.relu(self._dense(self.Dense_0, x))
         if self.training and generator is not None:
-            keep = torch.rand(x.shape, generator=generator,
-                              device=x.device) < 0.5
+            keep = (generator.to(x.device)
+                    if isinstance(generator, torch.Tensor)
+                    else dropout_keep(generator, x.shape, x.device))
             x = torch.where(keep, x / 0.5, torch.zeros_like(x))
         x = self._dense(self.Dense_1, x).to(x_nchw.dtype)
         gh, gw = self.grid
@@ -256,9 +271,9 @@ class Deep3D(nn.Module):
         """The softmax volume upsampled x ``prob_volume_scale`` (bilinear,
         half-pixel centres): (N, 65, H, W) in right-frame coordinates."""
         prob = self.prob_volume_low(left_down_nchw, generator)
-        s = self.prob_volume_scale
-        return F.interpolate(prob, scale_factor=s, mode="bilinear",
-                             align_corners=False)
+        # Inside a row split the shard's rows take one volume row of each
+        # neighbour; the backward is deterministic on CUDA.
+        return rows.upsample_bilinear(prob, self.prob_volume_scale)
 
     def synthesize_with_probabilities(
             self, left_full_nchw, left_down_nchw,
@@ -267,7 +282,9 @@ class Deep3D(nn.Module):
         W))``: the upsampled volume and the shifted-view blend written out
         (the JAX package's unfused path).  Output pixel y blends
         ``left[y + d]``, so the volume's soft-argmax is the right-frame
-        disparity."""
+        disparity.  The blend shifts along columns only, so inside a row
+        split each shard blends its own rows of both, as in the whole
+        frame."""
         prob = self.disparity_probabilities(left_down_nchw, generator)
         return weighted_shift_sum(prob, left_full_nchw), prob
 

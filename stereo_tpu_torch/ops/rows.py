@@ -15,9 +15,10 @@ rows they need across the shard's edges from the neighbouring shards:
   SAME padding gives;
 * ``ops.conv3d.deconv3d_parity`` and ``models.layers.deconv2d_parity`` take
   their one padded row on each side the same way;
-* the bilinear and trilinear resizes (:func:`interpolate`) take one
-  low-resolution row on each side, the edge row repeated at the frame's top
-  and bottom, where the resize clamps its source index.
+* the bilinear and trilinear resizes (:func:`interpolate`, and Deep3D's
+  training upsample :func:`upsample_bilinear`) take one low-resolution row
+  on each side, the edge row repeated at the frame's top and bottom, where
+  the resize clamps its source index.
 
 Deep3D's split (``models/deep3d.py``, under ``parallel.synthesis``) adds
 its own funnels: the 3x3 convolutions (:func:`conv2d`) take their row pair
@@ -197,6 +198,43 @@ def interpolate(x: torch.Tensor, size: Sequence[int],
     y = F.interpolate(halo(x, 1, 1, edge="replicate"), size=tuple(size),
                       mode=mode, align_corners=False)
     return y.narrow(-2, s, rows_out)
+
+
+def upsample_bilinear(x: torch.Tensor, s: int) -> torch.Tensor:
+    """``F.interpolate(x, scale_factor=s, mode="bilinear")`` (half-pixel
+    centres, the edge rows and columns repeated) for a whole factor ``s``,
+    written as shifted slices and weighted sums: its backward adds each
+    input's few contributions in a fixed order, where ``F.interpolate``'s
+    adds them with atomics on CUDA (which
+    ``torch.use_deterministic_algorithms`` refuses), so a training step
+    gives the same bits run after run.  The rows first: inside a row split
+    the row above and below come from the neighbouring shards (the edge
+    row repeated at the frame's top and bottom), so each shard's output
+    rows are the whole frame's.  At the frame's top the two weights of the
+    repeated row are summed in float, where ``F.interpolate`` reads the
+    row once: a rounding apart."""
+    if current() is None:
+        x = torch.cat([x[..., :1, :], x, x[..., -1:, :]], dim=-2)
+    else:
+        x = halo(x, 1, 1, edge="replicate")
+    x = _upsample_along(x, s, -2)
+    return _upsample_along(torch.cat([x[..., :1], x, x[..., -1:]], dim=-1),
+                           s, -1)
+
+
+def _upsample_along(padded: torch.Tensor, s: int, axis: int) -> torch.Tensor:
+    """The x ``s`` linear upsample along ``axis`` (-2 or -1) of ``padded``,
+    which holds one more entry at each end: output ``s*i + r`` sits at
+    ``i + f``, ``f = (r + 1/2) / s - 1/2``, between entries ``i - 1`` and
+    ``i`` (``f < 0``) or ``i`` and ``i + 1``."""
+    n = padded.shape[axis] - 2
+    prev, mid, nxt = (padded.narrow(axis, k, n) for k in range(3))
+    phases = []
+    for r in range(s):
+        f = (r + 0.5) / s - 0.5
+        phases.append((-f) * prev + (1 + f) * mid if f < 0
+                      else (1 - f) * mid + f * nxt)
+    return torch.stack(phases, dim=axis).flatten(axis - 1, axis)
 
 
 def halo(x: torch.Tensor, above: int, below: int,

@@ -119,7 +119,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
 
 
 PARALLEL_MODULES = ("mesh", "classical", "dnn", "synthesis", "health",
-                    "transport")
+                    "transport", "train")
 
 
 @pytest.mark.parametrize("name", PARALLEL_MODULES)

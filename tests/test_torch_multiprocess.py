@@ -17,7 +17,11 @@ neighbours split between the ranks; one such GwcNet split is held to
 JAX's ``ShardedDnnEngine`` at its 5e-3 px; each funnel split over two
 ranks matches the whole frame at the 1e-5 of
 ``tests/test_torch_row_split.py``; an exchange out of step, or a rank
-whose shard fails, raises on both ranks.  The group is joined within a
+whose shard fails, raises on both ranks.  Deep3D's sharded training
+step with its data groups across the ranks ((2,1,1), (4,1,1)) gives, on
+every rank, the losses, weights and Adam state of the same mesh in one
+process bit for bit, with every replica identical; a training tile group
+across ranks is refused on every rank.  The group is joined within a
 time limit: a hung rank fails the fixture, it does not hang the run.
 """
 
@@ -60,16 +64,17 @@ SPANNING = [n for n in NAMES if "split" in n and tile_group_spans_ranks(n)]
 
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
-    """Every case across the 4 ranks: (each rank's results, rank 0's one
-    process results)."""
+    """Every case across the 4 ranks: (each rank's results, the one
+    process results of ranks 0 and 1)."""
     out = tmp_path_factory.mktemp("ranks")
     codes = spawn_ranks(ranks.run, WORLD, str(out / "store"),
                         args=(str(out), NAMES), timeout_s=240)
     errors = {p.name: p.read_text() for p in out.glob("rank*.err")}
     assert codes == [0] * WORLD, (codes, errors)
+    alone = torch.load(out / "one_process.pt", weights_only=False)
+    alone.update(torch.load(out / "one_process_train.pt", weights_only=False))
     return ([torch.load(out / f"rank{r}.pt", weights_only=False)
-             for r in range(WORLD)],
-            torch.load(out / "one_process.pt", weights_only=False))
+             for r in range(WORLD)], alone)
 
 
 @pytest.mark.parametrize("name", sorted(ranks.CASES))
@@ -80,6 +85,25 @@ def test_case_across_processes_equals_one_process(group, name):
         assert results[name].keys() == want[name].keys()
         for key, value in want[name].items():
             assert torch.equal(results[name][key], value), (rank, key)
+
+
+@pytest.mark.parametrize("name", sorted(ranks.TRAIN_CASES))
+def test_training_across_processes_equals_one_process(group, name):
+    """Every rank, the two outside (2,1,1)'s mesh included, ends each step
+    with the loss, weights and Adam state of one process, bit for bit."""
+    got, want = group
+    assert want[name]["replicas"] == 1 and want[name]["replicas_identical"]
+    for rank, results in enumerate(got):
+        case = results[name]
+        assert torch.equal(case["losses"], want[name]["losses"]), rank
+        assert case["digest"] == want[name]["digest"], rank
+        assert case["replicas"] == 1 and case["replicas_identical"], rank
+
+
+def test_training_tile_group_across_ranks_is_refused(group):
+    got, _ = group
+    for results in got:
+        assert "spans processes" in results["train_refusal"]
 
 
 def test_paths_taken(group):

@@ -4,14 +4,20 @@ saving what it received, and rank 0 also the same mesh in one process;
 before them each row-split funnel of :data:`FUNNELS` split over two of
 the ranks, and two splits across ranks that fail.
 
+Then Deep3D's sharded training step (``parallel.train``) on each mesh of
+:data:`TRAIN_CASES` with its data groups across the ranks, and once on a
+mesh whose tile group spans two ranks, which it refuses.
+
 A spawned child imports the module of the function it runs, so this one
 imports only numpy, torch and the port (the test modules import JAX).
 Run a group with ``stereo_tpu_torch.parallel.transport.spawn_ranks(run,
 4, STORE, args=(OUT_DIR, names))``; rank r writes ``OUT_DIR/rank{r}.pt``,
-rank 0 also ``OUT_DIR/one_process.pt``; a rank that fails writes its
+rank 0 also ``OUT_DIR/one_process.pt`` and rank 1 the training cases
+alone, ``OUT_DIR/one_process_train.pt``; a rank that fails writes its
 traceback to ``OUT_DIR/rank{r}.err`` and exits 1 (it re-raises).
 """
 
+import hashlib
 import os
 import time
 import traceback
@@ -21,7 +27,8 @@ import torch
 import torch.distributed as dist
 
 from stereo_tpu_torch.core.config import (MatchingConfig, MeshConfig,
-                                          PipelineConfig)
+                                          PipelineConfig, TrainerConfig)
+from stereo_tpu_torch.models import Deep3D, init_deep3d_params
 from stereo_tpu_torch.parallel import (ShardedClassicalEngine,
                                        ShardedDnnEngine,
                                        ShardedSingleViewEngine,
@@ -30,6 +37,7 @@ from stereo_tpu_torch.ops import rows
 from stereo_tpu_torch.parallel.mesh import Mesh
 from stereo_tpu_torch.parallel import rows as parallel_rows
 from stereo_tpu_torch.parallel.rows import ShardThreads
+from stereo_tpu_torch.parallel.train import ShardedTrainStep
 from stereo_tpu_torch.parallel.transport import Line, Transport
 from stereo_tpu_torch.pipeline import DepthEstimationPipeline
 from stereo_tpu_torch.synthesis import RightViewSynthesis
@@ -90,6 +98,12 @@ FUNNELS = {
     "gather": ((1, 2, 8, 5), lambda x, w: rows.gather(x), None),
 }
 FUNNEL_RANKS = (0, 1)
+# Deep3D's training step, one frame a shard, dropout on: name -> (mesh,
+# "cpu" entries each rank lists).  (2,1,1) leaves ranks 2 and 3 outside
+# the mesh: they take part in the gradients' all-gather and keep a replica.
+TRAIN_CASES = {"train_211": ((2, 1, 1), (1, 1, 1, 1)),
+               "train_411": ((4, 1, 1), (1, 1, 1, 1))}
+TRAIN_STEPS = 2
 # make_mesh's global order: ranks list 2, 1, 1, 1 entries.
 ORDER_COUNTS = (2, 1, 1, 1)
 
@@ -177,6 +191,58 @@ def run_case(name, across: bool):
     disparity, right = engine.process_batch(left, return_right=True)
     return dict(disparity=disparity, right=right,
                 row_split=torch.tensor(engine.row_split)), engine.halo
+
+
+def train_case(name, across: bool) -> dict:
+    """Case ``name`` of :data:`TRAIN_CASES` across the group or on the
+    same mesh alone: each step's loss, a digest of the weights and Adam
+    state afterwards (their bytes, in parameter order) and whether this
+    process's replicas are identical."""
+    shape, entries = TRAIN_CASES[name]
+    mc = MeshConfig(*shape)
+    mesh = (make_mesh(mc, ["cpu"] * entries[dist.get_rank()]) if across
+            else one_process_mesh(mc))
+    model = Deep3D((32, 32), deconv_filters=(16,) * 5)
+    init_deep3d_params(model, 0)
+    step = ShardedTrainStep(model, TrainerConfig(), mesh, dropout=True,
+                            seed=0)
+    rng = np.random.default_rng(1)
+    n = shape[0]
+    left = torch.from_numpy(rng.uniform(0, 1, (n, 3, 128, 128)).astype(
+        np.float32))
+    right = torch.from_numpy(rng.uniform(0, 1, (n, 3, 128, 128)).astype(
+        np.float32))
+    down = torch.nn.functional.avg_pool2d(left, 4)
+    try:
+        losses = torch.stack([step.step(left, down, right)
+                              for _ in range(TRAIN_STEPS)])
+        state = [t for p in step.model.parameters()
+                 for t in [p.detach()] + [
+                     v for v in step.optimizers[next(iter(
+                         step.replicas))].state[p].values()]]
+        digest = hashlib.sha256(b"".join(
+            t.contiguous().numpy().tobytes() for t in state)).hexdigest()
+        return dict(losses=losses, digest=digest,
+                    replicas_identical=step.replicas_identical(),
+                    replicas=len(step.replicas))
+    finally:
+        step.close()
+
+
+def train_refusal() -> str:
+    """A (1,2,1) training step whose tile group spans ranks 0 and 1: the
+    message of the ``ValueError`` it raises (on every rank)."""
+    mesh = make_mesh(MeshConfig(1, 2, 1), ["cpu"])
+    model = Deep3D((32, 32), deconv_filters=(16,) * 5)
+    step = ShardedTrainStep(model, TrainerConfig(), mesh, dropout=False)
+    try:
+        x = torch.zeros(1, 3, 128, 128)
+        step.step(x, torch.zeros(1, 3, 32, 32), x)
+    except ValueError as exc:
+        return str(exc)
+    finally:
+        step.close()
+    return ""
 
 
 def funnel_input(name):
@@ -269,8 +335,9 @@ def mesh_order():
 
 
 def run(rank, world, init, out_dir, names):
-    """One rank: every case of ``names`` across the group, then (rank 0)
-    each case on the same mesh in this process alone."""
+    """One rank: every case of ``names`` and of :data:`TRAIN_CASES` across
+    the group, then each case on the same mesh in this process alone (rank
+    0 those of ``names``, rank 1 the training cases)."""
     torch.set_num_threads(1)
     try:
         initialize_distributed(init, world, rank, backend="gloo")
@@ -279,9 +346,16 @@ def run(rank, world, init, out_dir, names):
                "mesh_order": mesh_order(), "funnels": funnels(), "halo": {}}
         for name in names:
             got[name], got["halo"][name] = run_case(name, across=True)
+        for name in TRAIN_CASES:
+            got[name] = train_case(name, across=True)
+        got["train_refusal"] = train_refusal()
         torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.barrier()
         dist.destroy_process_group()
+        if rank == 1:       # beside rank 0's cases, on a core of its own
+            torch.save({name: train_case(name, across=False)
+                        for name in TRAIN_CASES},
+                       os.path.join(out_dir, "one_process_train.pt"))
         if rank == 0:
             alone = {"halo": {}}
             for name in names:
