@@ -3220,16 +3220,32 @@ MULTIPROCESS_RANKS = 2
 # Deep3D's training step in ``multiprocess``: ``data`` across the two
 # ranks, one entry each.
 MULTIPROCESS_TRAIN_MESH = (2, 1, 1)
+# And (label, mesh, entries each rank lists) of training steps whose tile
+# group spans the two ranks: (1,2,1) one shard a rank; (1,4,1) two shards
+# a rank, the middle edge across and the gathered levels' gradients sent
+# to every shard's rank.
+MULTIPROCESS_TRAIN_ROWS = (("train_rows_121", (1, 2, 1), (1, 1)),
+                           ("train_rows_141", (1, 4, 1), (2, 2)))
 MULTIPROCESS_TRAIN_STEPS = 2
 
 
+def multiprocess_train_cases():
+    """(label, mesh, entries each rank lists) of every training case of
+    phase ``multiprocess``."""
+    label = "train_" + "".join(map(str, MULTIPROCESS_TRAIN_MESH))
+    return ((label, MULTIPROCESS_TRAIN_MESH, (1, 1)),
+            *MULTIPROCESS_TRAIN_ROWS)
+
+
 def multiprocess_train(torch, dev, synthesis, mesh) -> dict:
-    """``ShardedTrainStep`` on ``mesh`` (``MULTIPROCESS_TRAIN_MESH``, across
-    the ranks or in one process) from the smoke's Deep3D weights on the
-    fixture batch, dropout on: each step's loss, a SHA-256 of the weights
-    and Adam state afterwards (their bytes in parameter order), whether
-    this process's replicas are identical, ms/step (host clock, each
-    step's median) and the bytes staged through the host per step.  The
+    """``ShardedTrainStep`` on ``mesh`` (a case of
+    ``multiprocess_train_cases``, across the ranks or in one process)
+    from the smoke's Deep3D weights on the fixture batch, dropout on: each
+    step's loss, a SHA-256 of the weights and Adam state afterwards (their
+    bytes in parameter order), whether this process's replicas are
+    identical, ms/step (host clock, each step's median), the bytes staged
+    through the host per step, whether the step split rows and what the
+    split exchanged in the last step (``ShardedTrainStep.halo``).  The
     steps run under ``torch.use_deterministic_algorithms`` (cuDNN's
     deterministic algorithms; ``CUBLAS_WORKSPACE_CONFIG`` is set where the
     rank starts): a shard's backward then gives the same bits in every
@@ -3270,6 +3286,7 @@ def multiprocess_train(torch, dev, synthesis, mesh) -> dict:
                    replicas_identical=step.replicas_identical(),
                    ms_per_step=times,
                    staged_bytes_per_step=staged / MULTIPROCESS_TRAIN_STEPS,
+                   row_split=step.layout.row_split, halo=step.halo,
                    nondeterministic=sorted({
                        str(w.message)[:200] for w in caught
                        if "deterministic" in str(w.message)}))
@@ -3310,7 +3327,8 @@ def multiprocess_case(torch, kind, mc, mesh, synthesis, dev):
 def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
     """One rank of phase ``multiprocess``: every case of
     ``MULTIPROCESS_CASES`` across the gloo group on cuda:0 (a warm-up
-    call, the counted call, five timed ones), its outputs saved to
+    call, the counted call, five timed ones) and every training case of
+    ``multiprocess_train_cases``, its outputs saved to
     ``out/rank{rank}.pt``; then rank 0 runs each case's mesh in this
     process alone, saved to ``out/one_process.pt``.  A failure writes
     ``out/rank{rank}.err`` and exits 1."""
@@ -3369,11 +3387,13 @@ def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
                                 for i in np.ndindex(*shape))))
             del run, mesh, engine
             torch.cuda.empty_cache()
-        mesh = make_mesh(MeshConfig(*MULTIPROCESS_TRAIN_MESH), [dev])
-        dist.barrier()
-        train = multiprocess_train(torch, dev, synthesis, mesh)
-        del mesh
-        torch.cuda.empty_cache()
+        train = {}
+        for label, shape, entries in multiprocess_train_cases():
+            mesh = make_mesh(MeshConfig(*shape), [dev] * entries[rank])
+            dist.barrier()
+            train[label] = multiprocess_train(torch, dev, synthesis, mesh)
+            del mesh
+            torch.cuda.empty_cache()
         torch.save(dict(maps=maps, numbers=numbers, weights=weights,
                         backend=dist.get_backend(), train=train),
                    os.path.join(out, f"rank{rank}.pt"))
@@ -3394,10 +3414,13 @@ def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
                 numbers[label] = timed(run, n, lambda: None)
                 del run, engine
                 torch.cuda.empty_cache()
-            grid = np.empty(MULTIPROCESS_RANKS, dtype=object)
-            grid[:] = [dev] * MULTIPROCESS_RANKS
-            train = multiprocess_train(torch, dev, synthesis, Mesh(
-                grid.reshape(MULTIPROCESS_TRAIN_MESH)))
+            train = {}
+            for label, shape, _ in multiprocess_train_cases():
+                grid = np.empty(int(np.prod(shape)), dtype=object)
+                grid[:] = [dev] * grid.size
+                train[label] = multiprocess_train(torch, dev, synthesis,
+                                                  Mesh(grid.reshape(shape)))
+                torch.cuda.empty_cache()
             torch.save(dict(maps=maps, ms_per_frame_median=numbers,
                             halo=halos, train=train),
                        os.path.join(out, "one_process.pt"))
@@ -3419,8 +3442,15 @@ def phase_multiprocess(torch, tmp: str):
     that crossed ranks per forward.  A split whose tile group spans the
     ranks must split rows, launch ``gwc_volume`` or ``upsample_blend``
     once per shard and the matcher at least once a frame, and exchange as
-    often as one process, every time across.  The ranks are joined within
-    a time limit; a failed or hung rank fails the phase."""
+    often as one process, every time across.  Deep3D's training step on
+    each mesh of ``multiprocess_train_cases`` (``data`` across the ranks,
+    or a tile group across them) gives every rank the losses, weights and
+    Adam state of one process bit for bit, every replica identical; a
+    tile group across the ranks splits rows and crosses ranks in every
+    round of the forward and of the backward; ms/step of each rank beside
+    one process, the bytes staged per step, and the cross-rank rounds,
+    bytes and host seconds of forward and backward.  The ranks are joined
+    within a time limit; a failed or hung rank fails the phase."""
     from stereo_tpu_torch.parallel.transport import spawn_ranks
 
     os.makedirs(tmp)
@@ -3501,25 +3531,48 @@ def phase_multiprocess(torch, tmp: str):
                 cross_rank_seconds_per_forward=[h["cross_seconds"]
                                                 for h in halos],
                 one_process_halo_rounds=one["halo"][label]["rounds"])
-    # Deep3D's training step with data across the ranks: every rank's
-    # losses, weights and Adam state those of one process, bit for bit.
-    want = one["train"]
-    trained = [r["train"] for r in ranks]
-    equal = all(torch.equal(t["losses"], want["losses"])
-                and t["digest"] == want["digest"] for t in trained)
-    require(equal and want["replicas_identical"]
-            and all(t["replicas_identical"] for t in trained)
-            and bool(torch.isfinite(want["losses"]).all()),
-            f"multiprocess training: ranks {trained}, one process {want}")
-    cases["train_" + "".join(map(str, MULTIPROCESS_TRAIN_MESH))] = dict(
-        mesh=MULTIPROCESS_TRAIN_MESH, equal=equal,
-        losses=want["losses"].tolist(),
-        ms_per_step=[t["ms_per_step"] for t in trained],
-        one_process_ms_per_step=want["ms_per_step"],
-        staged_bytes_per_step=[t["staged_bytes_per_step"]
-                               for t in trained],
-        replicas_per_rank=[t["replicas"] for t in trained],
-        flagged_nondeterministic=want["nondeterministic"])
+    # Deep3D's training step with data, or a tile group, across the ranks:
+    # every rank's losses, weights and Adam state those of one process, bit
+    # for bit; a tile group across the ranks splits rows, and each rank
+    # crosses ranks in every round of the forward and of the backward.
+    for label, shape, _ in multiprocess_train_cases():
+        want = one["train"][label]
+        trained = [r["train"][label] for r in ranks]
+        equal = all(torch.equal(t["losses"], want["losses"])
+                    and t["digest"] == want["digest"] for t in trained)
+        require(equal and want["replicas_identical"]
+                and all(t["replicas_identical"] for t in trained)
+                and bool(torch.isfinite(want["losses"]).all()),
+                f"multiprocess {label}: ranks {trained}, one process {want}")
+        cases[label] = dict(
+            mesh=shape, equal=equal, losses=want["losses"].tolist(),
+            ms_per_step=[t["ms_per_step"] for t in trained],
+            one_process_ms_per_step=want["ms_per_step"],
+            staged_bytes_per_step=[t["staged_bytes_per_step"]
+                                   for t in trained],
+            replicas_per_rank=[t["replicas"] for t in trained],
+            flagged_nondeterministic=want["nondeterministic"])
+        if shape[1] == 1:
+            continue
+        halos = [t["halo"] for t in trained]
+        rounds = want["halo"]["rounds"]
+        require(want["row_split"] and all(t["row_split"] for t in trained)
+                and all(h["rounds"] == h["cross_rounds"] == h["back_rounds"]
+                        == h["back_cross_rounds"] == rounds > 0
+                        for h in halos),
+                f"multiprocess {label}: row split {want['row_split']}, "
+                f"halo {halos}, one process {want['halo']}")
+        cases[label].update(
+            halo_rounds_per_step=rounds,
+            cross_rank_rounds_forward=[h["cross_rounds"] for h in halos],
+            cross_rank_rounds_backward=[h["back_cross_rounds"]
+                                        for h in halos],
+            cross_rank_seconds_forward=[h["cross_seconds"] for h in halos],
+            cross_rank_seconds_backward=[h["back_cross_seconds"]
+                                         for h in halos],
+            cross_rank_bytes_forward=[h["cross_bytes"] for h in halos],
+            cross_rank_bytes_backward=[h["back_cross_bytes"]
+                                       for h in halos])
     return counts, dict(backend=ranks[0]["backend"],
                         ranks=MULTIPROCESS_RANKS,
                         deep3d_weights=ranks[0]["weights"], cases=cases)

@@ -36,24 +36,42 @@ unchanged.  Outside a split these functions do what they always did.
 
 Every shard reaches each exchange in the same order, since all run the same
 code.  At an exchange (:func:`halo`) a shard publishes its tensor and hands
-the turn to the next shard thread; when the turn comes back, every shard
-has published, and it copies the rows it needs from its neighbours' (a peer
-copy between cards, a plain read on one device).  Two slots alternate, so
-a slot is written again only after every shard has read it.
+the turn to the next shard thread.  The first thread whose turn comes back
+finds every shard published and runs the exchange's round for every split
+of the run (:class:`Rounds`): it copies the rows each shard reads of its
+neighbours' (a peer copy between cards, a plain read on one device) and
+joins them to the shard's own.  Two slots alternate, so a slot is written
+again only after every shard has read it.
 
 A split whose shards lie on more than one process (a mesh over
 ``torch.distributed`` ranks) has the ``Line`` of its ranks
-(``parallel.transport``), and each process runs only its own shards.
-Once every local shard of a run has published at an exchange, the first
-shard thread to get the turn back runs the exchange's cross-rank step
-(:class:`Crossing`), for each split that spans ranks in split order: it
-sends the rows that remote neighbours need (the last ``above`` rows to the
-shard below, the first ``below`` rows to the shard above; every shard's
-rows for :func:`gather`) with a digest of the exchange's key, and receives
-the rows its own shards need into the slot, where they are read as a local
-neighbour's are.  Every process runs the steps in one order (exchange,
-then split), from one thread at a time, so two processes whose splits
-share ranks wait on no step the other has not reached.
+(``parallel.transport``), and each process runs only its own shards.  Its
+round first runs the exchange's cross-rank step, for each split that
+spans ranks in split order: it sends the rows that remote neighbours need
+(the last ``above`` rows to the shard below, the first ``below`` rows to
+the shard above; every shard's rows for :func:`gather`) with a digest of
+the exchange's key, and receives the rows its own shards need into the
+slot, where they are read as a local neighbour's are.  Every process runs
+the steps in one order (exchange, then split), from one thread at a time,
+so two processes whose splits share ranks wait on no step the other has
+not reached.
+
+Under grad mode (a training step) each round is one autograd node
+(:class:`_Round`): its inputs are this process's published tensors, its
+outputs every local shard's joined rows, and its forward the round.  Its
+backward carries each joined row's gradient back to the shard it was
+read from, across ranks through the split's ``Line`` (the halo's edge
+rows with the offsets reversed; for :func:`gather` each reader's
+gradient of every shard's rows), and sums a shard's terms in one fixed
+order (its own rows, the frame's edge, the reader above, the reader
+below; a gather's readers in shard order), so a split gives the same
+bits whichever process holds each shard.  The nodes of a run form a
+chain through a token (each takes the previous round's), so backward
+runs the rounds in reverse on every rank; :func:`tie` hangs the last
+token on a loss, so every round's backward runs, sending zeros where
+its rows got no gradient.  Each backward wait is bounded by the run's
+timeout, and the round's key digest travels with the gradients: an
+exchange out of step raises on both ranks.
 """
 
 from __future__ import annotations
@@ -79,7 +97,9 @@ class RowExchange:
     read from neighbours, and of those ``cross_rounds`` exchanges and
     ``cross_bytes`` received from other processes, which took
     ``cross_seconds`` on the host clock (waits for the other processes
-    included)."""
+    included).  The ``back_*`` counts are the same of the backward
+    (:class:`_Round`), which adds them when it runs; ``token`` is the
+    run's last round's token under grad mode (for :func:`tie`)."""
 
     def __init__(self, count: int, line=None):
         self.count = count
@@ -89,7 +109,13 @@ class RowExchange:
         self.cross_rounds = 0
         self.cross_bytes = 0
         self.cross_seconds = 0.0
+        self.back_rounds = 0
+        self.back_cross_rounds = 0
+        self.back_cross_bytes = 0
+        self.back_cross_seconds = 0.0
+        self.token = None
         self._slots = [[None] * count, [None] * count]
+        self._outs = [[None] * count, [None] * count]
         self.first = next((j for j in range(count) if self.local(j)), None)
 
     def local(self, j: int) -> bool:
@@ -97,24 +123,121 @@ class RowExchange:
         return self.line is None or self.line.local(j)
 
 
-class Crossing:
-    """The cross-rank steps of one run of row splits, over those of its
-    splits' ``exchanges`` whose shards lie on more than one process.  Called
-    with an exchange's round by the first thread to hold the turn after
-    every local shard has published it; the later calls of that round do
-    nothing.  ``timeout_s`` bounds each wait on another process."""
+class Rounds:
+    """The once-a-round step of one run of row splits (``exchanges``, in
+    split order): called with an exchange's round by the first thread to
+    hold the turn after every local shard has published it (the later
+    calls of that round do nothing), it joins every local shard's rows
+    (:func:`_exchange`), as a :class:`_Round` node under grad mode.
+    ``timeout_s`` bounds each wait on another process, in the backward
+    too."""
 
     def __init__(self, exchanges: Sequence[RowExchange], timeout_s: float):
-        self.exchanges = [ex for ex in exchanges if ex.line is not None]
+        self.exchanges = list(exchanges)
         self.timeout_s = timeout_s
-        self.crossed = -1
+        self.done = -1
+        self.token = None
 
     def __call__(self, r: int) -> None:
-        if r <= self.crossed:
+        if r <= self.done:
             return
-        self.crossed = r
-        for ex in self.exchanges:
-            _cross(ex, r, self.timeout_s)
+        self.done = r
+        plan = _Plan(self, r)
+        xs = [ex._slots[r % 2][j][0] for ex, j in plan.inputs]
+        if torch.is_grad_enabled():
+            if self.token is None:
+                # A leaf that requires grad: every round is a node, the
+                # first (whose inputs are images) too, so every rank's
+                # backward crosses each round.
+                self.token = torch.zeros((), device=xs[0].device,
+                                         requires_grad=True)
+            self.token, *outs = _Round.apply(plan, self.token, *xs)
+            for ex in self.exchanges:
+                ex.token = self.token
+        else:
+            outs = _exchange(plan)
+        for (ex, j), out in zip(plan.inputs, outs):
+            ex._outs[r % 2][j] = out
+
+
+class _Plan:
+    """One round of a run: its exchanges, the round, the ``(exchange,
+    shard)`` of each local shard, and (filled in by :func:`_exchange`)
+    each one's spec, key digest, rows and joined rows above; what a
+    :class:`_Round` node keeps for its backward, which runs on
+    autograd's thread, outside the split."""
+
+    def __init__(self, rounds: Rounds, r: int):
+        self.exchanges = rounds.exchanges
+        self.timeout_s = rounds.timeout_s
+        self.r = r
+        self.inputs = [(ex, j) for ex in self.exchanges
+                       for j in range(ex.count) if ex.local(j)]
+        self.meta = {}
+
+
+def _exchange(plan: _Plan) -> List[torch.Tensor]:
+    """Round ``plan.r`` of every split in split order: the cross-rank step
+    of a split whose shards lie on several processes, then each local
+    shard's joined rows (:func:`halo`'s or :func:`gather`'s), in the order
+    of ``plan.inputs``."""
+    r, joined = plan.r, {}
+    for ex in plan.exchanges:
+        slot = ex._slots[r % 2]
+        local = [j for j in range(ex.count) if ex.local(j)]
+        if ex.line is not None:
+            _cross(ex, r, plan.timeout_s)
+        with _streams([slot[j] for j in local]):
+            for j in local:
+                x, _, key, spec = slot[j]
+                parts = (_gathered(ex, slot, j) if spec is None
+                         else _halo_parts(ex, slot, j))
+                plan.meta[ex, j] = (spec, _digest(key), x.shape[-2],
+                                    parts[0].shape[-2] if spec else 0)
+                joined[ex, j] = torch.cat(parts, dim=-2)
+    return [joined[key] for key in plan.inputs]
+
+
+class _Round(torch.autograd.Function):
+    """One exchange of every split of a run under grad mode: inputs, this
+    process's published tensors; outputs, the next token and each local
+    shard's joined rows (:func:`halo`'s or :func:`gather`'s)."""
+
+    @staticmethod
+    def forward(ctx, plan: _Plan, token, *xs):
+        ctx.plan = plan
+        return (torch.zeros((), device=xs[0].device), *_exchange(plan))
+
+    @staticmethod
+    def backward(ctx, _, *douts):
+        plan = ctx.plan
+        wanted = dict(zip(plan.inputs, ctx.needs_input_grad[2:]))
+        grads = {}
+        for ex in plan.exchanges:
+            d = {j: g for (e, j), g in zip(plan.inputs, douts) if e is ex}
+            if not d:
+                continue
+            grads.update(((ex, j), g) for j, g in _carry_back(
+                ex, plan, d, {j: wanted[ex, j] for j in d}).items())
+        return (None, None, *(grads[key] for key in plan.inputs))
+
+
+def tie(x: torch.Tensor, token: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x``, whose backward also runs the backward of the run whose last
+    token is ``token`` (``RowExchange.token``) to its first round, each
+    round sending zeros where its rows got no gradient.  ``token`` None:
+    ``x`` unchanged."""
+    return x if token is None else _Tie.apply(x, token)
+
+
+class _Tie(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, token):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
 
 
 @dataclass
@@ -122,17 +245,16 @@ class Shard:
     """The calling thread's part of a row split: shard ``index`` of
     ``exchange.count`` (its index in the whole split, which may have
     shards in other processes), thread ``thread`` of the run's ``turns``
-    (which has ``pass_on(thread)`` and ``wait(thread)``), on ``stream``
-    (None on the CPU); ``crossing``, the run's :class:`Crossing` when a
-    split of it spans processes."""
+    (which has ``pass_on(thread)`` and ``wait(thread)``), whose rounds
+    ``run`` steps, on ``stream`` (None on the CPU)."""
 
     index: int
     exchange: RowExchange
     turns: Any
     thread: int
+    run: Rounds
     stream: Optional[Any] = None
     rounds: int = 0
-    crossing: Optional[Crossing] = None
 
     @property
     def count(self) -> int:
@@ -246,11 +368,7 @@ def halo(x: torch.Tensor, above: int, below: int,
     and last shards gain rows on one side only).  Every shard of the
     split calls it at the same point."""
     key = (tuple(x.shape[:-2]), x.shape[-1], x.dtype, above, below, edge)
-    shard, slot, key = _publish(x, key, (above, below))
-    i = shard.index
-    parts = [_neighbour(shard, slot, i - 1, above, key, x, edge, True), x,
-             _neighbour(shard, slot, i + 1, below, key, x, edge, False)]
-    return torch.cat(parts, dim=-2)
+    return _publish(x, key, (above, below, edge))
 
 
 def neighbour_rows(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -292,11 +410,7 @@ def gather(x: torch.Tensor) -> torch.Tensor:
     the shard then runs on the frame's rows under :func:`unsplit`."""
     if current() is None:
         return x
-    shard, slot, key = _publish(x, (tuple(x.shape), x.dtype, "gather"),
-                                None)
-    parts = [x if j == shard.index else _fetch(shard, slot, j, key, x, None)
-             for j in range(shard.count)]
-    return torch.cat(parts, dim=-2)
+    return _publish(x, (tuple(x.shape), x.dtype, "gather"), None)
 
 
 def narrow(x: torch.Tensor) -> torch.Tensor:
@@ -325,25 +439,24 @@ def unsplit():
         set_current(shard)
 
 
-def _publish(x: torch.Tensor, key: tuple, rows: Optional[Tuple[int, int]]):
-    """Publish ``x`` at the calling shard's next exchange and wait until
-    every shard has: returns ``(shard, slot, key)``, the slot holding each
-    shard's ``(tensor, stream, key, rows)`` and the exchange's key.
-    ``rows``: the ``(above, below)`` rows a shard reads of its neighbours,
-    None for all of every shard's."""
+def _publish(x: torch.Tensor, key: tuple,
+             spec: Optional[Tuple[int, int, str]]):
+    """Publish ``x`` at the calling shard's next exchange (its slot holds
+    each shard's ``(tensor, stream, key, spec)``) and wait until every
+    shard has; returns the shard's joined rows, once the round has run
+    (:class:`Rounds`).  ``spec``: the ``(above, below, edge)`` of
+    :func:`halo`, None for :func:`gather`."""
     shard = current()
     ex, i, r = shard.exchange, shard.index, shard.rounds
-    key = key + (r,)
     slot = ex._slots[r % 2]
     shard.rounds += 1
     if i == ex.first:
         ex.rounds += 1
-    slot[i] = (x, shard.stream, key, rows)
+    slot[i] = (x, shard.stream, key + (r,), spec)
     shard.turns.pass_on(shard.thread)
     shard.turns.wait(shard.thread)
-    if shard.crossing is not None:
-        shard.crossing(r)
-    return shard, slot, key
+    shard.run(r)
+    return ex._outs[r % 2][i]
 
 
 def _digest(key: tuple) -> int:
@@ -373,7 +486,7 @@ def _cross(ex: RowExchange, r: int, timeout_s: float) -> None:
     start = time.perf_counter()
     slot, line = ex._slots[r % 2], ex.line
     local = [j for j in range(ex.count) if ex.local(j)]
-    x0, _, _, rows = slot[local[0]]
+    x0, _, _, spec = slot[local[0]]
     # The digests go where the backend sends from: the host on gloo.
     home = "cpu" if line.transport.staging else x0.device
     digests = {j: torch.tensor([_digest(slot[j][2])], device=home)
@@ -390,7 +503,7 @@ def _cross(ex: RowExchange, r: int, timeout_s: float) -> None:
         return key
 
     with _streams([slot[j] for j in local]):
-        if rows is None:
+        if spec is None:
             whole = line.all_gather([slot[j][0] if j in digests else None
                                      for j in range(ex.count)], x0.device,
                                     timeout_s)
@@ -400,9 +513,9 @@ def _cross(ex: RowExchange, r: int, timeout_s: float) -> None:
             for j in range(ex.count):
                 if j not in digests:
                     slot[j] = (whole[j], None,
-                               received(j, local[0], whole[j], keys[j]), rows)
+                               received(j, local[0], whole[j], keys[j]), spec)
         else:
-            above, below = rows
+            above, below, _ = spec
             deepest = max(above, below)
             if x0.shape[-2] < deepest:
                 raise ValueError(f"a halo of {deepest} rows is deeper than a "
@@ -419,7 +532,7 @@ def _cross(ex: RowExchange, r: int, timeout_s: float) -> None:
                                   wants, wrap=False, timeout_s=timeout_s)
             for j in range(ex.count):
                 if not ex.local(j):
-                    slot[j] = ({}, None, None, rows)
+                    slot[j] = ({}, None, None, spec)
             for i in local:
                 for w, (offset, _) in enumerate(wants[2:], 2):
                     j = i + offset
@@ -428,9 +541,126 @@ def _cross(ex: RowExchange, r: int, timeout_s: float) -> None:
                     pieces = slot[j][0]
                     pieces[offset < 0] = got[i][w]
                     slot[j] = (pieces, None, received(
-                        j, i, got[i][w], got[i][offset > 0]), rows)
+                        j, i, got[i][w], got[i][offset > 0]), spec)
     ex.cross_rounds += 1
     ex.cross_seconds += time.perf_counter() - start
+
+
+def _carry_back(ex: RowExchange, plan: _Plan, d: dict, wanted: dict) -> dict:
+    """Round ``plan.r``'s backward of split ``ex``: from ``d``, each local
+    shard's gradient of its joined rows, each local shard's gradient of
+    its published tensor (None where ``wanted`` says none is needed).
+    Every reader's gradient of a shard's rows goes back to that shard,
+    across ranks through ``ex.line``, beside the round's key digest; the
+    terms are summed in one order whichever process holds each shard.
+    Every rank of the line calls it, whatever ``wanted`` says."""
+    start = time.perf_counter()
+    n, local = ex.count, sorted(d)
+    spec = plan.meta[ex, local[0]][0]
+    home = ("cpu" if ex.line is not None and ex.line.transport.staging
+            else d[local[0]].device)
+    values, wants = {}, []
+    if spec is None:
+        per = plan.meta[ex, local[0]][2]
+        for i in local:
+            values[i] = (d[i], i, torch.tensor([plan.meta[ex, i][1]],
+                                               device=home))
+        # Reader i + o hands shard i its part of its gradient.
+        for o in range(1, n):
+            wants += [(o, lambda e: e[2]), (o, lambda e, o=o: e[0].narrow(
+                -2, (e[1] - o) % n * per, per))]
+    else:
+        above, below, edge = spec
+        for i in local:
+            g = d[i]
+            values[i] = (
+                g.narrow(-2, 0, above) if i > 0 else
+                g.new_empty(g.shape[:-2] + (above, g.shape[-1])),
+                g.narrow(-2, g.shape[-2] - below, below) if i < n - 1 else
+                g.new_empty(g.shape[:-2] + (below, g.shape[-1])),
+                torch.tensor([plan.meta[ex, i][1]], device=home))
+        # From the shard below, its gradient of the rows it read above it
+        # (this shard's last rows); from the shard above, of those below.
+        wants = [(1, lambda e: e[2]), (-1, lambda e: e[2])]
+        if above:
+            wants.append((1, lambda e: e[0]))
+        if below:
+            wants.append((-1, lambda e: e[1]))
+    xs = [values.get(j) for j in range(n)]
+    wrap = spec is None
+    got = (ex.line.ring_fetch(xs, wants, wrap=wrap, timeout_s=plan.timeout_s)
+           if ex.line is not None else _local_ring(xs, wants, wrap))
+
+    def term(j, i, digest, w=None):
+        """Want ``w`` of shard ``j`` (None: none), from shard ``i``, whose
+        key digest is want ``digest``."""
+        theirs = int(got[j][digest])
+        if theirs != plan.meta[ex, j][1]:
+            raise RuntimeError(
+                f"row split out of step in backward: shard {j} carries "
+                f"back round {plan.r}, shard {i} digest {theirs} from rank "
+                f"{ex.line.ranks[i] if ex.line is not None else 'here'}")
+        if w is None:
+            return None
+        if not ex.local(i):
+            ex.back_cross_bytes += got[j][w].numel() * got[j][w].element_size()
+        return got[j][w]
+
+    grads = {}
+    for j in local:
+        if spec is None:
+            terms = [d[j].narrow(-2, j * per, per) if i == j
+                     else term(j, i, 2 * ((i - j) % n) - 2,
+                               2 * ((i - j) % n) - 1)
+                     for i in range(n)]
+            if not wanted[j]:
+                grads[j] = None
+                continue
+            g = terms[0].clone()
+            for t in terms[1:]:
+                g.add_(t)
+        else:
+            _, _, rows, top = plan.meta[ex, j]
+            upward = (term(j, j + 1, 0, 2 if above else None)
+                      if j < n - 1 else None)
+            downward = (term(j, j - 1, 1, 2 + bool(above) if below else None)
+                        if j > 0 else None)
+            if not wanted[j]:
+                grads[j] = None
+                continue
+            g = d[j].narrow(-2, top, rows).clone()
+            if edge == "replicate" and j == 0 and above:
+                g.narrow(-2, 0, 1).add_(
+                    d[j].narrow(-2, 0, above).sum(-2, keepdim=True))
+            if edge == "replicate" and j == n - 1 and below:
+                g.narrow(-2, rows - 1, 1).add_(d[j].narrow(
+                    -2, top + rows, below).sum(-2, keepdim=True))
+            if downward is not None:
+                g.narrow(-2, 0, below).add_(downward)
+            if upward is not None:
+                g.narrow(-2, rows - above, above).add_(upward)
+        grads[j] = g
+    ex.back_rounds += 1
+    if ex.line is not None:
+        ex.back_cross_rounds += 1
+        ex.back_cross_seconds += time.perf_counter() - start
+    return grads
+
+
+def _local_ring(xs: list, wants: Sequence[tuple], wrap: bool) -> list:
+    """``Line.ring_fetch`` of a split whose shards are all this
+    process's."""
+    n = len(xs)
+    out = [None] * n
+    for i in range(n):
+        if xs[i] is None:
+            continue
+        out[i] = [None] * len(wants)
+        for w, (offset, piece) in enumerate(wants):
+            j = (i + offset) % n if wrap else i + offset
+            if 0 <= j < n and xs[j] is not None:
+                out[i][w] = piece(xs[j]).to(piece(xs[i]).device)
+    return out
 
 
 def _edge(x: torch.Tensor, rows: int, top: bool, edge: str) -> torch.Tensor:
@@ -446,25 +676,42 @@ def _edge(x: torch.Tensor, rows: int, top: bool, edge: str) -> torch.Tensor:
     return x.narrow(-2, 0 if top else x.shape[-2] - 1, 1).expand(shape)
 
 
-def _neighbour(shard: Shard, slot: list, j: int, rows: int, key, x, edge,
-               above: bool) -> torch.Tensor:
-    """The ``rows`` rows of shard ``j`` next to ``shard`` (its last rows
-    when it lies above, its first below), on ``x``'s device; the frame's
+def _halo_parts(ex: RowExchange, slot: list, i: int) -> List[torch.Tensor]:
+    """Shard ``i``'s :func:`halo`: the rows above, its own, the rows
+    below."""
+    x, _, _, (above, below, edge) = slot[i]
+    return [_neighbour(ex, slot, i, i - 1, above, edge, True), x,
+            _neighbour(ex, slot, i, i + 1, below, edge, False)]
+
+
+def _gathered(ex: RowExchange, slot: list, i: int) -> List[torch.Tensor]:
+    """Every shard's rows in shard order, on shard ``i``'s device."""
+    return [slot[i][0] if j == i else _fetch(ex, slot, i, j, None)
+            for j in range(ex.count)]
+
+
+def _neighbour(ex: RowExchange, slot: list, i: int, j: int, rows: int,
+               edge: str, above: bool) -> torch.Tensor:
+    """The ``rows`` rows of shard ``j`` next to shard ``i`` (its last rows
+    when it lies above, its first below), on ``i``'s device; the frame's
     edge rows where there is no shard ``j``."""
-    if not 0 <= j < shard.count:
+    x = slot[i][0]
+    if not 0 <= j < ex.count:
         return _edge(x, rows, above, edge)
     if rows == 0:
         return x[..., :0, :]
-    return _fetch(shard, slot, j, key, x, (rows, above))
+    return _fetch(ex, slot, i, j, (rows, above))
 
 
-def _fetch(shard: Shard, slot: list, j: int, key, x,
+def _fetch(ex: RowExchange, slot: list, i: int, j: int,
            part: Optional[Tuple[int, bool]]) -> torch.Tensor:
     """Shard ``j``'s published tensor, or its last (``part = (rows,
-    True)``) or first (``(rows, False)``) rows, on ``x``'s device."""
+    True)``) or first (``(rows, False)``) rows, on shard ``i``'s
+    device."""
+    x, _, key, _ = slot[i]
     other, stream, other_key, _ = slot[j]
     if other_key != key:
-        raise RuntimeError(f"row split out of step: shard {shard.index} "
+        raise RuntimeError(f"row split out of step: shard {i} "
                            f"exchanges {key}, shard {j} {other_key}")
     if isinstance(other, dict):         # rows received from another rank
         other = other[part[1]]
@@ -475,7 +722,7 @@ def _fetch(shard: Shard, slot: list, j: int, key, x,
                              f"{j}'s {other.shape[-2]} rows")
         other = other.narrow(-2, other.shape[-2] - rows if above else 0,
                              rows)
-    shard.exchange.bytes += other.numel() * other.element_size()
+    ex.bytes += other.numel() * other.element_size()
     if other.device == x.device:
         return other
     # A peer copy runs on the source device's current stream: make that the

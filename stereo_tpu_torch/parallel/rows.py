@@ -17,10 +17,12 @@ the run failed: the others raise at their next turn, and
 A split may have shards in other processes (a mesh over
 ``torch.distributed`` ranks): this process runs threads for its own
 shards only, and the exchanges cross ranks through the split's ``Line``
-(``ops.rows.Crossing``).  A process that holds shards of several such
+(``ops.rows.Rounds``).  A process that holds shards of several such
 splits crosses them in one order, from the thread that holds the turn.
 A cross-rank wait is bounded by ``TURN_TIMEOUT_S`` too: a process whose
 shard failed leaves its peers waiting that long at most, and they raise.
+Under grad mode each exchange is an autograd node whose backward
+crosses ranks again (``ops.rows._Round``), bounded by the same timeout.
 
 When every shard of a split lies on one card, the launches of all shards
 still come from one thread at a time, and they bound the split (each
@@ -46,7 +48,7 @@ import torch
 from ..ops import rows
 from ..ops.cuda.graphs import CapturedGraph, GraphPool
 from ..ops.cuda.launch import capturing_counts, thread_counts
-from ..ops.rows import Crossing, RowExchange, Shard
+from ..ops.rows import RowExchange, Rounds, Shard
 
 # Seconds a shard waits for its turn, or for another process's rows, before
 # the run is given up (a build or a first cuDNN call of another shard may
@@ -158,7 +160,9 @@ class ShardThreads:
         current stream of that device, and the counts of the graph the
         caller captures.  Returns the results, shaped as ``splits`` (None
         at other processes' shards), and each split's exchange; raises the
-        first error of any shard."""
+        first error of any shard.  Under grad mode every exchange is an
+        autograd node (``ops.rows``): a loss tied to the exchanges' last
+        ``token`` (``ops.rows.tie``) runs the backward of every one."""
         with self._lock:
             return self._run(splits, lines)
 
@@ -169,8 +173,7 @@ class ShardThreads:
         lines = list(lines) if lines else [None] * len(splits)
         exchanges = [RowExchange(len(split), line)
                      for split, line in zip(splits, lines)]
-        crossing = Crossing(exchanges, TURN_TIMEOUT_S)
-        crossing = crossing if crossing.exchanges else None
+        run = Rounds(exchanges, TURN_TIMEOUT_S)
         results = [[None] * len(split) for split in splits]
         jobs = [(s, i, torch.device(shard[0]), shard[1])
                 for s, split in enumerate(splits)
@@ -183,8 +186,7 @@ class ShardThreads:
         counts = thread_counts()
 
         def shard_main(k, s, i, device, work, stream):
-            rows.set_current(Shard(i, exchanges[s], turns, k, stream,
-                                   crossing=crossing))
+            rows.set_current(Shard(i, exchanges[s], turns, k, run, stream))
             try:
                 turns.wait(k)
                 with _on(device, stream), torch.set_grad_enabled(grad), (
@@ -223,16 +225,20 @@ class ShardThreads:
         self._finalizer()
 
 
+HALO_KEYS = ("rounds", "bytes", "cross_rounds", "cross_bytes",
+             "cross_seconds", "back_rounds", "back_cross_rounds",
+             "back_cross_bytes", "back_cross_seconds")
+
+
 def exchanged(exchanges: Sequence[RowExchange]) -> dict:
     """What the splits of one run exchanged per forward: ``rounds``
     exchanges, of which ``cross_rounds`` crossed processes, ``bytes``
     read from neighbouring shards over all splits, of which
     ``cross_bytes`` were received from other processes, and the host
-    seconds of the cross-process steps (``cross_seconds``)."""
-    return merge_halos([dict(rounds=e.rounds, bytes=e.bytes,
-                             cross_rounds=e.cross_rounds,
-                             cross_bytes=e.cross_bytes,
-                             cross_seconds=e.cross_seconds)
+    seconds of the cross-process steps (``cross_seconds``); the
+    ``back_*`` of the same in the backward, once it has run (0 under no
+    grad)."""
+    return merge_halos([{k: getattr(e, k) for k in HALO_KEYS}
                         for e in exchanges])
 
 
@@ -240,8 +246,7 @@ def merge_halos(halos: Sequence[dict]) -> dict:
     """Several :func:`exchanged` records of splits run side by side as
     one: their rounds the most of any, their bytes and seconds summed."""
     return {k: (max if k.endswith("rounds") else sum)(h[k] for h in halos)
-            for k in ("rounds", "bytes", "cross_rounds", "cross_bytes",
-                      "cross_seconds")}
+            for k in HALO_KEYS}
 
 
 def _serve(jobs: queue.SimpleQueue) -> None:

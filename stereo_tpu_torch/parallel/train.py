@@ -14,14 +14,19 @@ inference:
 * every shard runs Deep3D in training mode on its frames (and rows) on its
   own device; a ``tile`` group's shards run in threads of their own
   (``parallel.rows.ShardThreads``, eagerly: no CUDA graph), their
-  row-mixing layers exchanging halo rows (``ops.rows``);
+  row-mixing layers exchanging halo rows (``ops.rows``); each process
+  runs its own shards of a group whose shards lie on several ranks, the
+  exchanges crossing ranks through the group's ``Line`` (``Mesh.tile_lines``);
 * a shard's loss is the sum of ``|pred - right|`` over its pixels over
   the global batch's element count, so that the shards' losses and
   gradients add up to those of one device on the whole batch;
-* one backward runs over every shard's loss after all shards' forwards:
-  the halo exchanges return views and copies of the neighbour's own
-  tensor, so a halo's gradient flows back to the shard it was read from,
-  and parts of the graph that shards share are walked once;
+* one backward runs over this process's shards' losses after their
+  forwards: each halo exchange is an autograd node (``ops.rows._Round``)
+  whose backward carries every joined row's gradient back to the shard it
+  was read from, across ranks too, and sums a shard's terms in one order
+  wherever its readers run; the losses are tied to the run's last round
+  (``ops.rows.tie``), so every rank runs every round's backward, in
+  reverse order;
 * each shard's parameters are leaves of its own on its replica's storage,
   so each shard's gradient stays its own; the shards' losses and
   gradients are summed in mesh order, as a left fold, on this process's
@@ -44,9 +49,7 @@ refuses (its upsample is ``ops.rows.upsample_bilinear``).
 The global branch's dropout mask is drawn for the whole batch from the
 step's generator, as the single-device ``train.Trainer`` draws it, and
 each shard takes its frames' rows of it (every row shard of a frame the
-same).  A ``tile`` group whose shards lie on more than one process
-raises ``ValueError``: the rows a shard receives from another rank carry
-no gradient back.
+same).
 """
 
 from __future__ import annotations
@@ -63,9 +66,10 @@ import torch.nn as nn
 from ..core.config import TrainerConfig
 from ..core.device import resolve_device, set_float32_precision
 from ..models.deep3d import Deep3D, dropout_keep
+from ..ops import rows
 from ..train.trainer import make_optimizer
 from .mesh import Mesh, same_device
-from .rows import ShardThreads
+from .rows import ShardThreads, exchanged
 from .synthesis import DEEP3D_ROW_STRIDE
 
 
@@ -145,7 +149,11 @@ class ShardedTrainStep:
 
     :attr:`replicas` maps each device to its model (training mode) and
     :attr:`optimizers` to its Adam; :attr:`model` is this process's first
-    one.  :attr:`layout` is the last step's."""
+    one.  :attr:`layout` is the last step's, and :attr:`halo` what its
+    row split exchanged (``parallel.rows.exchanged``, forward and
+    backward; None without a row split).  Every rank of a mesh over
+    processes makes the step (its ``tile`` groups' lines are made here)
+    and calls :meth:`step` with the same batch."""
 
     def __init__(self, model: Deep3D, config: TrainerConfig, mesh: Mesh,
                  dropout: bool = True, seed: int = 0):
@@ -167,7 +175,9 @@ class ShardedTrainStep:
         self.generator.manual_seed(seed)
         self._aliases = {}
         self._threads = ShardThreads()
+        self._lines = mesh.tile_lines() if mesh.shape[1] > 1 else None
         self.layout: Optional[Layout] = None
+        self.halo: Optional[dict] = None
 
     @property
     def model(self) -> Deep3D:
@@ -192,13 +202,6 @@ class ShardedTrainStep:
         layout = train_layout(mesh.shape, left_full.shape[0],
                               tuple(left_full.shape[-2:]),
                               tuple(left_down.shape[-2:]))
-        if layout.row_split and any(
-                mesh.spans([layout.shards[k] for k in group])
-                for group in layout.groups):
-            raise ValueError(
-                "a tile group of the training step spans processes: the "
-                "rows a shard receives from another rank carry no "
-                "gradient back; put each tile group on one rank")
         self.layout = layout
         keep = None
         if self.dropout:
@@ -228,17 +231,26 @@ class ShardedTrainStep:
                 None if keep is None else keep[start:stop])
             losses[k] = (pred - part(right_full)).abs().sum() / count
 
+        exchanges = []
         with torch.enable_grad():
             if layout.row_split:
-                self._threads.run([
-                    [(mesh.devices[layout.shards[k]],
-                      functools.partial(shard_loss, k)) for k in group]
-                    for group in layout.groups if group[0] in local])
+                # Groups index as mesh.tile_lines(): (data, disp) pairs.
+                held = [g for g, group in enumerate(layout.groups)
+                        if any(k in local for k in group)]
+                _, exchanges = self._threads.run(
+                    [[(mesh.devices[layout.shards[k]],
+                       functools.partial(shard_loss, k)) if k in local
+                      else None for k in layout.groups[g]] for g in held],
+                    [self._lines[g] for g in held] if self._lines else None)
+                token = exchanges[0].token if exchanges else None
+                losses = {k: rows.tie(loss, token)
+                          for k, loss in losses.items()}
             else:
                 for k in local:
                     shard_loss(k)
             if losses:
                 torch.autograd.backward([losses[k] for k in local])
+        self.halo = exchanged(exchanges) if exchanges else None
         total = self._reduce(layout, local, losses)
         for device, replica in self.replicas.items():
             flat = total if same_device(device, self.home) else \

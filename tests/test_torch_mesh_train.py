@@ -23,8 +23,6 @@ array's largest entry, as ``tests/test_torch_train_models.py`` holds
 Deep3D's single device.
 """
 
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -187,25 +185,6 @@ def test_row_split_jax_takes_and_the_port_does_not_raises():
         step.close()
     with pytest.raises(ValueError, match="4x the down view"):
         train_layout((1, 2, 1), 1, (128, 128), (16, 16))
-
-
-def test_tile_group_across_ranks_raises():
-    """A mesh whose tile group lies on two ranks (its entries' ranks
-    recorded as ``make_mesh`` records them under a process group; this
-    process rank 0): the rows received across ranks carry no gradient,
-    so the step refuses before any work."""
-    mc = MeshConfig(1, 2, 1)
-    mesh = make_mesh(mc, ["cpu"] * 2)
-    mesh.processes = np.array([[[0], [1]]])
-    mesh.local_devices = [torch.device("cpu")]
-    mesh.transport = types.SimpleNamespace(rank=0)
-    step = ShardedTrainStep(seeded_model(), TrainerConfig(), mesh,
-                            dropout=False)
-    try:
-        with pytest.raises(ValueError, match="spans processes"):
-            step.step(*batch_of(1))
-    finally:
-        step.close()
 
 
 def test_cuda_mesh_without_cuda_raises():

@@ -16,13 +16,17 @@ with as many exchanges, each crossing ranks, and the bytes read from
 neighbours split between the ranks; one such GwcNet split is held to
 JAX's ``ShardedDnnEngine`` at its 5e-3 px; each funnel split over two
 ranks matches the whole frame at the 1e-5 of
-``tests/test_torch_row_split.py``; an exchange out of step, or a rank
-whose shard fails, raises on both ranks.  Deep3D's sharded training
-step with its data groups across the ranks ((2,1,1), (4,1,1)) gives, on
-every rank, the losses, weights and Adam state of the same mesh in one
-process bit for bit, with every replica identical; a training tile group
-across ranks is refused on every rank.  The group is joined within a
-time limit: a hung rank fails the fixture, it does not hang the run.
+``tests/test_torch_row_split.py``, and so does its input gradient from a
+seeded gradient of each shard's output rows (``conv2d``, ``gather``,
+``upsample_bilinear``, and a halo whose received rows get no gradient);
+an exchange out of step, or a rank whose shard fails, raises on both
+ranks, in the forward and in the backward.  Deep3D's sharded training
+step with its data groups ((2,1,1), (4,1,1)) or its tile groups ((1,2,1),
+(1,4,1), (2,2,1), and (1,4,1) two shards a rank) across the ranks gives,
+on every rank, the losses, weights and Adam state of the same mesh in
+one process bit for bit, with every replica identical.  The group is
+joined within a time limit: a hung rank fails the fixture, it does not
+hang the run.
 """
 
 import numpy as np
@@ -36,6 +40,7 @@ from stereo_tpu.models import load_params_npz
 from stereo_tpu.parallel import ShardedClassicalEngine as JaxShardedEngine
 from stereo_tpu.parallel import ShardedDnnEngine as JaxShardedDnnEngine
 
+from stereo_tpu_torch.ops import rows
 from stereo_tpu_torch.parallel.classical import _all_gather_rows
 from stereo_tpu_torch.parallel.transport import spawn_ranks
 from stereo_tpu_torch.utils.paths import model_checkpoint_dir
@@ -65,14 +70,16 @@ SPANNING = [n for n in NAMES if "split" in n and tile_group_spans_ranks(n)]
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
     """Every case across the 4 ranks: (each rank's results, the one
-    process results of ranks 0 and 1)."""
+    process results of every rank)."""
     out = tmp_path_factory.mktemp("ranks")
     codes = spawn_ranks(ranks.run, WORLD, str(out / "store"),
                         args=(str(out), NAMES), timeout_s=240)
     errors = {p.name: p.read_text() for p in out.glob("rank*.err")}
     assert codes == [0] * WORLD, (codes, errors)
     alone = torch.load(out / "one_process.pt", weights_only=False)
-    alone.update(torch.load(out / "one_process_train.pt", weights_only=False))
+    for r in range(1, WORLD):
+        alone.update(torch.load(out / f"one_process_train{r}.pt",
+                                weights_only=False))
     return ([torch.load(out / f"rank{r}.pt", weights_only=False)
              for r in range(WORLD)], alone)
 
@@ -89,21 +96,32 @@ def test_case_across_processes_equals_one_process(group, name):
 
 @pytest.mark.parametrize("name", sorted(ranks.TRAIN_CASES))
 def test_training_across_processes_equals_one_process(group, name):
-    """Every rank, the two outside (2,1,1)'s mesh included, ends each step
-    with the loss, weights and Adam state of one process, bit for bit."""
+    """Every rank, those outside the mesh included, ends each step with
+    the loss, weights and Adam state of one process, bit for bit.  Where
+    ``tile`` > 1 the step splits rows, and every rank holding a shard
+    crosses ranks in each round of the forward and of the backward."""
     got, want = group
+    shape, entries = ranks.TRAIN_CASES[name]
     assert want[name]["replicas"] == 1 and want[name]["replicas_identical"]
+    assert want[name]["row_split"] == (shape[1] > 1)
     for rank, results in enumerate(got):
         case = results[name]
         assert torch.equal(case["losses"], want[name]["losses"]), rank
         assert case["digest"] == want[name]["digest"], rank
         assert case["replicas"] == 1 and case["replicas_identical"], rank
-
-
-def test_training_tile_group_across_ranks_is_refused(group):
-    got, _ = group
-    for results in got:
-        assert "spans processes" in results["train_refusal"]
+        assert case["row_split"] == want[name]["row_split"], rank
+    if shape[1] == 1:
+        return
+    rounds = want[name]["halo"]["rounds"]
+    assert rounds > 0 and want[name]["halo"]["back_rounds"] == rounds
+    assert want[name]["halo"]["cross_rounds"] == 0
+    held = [r[name]["halo"] for r in got if r[name]["halo"] is not None]
+    owners = np.repeat(np.arange(WORLD), entries)[:np.prod(shape)]
+    assert len(held) == len(set(owners))
+    for h in held:
+        assert (h["rounds"] == h["cross_rounds"] == h["back_rounds"]
+                == h["back_cross_rounds"] == rounds), h
+        assert h["back_cross_bytes"] > 0 and h["cross_bytes"] > 0, h
 
 
 def test_paths_taken(group):
@@ -167,6 +185,8 @@ def whole_frame_funnel(name, x, w):
     """Funnel ``name``'s two shards' outputs, joined, computed on the
     whole frame ``x``."""
     per = x.shape[-2] // 2
+    if name == "halo_own_rows":
+        return x
     if name.startswith("halo"):
         above, below = {"halo_zeros": (1, 2), "halo_replicate": (2, 1),
                         "halo_none": (1, 1)}[name]
@@ -185,6 +205,8 @@ def whole_frame_funnel(name, x, w):
     if name == "interpolate":
         return F.interpolate(x, size=(x.shape[-2] * 4, 12), mode="bilinear",
                              align_corners=False)
+    if name == "upsample_bilinear":
+        return rows.upsample_bilinear(x, 2)   # outside a split
     return torch.cat([x, x], dim=-2)        # gather: the frame on each
 
 
@@ -202,6 +224,26 @@ def test_funnel_across_ranks_matches_whole(group, name):
                if r not in ranks.FUNNEL_RANKS)
 
 
+@pytest.mark.parametrize("name", ranks.GRAD_FUNNELS)
+def test_funnel_gradient_across_ranks_matches_whole(group, name):
+    """Each shard's input gradient, from a seeded gradient of its output
+    rows, joined: the whole frame's input gradient from those gradients
+    joined, at the forward's 1e-5; each rank's backward crossed ranks
+    once, receiving rows (zeros where the rows received were dropped)."""
+    got, _ = group
+    x, w = ranks.funnel_input(name)
+    shards = [got[r]["funnels"][name] for r in ranks.FUNNEL_RANKS]
+    whole = x.clone().requires_grad_()
+    out = whole_frame_funnel(name, whole, w)
+    out.backward(torch.cat([ranks.upstream(name, t, s["rows"].shape)
+                            for t, s in enumerate(shards)], dim=-2))
+    joined = torch.cat([s["grad"] for s in shards], dim=-2)
+    torch.testing.assert_close(joined, whole.grad, rtol=0, atol=1e-5)
+    for s in shards:
+        assert s["back_rounds"] == s["back_cross_rounds"] == 1
+        assert s["back_cross_bytes"] > 0
+
+
 def test_exchange_out_of_step_across_ranks_raises_on_both(group):
     """Shards of two ranks exchanging under different keys (edge rules):
     each rank's shard sees the other's digest disagree and raises."""
@@ -210,6 +252,29 @@ def test_exchange_out_of_step_across_ranks_raises_on_both(group):
         kind, message, _ = got[r]["funnels"]["out_of_step"]
         assert kind == "RuntimeError" and "out of step" in message
         assert f"from rank {1 - r}" in message
+
+
+def test_backward_out_of_step_across_ranks_raises_on_both(group):
+    """Two runs in step, whose backward rank 0 takes in one order and rank
+    1 in the other: each rank's backward sees the other's key digest
+    disagree and raises."""
+    got, _ = group
+    for r in ranks.FUNNEL_RANKS:
+        kind, message, _ = got[r]["funnels"]["out_of_step_backward"]
+        assert kind == "RuntimeError", message
+        assert "out of step in backward" in message, message
+        assert f"from rank {1 - r}" in message
+
+
+def test_hung_backward_across_ranks_ends_its_peer_within_the_timeout(group):
+    """Rank 1 never runs the backward of a run both ranks ran forward: rank
+    0's backward, waiting for its rows' gradients, gives up after the
+    run's 2 s timeout instead of blocking."""
+    got, _ = group
+    assert got[1]["funnels"]["hung_backward"] is None
+    kind, message, seconds = got[0]["funnels"]["hung_backward"]
+    assert kind == "RuntimeError" and "Timed out" in message, message
+    assert 1.5 < seconds < 30
 
 
 def test_failing_shard_across_ranks_ends_its_peer_within_the_timeout(group):

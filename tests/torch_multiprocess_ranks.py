@@ -2,19 +2,21 @@
 :data:`CASES` run by every rank of a gloo group on the CPU, each rank
 saving what it received, and rank 0 also the same mesh in one process;
 before them each row-split funnel of :data:`FUNNELS` split over two of
-the ranks, and two splits across ranks that fail.
+the ranks, forward and (:data:`GRAD_FUNNELS`) backward, and splits across
+ranks that fail, in the forward and in the backward.
 
 Then Deep3D's sharded training step (``parallel.train``) on each mesh of
-:data:`TRAIN_CASES` with its data groups across the ranks, and once on a
-mesh whose tile group spans two ranks, which it refuses.
+:data:`TRAIN_CASES`, with its data groups or its tile groups across the
+ranks.
 
 A spawned child imports the module of the function it runs, so this one
 imports only numpy, torch and the port (the test modules import JAX).
 Run a group with ``stereo_tpu_torch.parallel.transport.spawn_ranks(run,
 4, STORE, args=(OUT_DIR, names))``; rank r writes ``OUT_DIR/rank{r}.pt``,
-rank 0 also ``OUT_DIR/one_process.pt`` and rank 1 the training cases
-alone, ``OUT_DIR/one_process_train.pt``; a rank that fails writes its
-traceback to ``OUT_DIR/rank{r}.err`` and exits 1 (it re-raises).
+rank 0 also ``OUT_DIR/one_process.pt`` and ranks 1-3 a share of the
+training cases alone each, ``OUT_DIR/one_process_train{r}.pt``; a rank
+that fails writes its traceback to ``OUT_DIR/rank{r}.err`` and exits 1
+(it re-raises).
 """
 
 import hashlib
@@ -96,13 +98,30 @@ FUNNELS = {
     "interpolate": ((1, 2, 8, 6), lambda x, w: rows.interpolate(
         x, (x.shape[-2] * 4, 12), "bilinear"), None),
     "gather": ((1, 2, 8, 5), lambda x, w: rows.gather(x), None),
+    "upsample_bilinear": ((1, 2, 8, 6),
+                          lambda x, w: rows.upsample_bilinear(x, 2), None),
+    # The rows received are dropped: their gradient is zeros.
+    "halo_own_rows": ((1, 2, 8, 5),
+                      lambda x, w: rows.halo(x, 1, 1)[..., 1:-1, :], None),
 }
 FUNNEL_RANKS = (0, 1)
-# Deep3D's training step, one frame a shard, dropout on: name -> (mesh,
+# The funnels also run backward, from a seeded gradient of each shard's
+# output rows (conv2d's edge zeros, upsample_bilinear's replicated).
+GRAD_FUNNELS = ("conv2d", "gather", "halo_own_rows", "upsample_bilinear")
+# Deep3D's training step, one frame a group, dropout on: name -> (mesh,
 # "cpu" entries each rank lists).  (2,1,1) leaves ranks 2 and 3 outside
 # the mesh: they take part in the gradients' all-gather and keep a replica.
+# The others split rows over tile groups across ranks: (1,2,1) over ranks
+# 0-1; (1,4,1) over all four, gathering before VggBlock_3's pool; (2,2,1)
+# two groups, over ranks 0-1 and 2-3; and (1,4,1) over ranks 0 and 1, two
+# shards each, so a shard has a neighbour in its rank and one across
+# (ranks 2 and 3 hold no entry).
 TRAIN_CASES = {"train_211": ((2, 1, 1), (1, 1, 1, 1)),
-               "train_411": ((4, 1, 1), (1, 1, 1, 1))}
+               "train_411": ((4, 1, 1), (1, 1, 1, 1)),
+               "train_121": ((1, 2, 1), (1, 1, 1, 1)),
+               "train_141": ((1, 4, 1), (1, 1, 1, 1)),
+               "train_221": ((2, 2, 1), (1, 1, 1, 1)),
+               "train_141_mixed": ((1, 4, 1), (2, 2, 1, 1))}
 TRAIN_STEPS = 2
 # make_mesh's global order: ranks list 2, 1, 1, 1 entries.
 ORDER_COUNTS = (2, 1, 1, 1)
@@ -196,8 +215,9 @@ def run_case(name, across: bool):
 def train_case(name, across: bool) -> dict:
     """Case ``name`` of :data:`TRAIN_CASES` across the group or on the
     same mesh alone: each step's loss, a digest of the weights and Adam
-    state afterwards (their bytes, in parameter order) and whether this
-    process's replicas are identical."""
+    state afterwards (their bytes, in parameter order), whether this
+    process's replicas are identical, whether the step split rows, and
+    what the split exchanged in the last step (None without one)."""
     shape, entries = TRAIN_CASES[name]
     mc = MeshConfig(*shape)
     mesh = (make_mesh(mc, ["cpu"] * entries[dist.get_rank()]) if across
@@ -224,25 +244,10 @@ def train_case(name, across: bool) -> dict:
             t.contiguous().numpy().tobytes() for t in state)).hexdigest()
         return dict(losses=losses, digest=digest,
                     replicas_identical=step.replicas_identical(),
-                    replicas=len(step.replicas))
+                    replicas=len(step.replicas),
+                    row_split=step.layout.row_split, halo=step.halo)
     finally:
         step.close()
-
-
-def train_refusal() -> str:
-    """A (1,2,1) training step whose tile group spans ranks 0 and 1: the
-    message of the ``ValueError`` it raises (on every rank)."""
-    mesh = make_mesh(MeshConfig(1, 2, 1), ["cpu"])
-    model = Deep3D((32, 32), deconv_filters=(16,) * 5)
-    step = ShardedTrainStep(model, TrainerConfig(), mesh, dropout=False)
-    try:
-        x = torch.zeros(1, 3, 128, 128)
-        step.step(x, torch.zeros(1, 3, 32, 32), x)
-    except ValueError as exc:
-        return str(exc)
-    finally:
-        step.close()
-    return ""
 
 
 def funnel_input(name):
@@ -253,6 +258,13 @@ def funnel_input(name):
     w = (None if wshape is None else torch.from_numpy(
         rng.standard_normal(wshape).astype(np.float32)))
     return x, w
+
+
+def upstream(name, t, shape):
+    """The seeded gradient of shard ``t``'s output (of ``shape``) of funnel
+    ``name``."""
+    rng = np.random.default_rng([GRAD_FUNNELS.index(name), t])
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
 
 def funnels():
@@ -280,6 +292,8 @@ def funnels():
             out[name] = dict(rows=results[0][t], rounds=ex.rounds,
                              cross_rounds=ex.cross_rounds,
                              cross_bytes=ex.cross_bytes)
+            if name in GRAD_FUNNELS:
+                out[name].update(funnel_backward(threads, line, name, x, w))
         # The two ranks' shards exchange with different edge rules: the
         # keys' digests disagree.  Then rank 1's shard raises before its
         # first exchange, on a line of its own (a timed-out wait closes
@@ -290,9 +304,71 @@ def funnels():
             threads, Line(Transport(), FUNNEL_RANKS),
             lambda t, x: rows.halo(x, 1, 1) if t == 0 else 1 / 0,
             timeout_s=2.0)
+        # The backward's twins: two runs in step, whose backward each rank
+        # takes in another order (the keys' digests disagree); then a run
+        # whose backward rank 1 never takes: rank 0 gives up after the
+        # timeout.
+        out["out_of_step_backward"] = backward_failure(
+            threads, line, (0, 1) if rank == 0 else (1, 0))
+        out["hung_backward"] = backward_failure(
+            threads, Line(Transport(), FUNNEL_RANKS),
+            (0,) if rank == 0 else (), timeout_s=2.0)
     finally:
         threads.close()
     return out
+
+
+def funnel_backward(threads, line, name, x, w):
+    """Funnel ``name`` split over :data:`FUNNEL_RANKS` under grad, then a
+    backward from :func:`upstream`'s gradient of this rank's output rows,
+    the loss tied to the run's last round: this shard's input gradient and
+    what the backward exchanged."""
+    t = FUNNEL_RANKS.index(dist.get_rank())
+    per = x.shape[-2] // len(FUNNEL_RANKS)
+    shard = x.narrow(-2, t * per, per).clone().requires_grad_()
+    split = [None] * len(FUNNEL_RANKS)
+    split[t] = ("cpu", lambda: FUNNELS[name][1](shard, w))
+    with torch.enable_grad():
+        results, exchanges = threads.run([split], [line])
+        y, ex = results[0][t], exchanges[0]
+        torch.autograd.backward(rows.tie(y, ex.token),
+                                upstream(name, t, y.shape))
+    return dict(grad=shard.grad, back_rounds=ex.back_rounds,
+                back_cross_rounds=ex.back_cross_rounds,
+                back_cross_bytes=ex.back_cross_bytes)
+
+
+def backward_failure(threads, line, order, timeout_s=None):
+    """Two runs of a halo (zeros, then replicated edges) split over
+    :data:`FUNNEL_RANKS` under grad, in step, then this rank's backward of
+    run ``order[0]`` (then ``order[1]``, ...): ``(error type, message,
+    seconds)`` of what the backward raised, None on the other ranks or
+    when nothing was raised."""
+    rank = dist.get_rank()
+    if rank not in FUNNEL_RANKS:
+        return None
+    t = FUNNEL_RANKS.index(rank)
+    saved = parallel_rows.TURN_TIMEOUT_S
+    if timeout_s is not None:
+        parallel_rows.TURN_TIMEOUT_S = timeout_s
+    try:
+        runs = []
+        for edge in ("zeros", "replicate"):
+            x = torch.ones(1, 1, 4, 3, requires_grad=True)
+            split = [None] * len(FUNNEL_RANKS)
+            split[t] = ("cpu", lambda: rows.halo(x, 1, 1, edge=edge))
+            with torch.enable_grad():
+                results, exchanges = threads.run([split], [line])
+            runs.append(rows.tie(results[0][t], exchanges[0].token))
+    finally:
+        parallel_rows.TURN_TIMEOUT_S = saved
+    start = time.monotonic()
+    try:
+        for k in order:
+            runs[k].sum().backward()
+    except Exception as exc:
+        return type(exc).__name__, str(exc), time.monotonic() - start
+    return None
 
 
 def failure(threads, line, fn, timeout_s=None):
@@ -337,7 +413,7 @@ def mesh_order():
 def run(rank, world, init, out_dir, names):
     """One rank: every case of ``names`` and of :data:`TRAIN_CASES` across
     the group, then each case on the same mesh in this process alone (rank
-    0 those of ``names``, rank 1 the training cases)."""
+    0 those of ``names``, ranks 1-3 a share of the training cases each)."""
     torch.set_num_threads(1)
     try:
         initialize_distributed(init, world, rank, backend="gloo")
@@ -348,14 +424,13 @@ def run(rank, world, init, out_dir, names):
             got[name], got["halo"][name] = run_case(name, across=True)
         for name in TRAIN_CASES:
             got[name] = train_case(name, across=True)
-        got["train_refusal"] = train_refusal()
         torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.barrier()
         dist.destroy_process_group()
-        if rank == 1:       # beside rank 0's cases, on a core of its own
+        if rank > 0:        # beside rank 0's cases, each on a core of its own
             torch.save({name: train_case(name, across=False)
-                        for name in TRAIN_CASES},
-                       os.path.join(out_dir, "one_process_train.pt"))
+                        for name in sorted(TRAIN_CASES)[rank - 1::world - 1]},
+                       os.path.join(out_dir, f"one_process_train{rank}.pt"))
         if rank == 0:
             alone = {"halo": {}}
             for name in names:
