@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, each ending in one flushed JSON line with its name and seconds:
+Phases, each ending in one flushed JSON line with its name and seconds
+(and, once the card is in use, the smoke's card memory after it:
+``card_memory_bytes``):
 
 1. device:   the card's name, count and ``nvidia-smi`` name/power limit;
 2. build:    one ``nvcc`` call builds every ``stereo_tpu_torch/csrc/*.cu``
@@ -142,7 +144,8 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              kernels per frame (``torch.profiler``) and peak memory beside
              the single device's;
    mesh_single_view_rows: the single view (Deep3D at 96x320) on (1,2,1),
-             (1,4,1) and (2,2,1), batch 4, Deep3D's rows split over the
+             (1,4,1), (2,2,1) and (1,8,1) (12 down rows a shard, gathered
+             before VggBlock_2's pool), batch 4, Deep3D's rows split over the
              tile devices (``row_split``), eagerly and replayed (equal bit
              for bit), ``upsample_blend`` once per shard and frame, the
              disparities equal to the single device's or within JAX's gate,
@@ -151,13 +154,16 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              the single device;
    mesh_train: Deep3D's sharded training step (``parallel.train``, the
              graft entry's step (b)) at 384x1280 / 96x320, batch 2, on
-             (2,1,1), (1,2,1), (2,2,1) and (1,4,1): three steps from the
-             smoke's Deep3D weights against the single-device ``Trainer``,
-             dropout off and then on from one generator seed; the largest
-             loss and gradient gaps, replica equality, ms/step (median),
-             device ms and peak memory beside the single device's; no
-             kernel launches (training runs the plain compositions);
-   multiprocess: the mesh across processes: two ranks spawned on cuda:0,
+             (2,1,1), (1,2,1), (2,2,1), (1,4,1) and (1,8,1): three steps
+             from the smoke's Deep3D weights against the single-device
+             ``Trainer``, dropout off and then on from one generator seed;
+             the largest loss and gradient gaps, replica equality, halo
+             rounds forward and backward, ms/step (median), device ms and
+             peak memory beside the single device's; no kernel launches
+             (training runs the plain compositions);
+   multiprocess: (run right after ``build``, while the smoke's own
+             process holds none of the card's memory) the mesh across
+             processes: two ranks spawned on cuda:0,
              a gloo group on a file store (``initialize_distributed``),
              each rank listing its own entries of cuda:0 and ``make_mesh``
              joining them in rank order: KITTI's classical kernel path on
@@ -170,7 +176,9 @@ Phases, each ending in one flushed JSON line with its name and seconds:
              tensors), the launches of both ranks; and Deep3D's training
              step on (2,1,1) with ``data`` across the ranks, its losses,
              weights and Adam state on both ranks equal bit for bit to
-             the same mesh in one process.
+             the same mesh in one process, and with a tile group across
+             the ranks: (1,2,1), (1,4,1) and (1,8,1), one, two and four
+             shards a rank.
 
 The kernel launch counts are zeroed just before each path of phases 5-9
 (the exported networks' inference included) is driven and read just
@@ -194,7 +202,8 @@ phase lines say which.
     python3 chip_smoke.py --phases multiprocess synthetic
 
 runs the device and build phases and then only the named phases, with
-their gates (``mesh_train``, ``multiprocess``, ``synthetic``; Deep3D's
+their gates (``mesh_single_view_rows``, ``mesh_train``, ``multiprocess``,
+``synthetic``; Deep3D's
 committed weights when ``data/checkpoints/deep3d.npz`` is present, which
 the whole smoke's copy may leave out), ending with the ``nvidia-smi``
 line and no kernels line.
@@ -225,6 +234,7 @@ and ``host_us`` (launch alone).
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import os
@@ -284,6 +294,15 @@ PEAK_F32_OPS_PER_S = 67e12
 
 
 def report(phase: str, start: float, **numbers) -> None:
+    """One phase's line; once this process uses the card, with its card
+    memory after the phase (bytes allocated and reserved by PyTorch, and
+    free on the card)."""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        numbers["card_memory_bytes"] = dict(
+            allocated=torch.cuda.memory_allocated(),
+            reserved=torch.cuda.memory_reserved(),
+            free=torch.cuda.mem_get_info()[0])
     print(json.dumps({"phase": phase, "seconds": round(time.perf_counter()
                                                        - start, 3),
                       **numbers}), flush=True)
@@ -2951,8 +2970,10 @@ def phase_mesh_dnn_rows(torch, dev, config):
         failed
 
 
-# Deep3D's rows split over the tile devices of these meshes, batch 4.
-SINGLE_VIEW_ROW_MESHES = ((1, 2, 1), (1, 4, 1), (2, 2, 1))
+# Deep3D's rows split over the tile devices of these meshes, batch 4: at
+# tile 8 a shard holds 12 of the 96 down rows and gathers before
+# VggBlock_2's pool.
+SINGLE_VIEW_ROW_MESHES = ((1, 2, 1), (1, 4, 1), (2, 2, 1), (1, 8, 1))
 
 
 def phase_mesh_single_view_rows(torch, dev, config, synthesis):
@@ -3055,7 +3076,9 @@ def phase_mesh_single_view_rows(torch, dev, config, synthesis):
                         single_batch_spread=spread, cases=cases), failed
 
 
-MESH_TRAIN_MESHES = ((2, 1, 1), (1, 2, 1), (2, 2, 1), (1, 4, 1))
+# (1,8,1): 12 of the 96 down rows a shard, gathered before VggBlock_2's
+# pool, the levels below whole on every shard.
+MESH_TRAIN_MESHES = ((2, 1, 1), (1, 2, 1), (2, 2, 1), (1, 4, 1), (1, 8, 1))
 MESH_TRAIN_STEPS = 3
 # The gates of ``mesh_train``'s gaps, sharded against single-device steps in
 # float32 (TF32 off) on the card: the shards' convolutions round otherwise
@@ -3067,6 +3090,15 @@ MESH_TRAIN_STEPS = 3
 # printed beside them.
 MESH_TRAIN_LOSS_RTOL = 1e-4
 MESH_TRAIN_GRAD_NORM_RTOL = 1e-2
+
+
+def free_card(torch) -> None:
+    """Collect unreachable objects, then return the cached blocks to the
+    card: a training step can outlive its last reference in a reference
+    cycle (one through the optimizer's constructor frame), and its
+    weights, Adam state and gradients with it."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def train_batch(torch, dev, config):
@@ -3149,7 +3181,7 @@ def phase_mesh_train(torch, dev, synthesis, deep3d_weights: str):
         if dropout:
             single = timed(lambda: trainer.train_step(*batch))
         del trainer
-    torch.cuda.empty_cache()
+    free_card(torch)
 
     meshes, failed = {}, []
     for shape in MESH_TRAIN_MESHES:
@@ -3171,12 +3203,14 @@ def phase_mesh_train(torch, dev, synthesis, deep3d_weights: str):
                 grad_array_rel_max=max(g["grad_array_rel"] for g in gaps),
                 steps=gaps, replicas=len(step.replicas),
                 replicas_identical=step.replicas_identical(),
-                row_split=step.layout.row_split)
+                row_split=step.layout.row_split,
+                halo_rounds=step.halo and step.halo["rounds"],
+                halo_back_rounds=step.halo and step.halo["back_rounds"])
             if dropout:
                 arm.update(timed(lambda: step.step(*batch)))
             step.close()
             del step
-            torch.cuda.empty_cache()
+            free_card(torch)
             if not (arm["loss_rel_max"] <= MESH_TRAIN_LOSS_RTOL
                     and arm["grad_norm_rel_max"] <= MESH_TRAIN_GRAD_NORM_RTOL
                     and arm["replicas_identical"]
@@ -3185,7 +3219,7 @@ def phase_mesh_train(torch, dev, synthesis, deep3d_weights: str):
             case["dropout" if dropout else "no_dropout"] = arm
         meshes["x".join(map(str, shape))] = case
     del want
-    torch.cuda.empty_cache()
+    free_card(torch)
     counts = dict(LAUNCHES)
     require(all(v == 0 for v in counts.values()),
             f"mesh_train launched kernels: {counts}")
@@ -3223,9 +3257,11 @@ MULTIPROCESS_TRAIN_MESH = (2, 1, 1)
 # And (label, mesh, entries each rank lists) of training steps whose tile
 # group spans the two ranks: (1,2,1) one shard a rank; (1,4,1) two shards
 # a rank, the middle edge across and the gathered levels' gradients sent
-# to every shard's rank.
+# to every shard's rank; (1,8,1) four shards a rank, 12 down rows a shard,
+# gathered before VggBlock_2's pool.
 MULTIPROCESS_TRAIN_ROWS = (("train_rows_121", (1, 2, 1), (1, 1)),
-                           ("train_rows_141", (1, 4, 1), (2, 2)))
+                           ("train_rows_141", (1, 4, 1), (2, 2)),
+                           ("train_rows_181", (1, 8, 1), (4, 4)))
 MULTIPROCESS_TRAIN_STEPS = 2
 
 
@@ -3243,9 +3279,10 @@ def multiprocess_train(torch, dev, synthesis, mesh) -> dict:
     from the smoke's Deep3D weights on the fixture batch, dropout on: each
     step's loss, a SHA-256 of the weights and Adam state afterwards (their
     bytes in parameter order), whether this process's replicas are
-    identical, ms/step (host clock, each step's median), the bytes staged
-    through the host per step, whether the step split rows and what the
-    split exchanged in the last step (``ShardedTrainStep.halo``).  The
+    identical, ms/step (host clock, each step's median), the peak memory
+    allocated, the bytes staged through the host per step, whether the
+    step split rows and what the split exchanged in the last step
+    (``ShardedTrainStep.halo``).  The
     steps run under ``torch.use_deterministic_algorithms`` (cuDNN's
     deterministic algorithms; ``CUBLAS_WORKSPACE_CONFIG`` is set where the
     rank starts): a shard's backward then gives the same bits in every
@@ -3266,6 +3303,7 @@ def multiprocess_train(torch, dev, synthesis, mesh) -> dict:
                             seed=0)
     staged = mesh.transport.staged_bytes if mesh.transport else 0
     losses = []
+    torch.cuda.reset_peak_memory_stats(dev)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -3285,6 +3323,8 @@ def multiprocess_train(torch, dev, synthesis, mesh) -> dict:
                    digest=digest.hexdigest(), replicas=len(step.replicas),
                    replicas_identical=step.replicas_identical(),
                    ms_per_step=times,
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
+                       dev),
                    staged_bytes_per_step=staged / MULTIPROCESS_TRAIN_STEPS,
                    row_split=step.layout.row_split, halo=step.halo,
                    nondeterministic=sorted({
@@ -3393,7 +3433,7 @@ def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
             dist.barrier()
             train[label] = multiprocess_train(torch, dev, synthesis, mesh)
             del mesh
-            torch.cuda.empty_cache()
+            free_card(torch)
         torch.save(dict(maps=maps, numbers=numbers, weights=weights,
                         backend=dist.get_backend(), train=train),
                    os.path.join(out, f"rank{rank}.pt"))
@@ -3420,7 +3460,7 @@ def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
                 grid[:] = [dev] * grid.size
                 train[label] = multiprocess_train(torch, dev, synthesis,
                                                   Mesh(grid.reshape(shape)))
-                torch.cuda.empty_cache()
+                free_card(torch)
             torch.save(dict(maps=maps, ms_per_frame_median=numbers,
                             halo=halos, train=train),
                        os.path.join(out, "one_process.pt"))
@@ -3454,6 +3494,9 @@ def phase_multiprocess(torch, tmp: str):
     from stereo_tpu_torch.parallel.transport import spawn_ranks
 
     os.makedirs(tmp)
+    # What this process leaves the ranks on the card.
+    free_card(torch)
+    free_bytes = torch.cuda.mem_get_info()[0]
     codes = spawn_ranks(multiprocess_rank, MULTIPROCESS_RANKS,
                         os.path.join(tmp, "store"), args=(tmp,),
                         timeout_s=480)
@@ -3548,6 +3591,8 @@ def phase_multiprocess(torch, tmp: str):
             mesh=shape, equal=equal, losses=want["losses"].tolist(),
             ms_per_step=[t["ms_per_step"] for t in trained],
             one_process_ms_per_step=want["ms_per_step"],
+            max_memory_allocated_bytes=[t["max_memory_allocated_bytes"]
+                                        for t in trained],
             staged_bytes_per_step=[t["staged_bytes_per_step"]
                                    for t in trained],
             replicas_per_rank=[t["replicas"] for t in trained],
@@ -3575,6 +3620,7 @@ def phase_multiprocess(torch, tmp: str):
                                        for h in halos])
     return counts, dict(backend=ranks[0]["backend"],
                         ranks=MULTIPROCESS_RANKS,
+                        free_bytes_at_spawn=free_bytes,
                         deep3d_weights=ranks[0]["weights"], cases=cases)
 
 
@@ -3626,6 +3672,15 @@ def main() -> int:
     report("build", t, nvcc_seconds=round(build.build_seconds, 3),
            library=os.path.relpath(build.library_path(), ROOT),
            ptxas=ptxas_summary(build.build_log))
+
+    # The mesh across processes first, while this process holds none of
+    # the card: the later phases leave tens of GB reserved by its
+    # allocator, which the ranks' training cases need.
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        multiprocess_counts, numbers = phase_multiprocess(
+            torch, os.path.join(tmp, "multiprocess"))
+        report("multiprocess", t, **numbers)
 
     t = time.perf_counter()
     report("io", t, **phase_io())
@@ -3786,12 +3841,7 @@ def main() -> int:
     numbers = phase_mesh_train(torch, dev, synthesis, deep3d_weights)
     counts["mesh_train"] = numbers["launches"]
     report("mesh_train", t, **numbers)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        t = time.perf_counter()
-        counts["multiprocess"], numbers = phase_multiprocess(
-            torch, os.path.join(tmp, "multiprocess"))
-        report("multiprocess", t, **numbers)
+    counts["multiprocess"] = multiprocess_counts
     require(not failed, f"mesh_dnn_rows failed its gates: {failed}")
     require(not failed_sv,
             f"mesh_single_view_rows failed its gates: {failed_sv}")
@@ -4009,9 +4059,10 @@ def only(names) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    require(set(names) <= {"mesh_train", "multiprocess", "synthetic"},
-            f"--phases takes mesh_train, multiprocess and synthetic, not "
-            f"{names}")
+    require(set(names) <= {"mesh_single_view_rows", "mesh_train",
+                           "multiprocess", "synthetic"},
+            f"--phases takes mesh_single_view_rows, mesh_train, "
+            f"multiprocess and synthetic, not {names}")
     sys.path.insert(0, ROOT)
     from stereo_tpu_torch.ops.cuda import build
 
@@ -4024,6 +4075,19 @@ def only(names) -> int:
     t = time.perf_counter()
     build.library()
     report("build", t, nvcc_seconds=round(build.build_seconds, 3))
+    if "mesh_single_view_rows" in names:
+        from stereo_tpu_torch.core.config import PipelineConfig
+
+        synthesis, deep3d_weights = make_synthesis(dev)
+        t = time.perf_counter()
+        counts, numbers, failed = phase_mesh_single_view_rows(
+            torch, dev, PipelineConfig(), synthesis)
+        report("mesh_single_view_rows", t, deep3d_weights=deep3d_weights,
+               launches=counts, **numbers)
+        require(not failed, f"mesh_single_view_rows failed its gates: "
+                            f"{failed}")
+        del synthesis
+        torch.cuda.empty_cache()
     if "mesh_train" in names:
         synthesis, deep3d_weights = make_synthesis(dev)
         t = time.perf_counter()

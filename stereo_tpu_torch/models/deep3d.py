@@ -15,15 +15,22 @@ committed Flax checkpoint maps onto ``state_dict`` keys by name
 branch flattens its input in NHWC order, as the Flax model does, because
 the rows of its first Dense kernel are in (h, w, c) order.
 
-Inside a row split (``parallel.synthesis``) every row-mixing layer goes
-through the funnels of ``ops.rows``: the 3x3 convolutions and the parity
+Inside a row split (``parallel.synthesis``, ``parallel.train``; a shard
+holds any whole number of down rows) every row-mixing layer goes through
+the funnels of ``ops.rows``: the 3x3 convolutions and the parity
 deconvolutions take their halo rows from the neighbouring shards, and the
 shards' rows are gathered before the first pool that would not pool a
 shard's rows whole, or before the global branch's Dense layers over the
 whole pool5 grid.  The levels below the gather run on the whole frame on
-every shard, and their branch outputs are narrowed back to the shard's
-rows.  In training mode (``parallel.train``) the volume's upsample takes
-one volume row of each neighbour (``ops.rows.upsample_bilinear``), and the
+every shard.  Where a shard's down rows are even, the branch predictions
+at down/2 split over the shards: those of the gathered levels are
+narrowed back to the shard's rows, and the branch sum and the softmax
+head run on the shard's rows.  Where they are odd, the gather comes
+before VggBlock_0's pool, the sum and the head run on the whole frame
+too, and the softmax volume is narrowed to the shard's rows at the down
+resolution, where they divide.  Either way each shard ends with its own
+rows of the volume.  In training mode the volume's upsample takes one
+volume row of each neighbour (``ops.rows.upsample_bilinear``), and the
 blend, which shifts along columns only, runs on the shard's own rows.
 Outside a split nothing changes.
 """
@@ -220,6 +227,10 @@ class DisparityEstimationNetwork(nn.Module):
         predictions = []
         gathered_from = None    # the first prediction of the whole frame
         features = left_down_nchw
+        # A shard of odd down rows gathers before VggBlock_0's pool, and
+        # its predictions at down/2 do not split over the shards: the head
+        # then runs on the whole frame too, and its volume is narrowed.
+        whole_head = rows.current() is not None and features.shape[-2] % 2
         with contextlib.ExitStack() as whole:
             def gather(x):
                 x = rows.gather(x)
@@ -239,6 +250,10 @@ class DisparityEstimationNetwork(nn.Module):
                 features = gather(features)
                 gathered_from = len(predictions)
             predictions.append(self.FeedForwardBranch_0(features, generator))
+            if whole_head:
+                volume = self.DisparityUpconvSoftmax_0(sum(predictions))
+        if whole_head:
+            return rows.narrow(volume)
         if gathered_from is not None:
             predictions[gathered_from:] = [
                 rows.narrow(p) for p in predictions[gathered_from:]]

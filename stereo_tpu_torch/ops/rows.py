@@ -20,16 +20,19 @@ rows they need across the shard's edges from the neighbouring shards:
   on each side, the edge row repeated at the frame's top and bottom, where
   the resize clamps its source index.
 
-Deep3D's split (``models/deep3d.py``, under ``parallel.synthesis``) adds
-its own funnels: the 3x3 convolutions (:func:`conv2d`) take their row pair
-as ``conv_same`` does; the 2x2 max pool (:func:`max_pool2d`) needs an even
-number of rows in each shard; where a shard's rows would stop pooling
-whole, :func:`gather` joins every shard's rows on every shard, the levels
-below run on the whole frame (:func:`unsplit`), and :func:`narrow` takes
-the shard's rows of their outputs back; the blend's upsample takes one
-volume row from each neighbour and none beyond the frame's edges
-(:func:`neighbour_rows`), so that each output row reads what it reads in
-the whole frame.
+Deep3D's split (``models/deep3d.py``, under ``parallel.synthesis`` and
+``parallel.train``; a shard of any whole number of rows, one included)
+adds its own funnels: the 3x3 convolutions (:func:`conv2d`) take their
+row pair as ``conv_same`` does; the 2x2 max pool (:func:`max_pool2d`)
+needs an even number of rows in each shard; where a shard's rows would
+stop pooling whole, :func:`gather` joins every shard's rows on every
+shard, the levels below run on the whole frame (:func:`unsplit`), and
+:func:`narrow` takes the shard's rows back at the first output whose rows
+divide over the shards (the branch predictions at down/2, or the softmax
+volume at the down rows when a shard's down rows are odd); the blend's
+upsample takes one volume row from each neighbour and none beyond the
+frame's edges (:func:`neighbour_rows`), so that each output row reads
+what it reads in the whole frame.
 
 Everything else the networks do is row-local and runs on each shard
 unchanged.  Outside a split these functions do what they always did.
@@ -122,6 +125,12 @@ class RowExchange:
         """Whether shard ``j`` runs in this process."""
         return self.line is None or self.line.local(j)
 
+    def release(self) -> None:
+        """Drop the slots' tensors once the run has ended (a round's
+        outputs would otherwise stay reachable from its node's plan)."""
+        self._slots = [[None] * self.count, [None] * self.count]
+        self._outs = [[None] * self.count, [None] * self.count]
+
 
 class Rounds:
     """The once-a-round step of one run of row splits (``exchanges``, in
@@ -210,7 +219,10 @@ class _Round(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, _, *douts):
-        plan = ctx.plan
+        # The plan reaches this node again (through its exchanges' token):
+        # a cycle through the graph that Python's collector cannot see.
+        # Drop it, so the run is freed once its outputs are.
+        plan, ctx.plan = ctx.plan, None
         wanted = dict(zip(plan.inputs, ctx.needs_input_grad[2:]))
         grads = {}
         for ex in plan.exchanges:
@@ -396,7 +408,8 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
 
 def max_pool2d(x: torch.Tensor) -> torch.Tensor:
     """``F.max_pool2d(x, 2)``: row-local when every shard holds an even
-    number of rows, which a row split requires."""
+    number of rows, which a row split requires (gather a shard of odd rows
+    first, :func:`gather`)."""
     if current() is not None and x.shape[-2] % 2:
         raise ValueError(f"a shard of {x.shape[-2]} rows does not pool by "
                          f"2 whole: gather its rows first")
@@ -416,13 +429,15 @@ def gather(x: torch.Tensor) -> torch.Tensor:
 def narrow(x: torch.Tensor) -> torch.Tensor:
     """Inside a row split, the calling shard's rows of ``x``, a tensor of
     the whole frame's rows (the output of layers run on :func:`gather`'s
-    rows): shard ``i`` of ``n`` takes the ``i``-th n-th.  Outside, ``x``."""
+    rows) whose rows divide over the shards: shard ``i`` of ``n`` takes
+    the ``i``-th n-th.  Rows that do not divide raise; narrow a later
+    output whose rows do.  Outside, ``x``."""
     shard = current()
     if shard is None:
         return x
     if x.shape[-2] % shard.count:
         raise ValueError(f"{x.shape[-2]} frame rows do not split over "
-                         f"{shard.count} shards")
+                         f"{shard.count} shards: narrow a later output")
     per = x.shape[-2] // shard.count
     return x.narrow(-2, shard.index * per, per)
 

@@ -216,6 +216,8 @@ class ShardThreads:
         turns.start()
         for _ in jobs:
             done.get()
+        for ex in exchanges:
+            ex.release()
         if errors:
             raise next((e for e in errors
                         if not isinstance(e, RowSplitAborted)), errors[0])
@@ -250,9 +252,11 @@ def merge_halos(halos: Sequence[dict]) -> dict:
 
 
 def _serve(jobs: queue.SimpleQueue) -> None:
-    """A shard thread: runs the jobs it is handed until it gets None."""
+    """A shard thread: runs the jobs it is handed until it gets None,
+    holding none between jobs (a job reaches its run's tensors)."""
     for job in iter(jobs.get, None):
         job()
+        del job
 
 
 def _stop(queues: list) -> None:

@@ -21,13 +21,15 @@ networks:
   classical matcher runs per frame on the device the frame is dealt to
   (:func:`~stereo_tpu_torch.parallel.dnn.frame_devices`).
 
-The rows are split when ``tile > 1``, Deep3D's down height is a multiple
-of ``DEEP3D_ROW_STRIDE * tile`` and its full view is 4 times the down view
-(the blend's view is then exactly the volume's scale on each shard).
-Other heights that JAX accepts keep the frame placement: whole frames
-dealt round-robin over a group's ``tile`` devices, each running Deep3D and
-then the matcher.  :attr:`ShardedSingleViewEngine.row_split` says which
-was taken.  When every device of the mesh is one card, the split synthesis
+The rows are split wherever JAX's GSPMD splits them: when ``tile > 1``,
+``tile`` divides Deep3D's down height (a shard then holds any whole
+number of down rows, one included) and its full view is 4 times the down
+view (the blend's view is then exactly the volume's scale on each
+shard).  Where the down rows do not divide over ``tile`` (JAX's jit
+refuses that sharding), frames are dealt instead: whole frames
+round-robin over a group's ``tile`` devices, each running Deep3D and then
+the matcher.  :attr:`ShardedSingleViewEngine.row_split` says which was
+taken.  When every device of the mesh is one card, the split synthesis
 is replayed from a CUDA graph (``ShardThreads.replay``).  On the card the
 path launches ``upsample_blend`` on every shard, and ``matching_core`` and
 ``sampled_window`` per frame.
@@ -59,13 +61,6 @@ from . import rows
 from .dnn import (frame_slots, frames_of, gather_frames, gather_pieces,
                   split_devices, split_kinds)
 from .mesh import Mesh, make_mesh, same_device
-
-# The product of the strides of Deep3D's first three pools (VggBlock_0-2).
-# A shard whose down-view rows are a multiple of it pools them whole; the
-# gather of the shards' rows then comes at VggBlock_3's pool at the
-# earliest, so the levels run whole on every shard are at most 1/8 of the
-# down view (12x40 at 96x320).
-DEEP3D_ROW_STRIDE = 8
 
 
 class ShardedSingleViewEngine:
@@ -109,8 +104,7 @@ class ShardedSingleViewEngine:
                          else synthesis.to(dev) for dev in devices}
         (fh, fw), (dh, dw) = (synthesis.model_full_shape,
                               synthesis.model_down_shape)
-        self.row_split = (self._tile > 1
-                          and dh % (DEEP3D_ROW_STRIDE * self._tile) == 0
+        self.row_split = (self._tile > 1 and dh % self._tile == 0
                           and (fh, fw) == (4 * dh, 4 * dw))
         self._lines = (self.mesh.tile_lines() if self.row_split
                        else [None] * self.batch_group)

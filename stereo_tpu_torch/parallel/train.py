@@ -9,8 +9,8 @@ inference:
 
 * the layout is the graft entry's (:func:`train_layout`): rows split over
   ``tile`` when ``tile`` divides the full view's rows, else ``tile``
-  folds into the batch; a split that JAX takes and the port's Deep3D
-  cannot (``DEEP3D_ROW_STRIDE``) raises ``ValueError``;
+  folds into the batch; a split whose down rows do not divide over
+  ``tile``, whose sharding JAX's jit refuses, raises ``ValueError``;
 * every shard runs Deep3D in training mode on its frames (and rows) on its
   own device; a ``tile`` group's shards run in threads of their own
   (``parallel.rows.ShardThreads``, eagerly: no CUDA graph), their
@@ -70,7 +70,6 @@ from ..ops import rows
 from ..train.trainer import make_optimizer
 from .mesh import Mesh, same_device
 from .rows import ShardThreads, exchanged
-from .synthesis import DEEP3D_ROW_STRIDE
 
 
 @dataclass(frozen=True)
@@ -94,23 +93,22 @@ def train_layout(mesh_shape, batch: int, full_shape,
     (and ``down_shape`` down views) on a (data, tile, disp) mesh: the rows
     split over ``tile`` when ``tile`` divides the full rows, the batch over
     ``data`` x ``disp``; else ``tile`` folds into the batch, over
-    ``data`` x ``tile`` x ``disp``.  Raises ``ValueError`` where JAX
-    splits the rows and the port's Deep3D cannot (the down rows a multiple
-    of ``DEEP3D_ROW_STRIDE * tile`` and the full view 4x the down view),
-    or where the batch does not divide over its groups."""
+    ``data`` x ``tile`` x ``disp``.  Raises ``ValueError`` where the rows
+    split and the down rows do not divide over ``tile`` (JAX's jit
+    refuses that sharding of the down view), where the full view is not
+    4x the down view (as JAX's blend needs), or where the batch does not
+    divide over its groups."""
     data, tile, disp = mesh_shape
     (fh, fw), (dh, dw) = full_shape, down_shape
     row_split = tile > 1 and fh % tile == 0
-    if row_split and (dh % (DEEP3D_ROW_STRIDE * tile)
-                      or (fh, fw) != (4 * dh, 4 * dw)):
-        step = DEEP3D_ROW_STRIDE * tile
+    if row_split and dh % tile:
         raise ValueError(
-            f"JAX splits the {fh} full rows over tile {tile}, and the "
-            f"port's Deep3D cannot split a {dh}x{dw} down view of a "
-            f"{fh}x{fw} view: it splits rows over tile {tile} where the "
-            f"down height is a multiple of {step} (down {step}, {2 * step}, "
-            f"{3 * step}, ...) and the full view is 4x the down view "
-            f"(full {4 * step}, {8 * step}, {12 * step}, ...)")
+            f"the {fh} full rows split over tile {tile}, and the {dh} rows "
+            f"of the {dh}x{dw} down view do not divide over tile {tile}: "
+            f"JAX's jit refuses that sharding of the down view")
+    if row_split and (fh, fw) != (4 * dh, 4 * dw):
+        raise ValueError(f"a {fh}x{fw} view is not 4x the down view "
+                         f"{dh}x{dw}")
     groups = data * disp * (1 if row_split else tile)
     if batch % groups:
         raise ValueError(f"batch {batch} not divisible over the "

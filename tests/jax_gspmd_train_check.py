@@ -41,7 +41,7 @@ from stereo_tpu_torch.models import (Deep3D as PortDeep3D,  # noqa: E402
 FILTERS = (16, 16, 16, 16, 16)
 # (full view, batch, meshes)
 CASES = [((128, 128), 2, [(2, 1, 1), (1, 2, 1), (2, 2, 1), (1, 2, 2),
-                          (1, 4, 1)]),
+                          (1, 4, 1), (1, 8, 1)]),
          ((128, 128), 4, [(4, 1, 1), (2, 1, 2), (2, 2, 1), (4, 2, 1)]),
          ((128, 256), 2, [(2, 2, 1), (1, 4, 1)]),
          ((256, 256), 2, [(1, 2, 1), (2, 2, 1)])]

@@ -4,8 +4,9 @@ graft entry's 128x128 / 32x32 views, batch 2 (3 where ``tile`` folds
 into the batch), the deconvolution branches 16 filters wide.
 
 Against the port's single-device ``Trainer`` on the whole batch, two
-steps on meshes (2,1,1), (1,2,1), (2,2,1), (1,4,1) and (1,3,1) (whose
-``tile`` folds into the batch), dropout off and on: each step's loss
+steps on meshes (2,1,1), (1,2,1), (2,2,1), (1,4,1), (1,8,1) (4 of the 32
+down rows a shard, as JAX splits them) and (1,3,1) (whose ``tile`` folds
+into the batch), dropout off and on: each step's loss
 within rtol 1e-6 and its gradients within 1e-5 of each array's largest
 entry, and the weights after both within 1e-5 of each array's largest
 entry.  These run in float64: in float32 the shards' convolutions (a
@@ -20,8 +21,13 @@ entry's shardings, dropout off through the unfused
 ``synthesize_with_probabilities``), the batch over 4 devices and the rows
 over 2: the loss within rtol 1e-4 and the gradients within 2e-3 of each
 array's largest entry, as ``tests/test_torch_train_models.py`` holds
-Deep3D's single device.
+Deep3D's single device.  JAX's GSPMD step doubles some gradients where
+rows split over 4 or more devices (``tests/jax_gspmd_train_check.py``),
+so (1,8,1) is held to JAX's unsharded step at the same tolerances.
 """
+
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +55,7 @@ from stereo_tpu_torch.train.trainer import Trainer
 
 FULL, DOWN = (128, 128), (32, 32)
 FILTERS = (16, 16, 16, 16, 16)
-MESHES = [(2, 1, 1), (1, 2, 1), (2, 2, 1), (1, 4, 1), (1, 3, 1)]
+MESHES = [(2, 1, 1), (1, 2, 1), (2, 2, 1), (1, 4, 1), (1, 8, 1), (1, 3, 1)]
 STEPS = 2
 
 
@@ -171,20 +177,80 @@ def test_layout_follows_the_graft_entry():
         train_layout((2, 1, 1), 3, FULL, DOWN)
 
 
-def test_row_split_jax_takes_and_the_port_does_not_raises():
-    """At tile 8 JAX splits the 128 full rows; a shard would hold 4 of the
-    32 down rows, not a multiple of ``DEEP3D_ROW_STRIDE``: the step raises
-    and names the heights that split, rather than take another batch
-    group."""
+def test_tile_8_splits_rows_as_jax_does():
+    """At tile 8 JAX splits the 128 full rows and the 32 down rows, 4 a
+    shard: so does the step, one tile group of eight shards, exchanging
+    halo rows forward and backward."""
     step = sharded((1, 8, 1), False)
     try:
-        with pytest.raises(ValueError, match=r"multiple of 64 \(down 64, "
-                                             r"128, 192.*full 256"):
-            step.step(*batch_of(1))
+        loss = step.step(*batch_of(1))
+        layout = step.layout
+        assert layout.row_split and layout.tile == 8
+        assert layout.groups == (tuple(range(8)),)
+        assert layout.tile_of == tuple(range(8))
+        assert layout.frames == ((0, 1),) * 8
+        assert bool(torch.isfinite(loss))
+        assert step.halo["rounds"] > 0
+        assert step.halo["back_rounds"] == step.halo["rounds"]
     finally:
         step.close()
+
+
+def test_layout_refuses_only_where_jax_does():
+    """The layout raises where the full view is not 4x the down view, and
+    where the full rows split over ``tile`` but the down rows do not
+    divide over it, whose sharding JAX's jit refuses; every other split
+    is taken."""
     with pytest.raises(ValueError, match="4x the down view"):
         train_layout((1, 2, 1), 1, (128, 128), (16, 16))
+    with pytest.raises(ValueError, match=r"36 rows of the 36x36 down view "
+                                         r"do not divide over tile 8: JAX"):
+        train_layout((1, 8, 1), 1, (144, 144), (36, 36))
+    for tile, full, down in [(8, FULL, DOWN), (32, FULL, DOWN),
+                             (8, (384, 1280), (96, 320)),
+                             (32, (384, 1280), (96, 320))]:
+        assert train_layout((1, tile, 1), 1, full, down).row_split
+
+
+def test_a_split_under_grad_is_freed_after_its_backward():
+    """Each exchange round under grad mode is an autograd node whose
+    context reaches the run's exchanges, which reach the node again
+    through their token: once the backward has run, dropping the run's
+    outputs frees its exchanges (a cycle through the graph would keep
+    them, and every tensor of the run, for good)."""
+    x = torch.ones(1, 1, 4, 3, requires_grad=True)
+    threads = ShardThreads()
+    try:
+        with torch.enable_grad():
+            results, exchanges = threads.run([[("cpu", lambda t=t: rows.halo(
+                x[..., 2 * t:2 * t + 2, :], 1, 1)) for t in range(2)]])
+            loss = rows.tie(sum(r.sum() for r in results[0]),
+                            exchanges[0].token)
+        loss.backward()
+    finally:
+        threads.close()
+    freed = weakref.ref(exchanges[0])
+    del results, exchanges, loss
+    gc.collect()
+    assert freed() is None
+
+
+def test_split_steps_leave_no_exchange_behind():
+    """A training step with a row split keeps none of its exchanges, nor
+    the tensors they reach, once it has returned."""
+    def live():
+        gc.collect()
+        return sum(isinstance(o, (rows.RowExchange, rows.Rounds))
+                   for o in gc.get_objects())
+
+    step = sharded((1, 2, 1), False, seeded_model(torch.float32))
+    try:
+        before = live()
+        for _ in range(2):
+            step.step(*(x.float() for x in batch_of(1)))
+            assert live() == before
+    finally:
+        step.close()
 
 
 def test_cuda_mesh_without_cuda_raises():
@@ -223,14 +289,17 @@ def split_run(model, tile, full, down, right, count):
 
 # The layers each tile runs on the gathered frame (models/deep3d.py): at
 # tile 2 a shard's 16 down rows pool whole through VggBlock_3 and gather
-# before VggBlock_4's pool, at tile 4 its 8 rows before VggBlock_3's; the
-# global branch always runs gathered.
+# before VggBlock_4's pool, at tile 4 its 8 rows before VggBlock_3's, at
+# tile 8 its 4 rows (4 -> 2 -> 1) before VggBlock_2's; the global branch
+# always runs gathered.
 GATHERED = {2: ("DeconvBranch_4", "FeedForwardBranch_0"),
             4: ("DeconvBranch_3", "VggBlock_4", "DeconvBranch_4",
-                "FeedForwardBranch_0")}
+                "FeedForwardBranch_0"),
+            8: ("DeconvBranch_2", "VggBlock_3", "DeconvBranch_3",
+                "VggBlock_4", "DeconvBranch_4", "FeedForwardBranch_0")}
 
 
-@pytest.mark.parametrize("tile", [2, 4])
+@pytest.mark.parametrize("tile", sorted(GATHERED))
 def test_gathered_levels_sum_their_gradient_over_shards(tile):
     """The levels run on the gathered frame on every shard, their outputs
     narrowed to the shard's rows: each shard's gradient of their
@@ -332,36 +401,38 @@ JAX_CASES = [((2, 1, 2), 4),
              pytest.param((1, 2, 1), 2, marks=pytest.mark.slow)]
 
 
-@pytest.mark.parametrize("mesh,n", JAX_CASES,
-                         ids=lambda v: "".join(map(str, v))
-                         if isinstance(v, tuple) else str(v))
-def test_sharded_step_matches_jax_gspmd_step(mesh, n):
-    """The port's step against JAX's GSPMD value and gradient on the same
-    mesh of virtual devices, with the graft entry's shardings, float32,
-    dropout off.  JAX runs first: its arrays may share memory with the
-    weights, which the port's Adam step then updates in place."""
-    model = seeded_model(torch.float32)
+def jax_value_and_grad(model, left, down, right, mesh=None):
+    """JAX's loss and gradients (flat, Flax names) of ``model``'s weights
+    on the float32 batch, dropout off: under ``jax.jit`` with the graft
+    entry's shardings on ``mesh`` of virtual devices, or unsharded."""
     params = nest(flax_arrays_from_state_dict(model))["params"]
-    left, down, right = (x.float() for x in batch_of(n, seed=3))
     jmodel = JaxDeep3D(deconv_filters=FILTERS)
-    jmesh = jax_make_mesh(JaxMeshConfig(*mesh),
-                          jax.devices()[:int(np.prod(mesh))])
-    batch = NamedSharding(jmesh, P(("data", "disp"), None, "tile", None))
-    replicated = NamedSharding(jmesh, P())
 
     def loss_fn(p, lf, ld, rf):
         pred = jmodel.apply({"params": p}, lf, ld, train=False,
                             method=JaxDeep3D.synthesize_with_probabilities)[0]
         return jnp.abs(pred - rf).mean()
 
-    value_and_grad = jax.jit(jax.value_and_grad(loss_fn),
-                             in_shardings=(replicated, batch, batch, batch))
-    want_loss, want_grads = value_and_grad(
-        params, *(jax.device_put(jnp.asarray(x.numpy()), batch)
-                  for x in (left, down, right)))
-    want_loss = float(want_loss)
-    want_grads = flat({"params": want_grads})
+    xs = [jnp.asarray(x.numpy()) for x in (left, down, right)]
+    if mesh is None:
+        value_and_grad = jax.jit(jax.value_and_grad(loss_fn))
+    else:
+        jmesh = jax_make_mesh(JaxMeshConfig(*mesh),
+                              jax.devices()[:int(np.prod(mesh))])
+        batch = NamedSharding(jmesh, P(("data", "disp"), None, "tile", None))
+        value_and_grad = jax.jit(jax.value_and_grad(loss_fn),
+                                 in_shardings=(NamedSharding(jmesh, P()),
+                                               batch, batch, batch))
+        xs = [jax.device_put(x, batch) for x in xs]
+    loss, grads_ = value_and_grad(params, *xs)
+    return float(loss), flat({"params": grads_})
 
+
+def port_step_against(mesh, n, want_loss, want_grads, model):
+    """The port's step on ``mesh`` from ``model`` on batch ``n`` (seed 3),
+    float32, dropout off, against JAX's loss within rtol 1e-4 and its
+    gradients within 2e-3 of each array's largest entry."""
+    left, down, right = (x.float() for x in batch_of(n, seed=3))
     step = sharded(mesh, False, model)
     try:
         loss = step.step(left, down, right)
@@ -371,3 +442,28 @@ def test_sharded_step_matches_jax_gspmd_step(mesh, n):
         step.close()
     np.testing.assert_allclose(float(loss), want_loss, rtol=1e-4)
     assert_close_rel(got, want_grads, 2e-3, ("sharded deep3d grads", mesh))
+
+
+@pytest.mark.parametrize("mesh,n", JAX_CASES,
+                         ids=lambda v: "".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+def test_sharded_step_matches_jax_gspmd_step(mesh, n):
+    """The port's step against JAX's GSPMD value and gradient on the same
+    mesh of virtual devices, with the graft entry's shardings, float32,
+    dropout off.  JAX runs first: its arrays may share memory with the
+    weights, which the port's Adam step then updates in place."""
+    model = seeded_model(torch.float32)
+    want = jax_value_and_grad(model, *(x.float() for x in batch_of(
+        n, seed=3)), mesh=mesh)
+    port_step_against(mesh, n, *want, model)
+
+
+def test_tile_8_step_matches_jax_unsharded_step():
+    """(1,8,1) at the graft entry's shapes, 4 down rows a shard, against
+    JAX's unsharded value and gradient (a plain ``jax.jit``) at the
+    tolerances of the GSPMD comparison: JAX's GSPMD step on such a mesh
+    is not its own unsharded one (``tests/jax_gspmd_train_check.py``)."""
+    model = seeded_model(torch.float32)
+    want = jax_value_and_grad(model, *(x.float() for x in batch_of(
+        2, seed=3)))
+    port_step_against((1, 8, 1), 2, *want, model)

@@ -22,7 +22,8 @@ seeded gradient of each shard's output rows (``conv2d``, ``gather``,
 an exchange out of step, or a rank whose shard fails, raises on both
 ranks, in the forward and in the backward.  Deep3D's sharded training
 step with its data groups ((2,1,1), (4,1,1)) or its tile groups ((1,2,1),
-(1,4,1), (2,2,1), and (1,4,1) two shards a rank) across the ranks gives,
+(1,4,1), (2,2,1), (1,4,1) two shards a rank, and (1,8,1) two shards a
+rank, 4 down rows a shard) across the ranks gives,
 on every rank, the losses, weights and Adam state of the same mesh in
 one process bit for bit, with every replica identical.  The group is
 joined within a time limit: a hung rank fails the fixture, it does not

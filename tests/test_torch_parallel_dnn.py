@@ -11,8 +11,8 @@ split equals the single device bit for bit on the CPU.  The single view
 splits Deep3D's rows the same way (``parallel/synthesis.py``; its tests in
 ``tests/test_torch_row_split_deep3d.py``): on (2,2,2) it is held to the
 single device at float rounding and JAX's gate, and the frames dealt on
-(1,8,1) bit for bit.  The gates against
-JAX are the JAX tests' own (``tests/test_parallel_dnn.py``,
+(1,8,1) (which splits rows too unless told to deal) bit for bit.  The
+gates against JAX are the JAX tests' own (``tests/test_parallel_dnn.py``,
 ``tests/test_parallel_synthesis.py``).
 """
 
@@ -178,12 +178,13 @@ def test_single_view_matches_jax_and_single_device(small_deep3d):
          for i in range(4)]).numpy())
     assert np.mean(diff <= 0.5) >= 0.99 and diff.mean() < 0.1
 
-    # Whole frames dealt over the tile devices are equal bit for bit: at
-    # (1,8,1) a shard would hold 4 down rows, which the row split refuses.
+    # Whole frames dealt over the tile devices are equal bit for bit.
+    # (1,8,1) splits the 32 down rows (4 a shard) unless told to deal.
     mc8, mesh8 = cpu_mesh(1, 8, 1)
     dealt = ShardedSingleViewEngine(MatchingConfig(**_matching()), mc8,
                                     mesh=mesh8, synthesis=synthesis)
-    assert not dealt.row_split
+    assert dealt.row_split
+    dealt.row_split = False
     dealt_out, dealt_right = dealt.process_batch(left, return_right=True)
     for i in range(4):
         assert torch.equal(dealt_right[i], singles[i])

@@ -113,15 +113,17 @@ GRAD_FUNNELS = ("conv2d", "gather", "halo_own_rows", "upsample_bilinear")
 # the mesh: they take part in the gradients' all-gather and keep a replica.
 # The others split rows over tile groups across ranks: (1,2,1) over ranks
 # 0-1; (1,4,1) over all four, gathering before VggBlock_3's pool; (2,2,1)
-# two groups, over ranks 0-1 and 2-3; and (1,4,1) over ranks 0 and 1, two
+# two groups, over ranks 0-1 and 2-3; (1,4,1) over ranks 0 and 1, two
 # shards each, so a shard has a neighbour in its rank and one across
-# (ranks 2 and 3 hold no entry).
+# (ranks 2 and 3 hold no entry); and (1,8,1) over all four, two shards
+# each, 4 of the 32 down rows a shard, gathering before VggBlock_2's pool.
 TRAIN_CASES = {"train_211": ((2, 1, 1), (1, 1, 1, 1)),
                "train_411": ((4, 1, 1), (1, 1, 1, 1)),
                "train_121": ((1, 2, 1), (1, 1, 1, 1)),
                "train_141": ((1, 4, 1), (1, 1, 1, 1)),
                "train_221": ((2, 2, 1), (1, 1, 1, 1)),
-               "train_141_mixed": ((1, 4, 1), (2, 2, 1, 1))}
+               "train_141_mixed": ((1, 4, 1), (2, 2, 1, 1)),
+               "train_181": ((1, 8, 1), (2, 2, 2, 2))}
 TRAIN_STEPS = 2
 # make_mesh's global order: ranks list 2, 1, 1, 1 entries.
 ORDER_COUNTS = (2, 1, 1, 1)
