@@ -50,6 +50,8 @@ Phases, each ending in one flushed JSON line with its name and seconds
              ``SingleViewEngine`` on the same frames at batch 1 and 2:
              disparities and right views, launches per frame (equal),
              ms/frame of both, device time and busy share, graphs captured;
+             two captures that fail raise, keep no graph and leave
+             ``empty_cache`` able to free the default pool;
    fresh_deep3d: ``RightViewSynthesis()`` with its defaults (fresh weights
              and a warning where the checkout has no ``deep3d.npz``), one
              frame;
@@ -84,7 +86,9 @@ Phases, each ending in one flushed JSON line with its name and seconds
    orbax:    Orbax checkpoints: the committed fixture (JAX's
              ``save_params``: OCDBT, zstd, two chunks of a sharded array)
              read by the port, every leaf against its npz twin bit for
-             bit, and the zstd decoder's MB/s on its 1 MiB array;
+             bit, and its zarr3 twin (``orbax_small_zarr3``, zarr v3
+             ``sharding_indexed`` arrays) against the same npz; the zstd
+             decoder's MB/s on its 1 MiB array;
              GwcNet's committed weights and Deep3D's (committed or
              seeded, as ``make_synthesis`` has them) written by the
              port's ``save_params`` and loaded back by ``checkpoint_dir``:
@@ -134,15 +138,17 @@ Phases, each ending in one flushed JSON line with its name and seconds
    mesh_server: a server on a classical (2,1,1) mesh pipeline,
              micro-batch 2, and ``check_devices`` over the mesh;
    mesh_dnn_rows: GwcNet in float32 and bf16, MSNet2D and MSNet3D
-             (committed weights, disparity 64) on (1,4,1) and (1,2,1), one
-             frame split by rows with a halo exchange per layer, each
-             within 5e-3 px of the single-device backend, with
-             ``gwc_volume`` launched once per shard, each run eagerly and
-             replayed from the split's CUDA graph (equal bit for bit); the
-             halo exchanges and bytes per frame, graphs captured, launches
-             per replay, ms/frame, device ms and busy share of both runs,
-             kernels per frame (``torch.profiler``) and peak memory beside
-             the single device's;
+             (committed weights, disparity 64) on (1,4,1) and (1,2,1), at
+             384x1280 and at 368x1280 (a shard's rows gather ahead of an
+             hourglass's stride), one frame split by rows with a halo
+             exchange per layer, each within 5e-3 px of the
+             single-device backend, with ``gwc_volume`` launched once per
+             shard, each run eagerly and replayed from the split's CUDA
+             graph (equal bit for bit); the halo exchanges (and of
+             them the gathers ahead of a stride) and bytes per frame, graphs captured, launches per
+             replay, ms/frame, device ms and busy share of both runs and
+             of whole frames dealt, kernels per frame (``torch.profiler``)
+             and peak memory beside the single device's;
    mesh_single_view_rows: the single view (Deep3D at 96x320) on (1,2,1),
              (1,4,1), (2,2,1) and (1,8,1) (12 down rows a shard, gathered
              before VggBlock_2's pool), batch 4, Deep3D's rows split over the
@@ -160,7 +166,12 @@ Phases, each ending in one flushed JSON line with its name and seconds
              the largest loss and gradient gaps, replica equality, halo
              rounds forward and backward, ms/step (median), device ms and
              peak memory beside the single device's; no kernel launches
-             (training runs the plain compositions);
+             (training runs the plain compositions); then a ``memory``
+             line after ``train_stereo``, after ``mesh_train``, after
+             a collection (``free_card``) and after cuBLAS's workspaces
+             are freed: the allocator's counters, the bytes by pool and
+             stream, and the segments a live block pins
+             (``memory_line``);
    multiprocess: (run right after ``build``, while the smoke's own
              process holds none of the card's memory) the mesh across
              processes: two ranks spawned on cuda:0,
@@ -170,7 +181,8 @@ Phases, each ending in one flushed JSON line with its name and seconds
              (1,2,1) and (1,4,1) with the ring across the ranks, the
              blockwise path on (1,1,3) with the argmax and the owned gather
              across them, and the single view and GwcNet on (2,2,1) with
-             ``data`` across the ranks; every rank's result equal bit for
+             ``data`` across the ranks, and GwcNet's rows split across
+             the ranks at 384 and 368 rows; every rank's result equal bit for
              bit to the same mesh in one process; ms/frame of both, the
              bytes staged through the host per frame (gloo moves host
              tensors), the launches of both ranks; and Deep3D's training
@@ -201,12 +213,16 @@ phase lines say which.
 
     python3 chip_smoke.py --phases multiprocess synthetic
 
-runs the device and build phases and then only the named phases, with
-their gates (``mesh_single_view_rows``, ``mesh_train``, ``multiprocess``,
-``synthetic``; Deep3D's
+runs the device and build phases and then only the named phases, in
+the order of ``ONLY_PHASES``, with their gates (``multiprocess``,
+``mesh_dnn_rows``, ``orbax``, ``train_stereo``,
+``mesh_single_view_rows``, ``mesh_train``, ``synthetic``; Deep3D's
 committed weights when ``data/checkpoints/deep3d.npz`` is present, which
 the whole smoke's copy may leave out), ending with the ``nvidia-smi``
 line and no kernels line.
+``--memory-history`` (first, before ``--phases`` or alone) records every
+allocation's stack (``torch.cuda.memory._record_memory_history``), so the
+``memory`` lines name the repo's frame that made each live block.
 
     python3 chip_smoke.py --compare NAME=DIR [NAME=DIR ...]
 
@@ -247,6 +263,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 
@@ -257,6 +274,8 @@ DEEP3D_NPZ = os.path.join(ROOT, "data", "checkpoints", "deep3d.npz")
 # JAX's save_params of a seeded tree, and its npz twin beside it
 # (tests/fixtures/make_orbax_fixture.py).
 ORBAX_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "orbax_small")
+# The same tree written with ``use_zarr3=True`` (zarr v3 arrays).
+ORBAX_ZARR3_FIXTURE = ORBAX_FIXTURE + "_zarr3"
 # The committed KITTI fixture drive: two 375x1242 frames per camera, each
 # PNG Paeth-filtered as image libraries write them, and Velodyne scans.
 FIXTURE_DRIVE = os.path.join(ROOT, "tests", "fixtures", "kitti", "2011_09_26",
@@ -999,7 +1018,11 @@ def check_capture_failure(torch, matching, synthesis, frames) -> dict:
     (nothing runs eagerly in its place) and leaves the thread on its
     stream: once with an exception raised inside the capture, once with a
     device synchronization, which CUDA refuses while the stream captures
-    (the capture then fails to end)."""
+    (the capture then fails to end).  The same engine then captures once
+    the failure is gone (PyTorch refuses a capture into a pool after a
+    failed one: ``GraphPool`` takes a new pool).  Afterwards the
+    allocator records into no graph's pool: ``empty_cache`` gives a freed
+    1 GiB block back to the card."""
     from stereo_tpu_torch.pipeline.single_view import FusedSingleViewEngine
 
     results = {}
@@ -1027,7 +1050,21 @@ def check_capture_failure(torch, matching, synthesis, frames) -> dict:
         require(torch.cuda.current_stream() == stream,
                 f"a failed capture ({label}) left the thread on another "
                 f"stream")
+        engine._net = net
+        engine.process_batch(frames)
+        require(engine.graphs_captured == 2,
+                f"after a failed capture ({label}) the engine captured "
+                f"{engine.graphs_captured} graphs")
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    block = torch.empty(1 << 30, dtype=torch.uint8, device=stream.device)
+    del block
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    results["reserved_bytes_around_a_freed_GiB"] = [before, after]
+    require(after <= before, f"after the failed captures empty_cache kept "
+                             f"{after - before} bytes of a freed block")
     return results
 
 
@@ -1071,23 +1108,19 @@ def fixture_leaves(tree) -> dict:
             for sub, leaf in fixture_leaves(v).items()}
 
 
-def check_orbax_fixture(torch) -> dict:
-    """The committed fixture (JAX's ``save_params``: OCDBT, zstd, a sharded
-    array in two chunks, 1 MiB across eight 128 KiB zstd blocks) read by
-    the port, every leaf against its npz twin bit for bit; and the port's
-    zstd decoder's rate on the large array's chunk."""
-    from stereo_tpu_torch import _native
-    from stereo_tpu_torch.utils.ocdbt import OcdbtStore
+def read_fixture(torch, root: str) -> tuple:
+    """An Orbax fixture tree read by the port, every leaf held to the npz
+    twin bit for bit: ``(leaves, read ms)``."""
     from stereo_tpu_torch.utils.orbax import read_tree
 
     t0 = time.perf_counter()
-    got = fixture_leaves(read_tree(ORBAX_FIXTURE))
+    got = fixture_leaves(read_tree(root))
     read_ms = (time.perf_counter() - t0) * 1e3
     with np.load(ORBAX_FIXTURE + ".npz") as data:
         bf16 = set(data["__bfloat16__"].tolist())
         twin = {k: data[k] for k in data.files if k != "__bfloat16__"}
     require(set(got) == set(twin),
-            f"fixture leaves {sorted(got)} != twin {sorted(twin)}")
+            f"{root}: leaves {sorted(got)} != twin {sorted(twin)}")
     for key, want in twin.items():
         leaf = got[key]
         if key in bf16:
@@ -1096,7 +1129,21 @@ def check_orbax_fixture(torch) -> dict:
         leaf = np.asarray(leaf)
         require(leaf.dtype == want.dtype and leaf.shape == want.shape
                 and np.array_equal(leaf, want),
-                f"fixture leaf {key} differs from its twin")
+                f"{root}: leaf {key} differs from its twin")
+    return got, read_ms
+
+
+def check_orbax_fixture(torch) -> dict:
+    """The committed fixtures read by the port, every leaf against their
+    npz twin bit for bit: JAX's ``save_params``'s (OCDBT, zarr v2, zstd, a
+    sharded array in two chunks, 1 MiB across eight 128 KiB zstd blocks)
+    and the same tree written as zarr3 (``sharding_indexed`` arrays); and
+    the port's zstd decoder's rate on the large array's chunk."""
+    from stereo_tpu_torch import _native
+    from stereo_tpu_torch.utils.ocdbt import OcdbtStore
+
+    got, read_ms = read_fixture(torch, ORBAX_FIXTURE)
+    zarr3, zarr3_read_ms = read_fixture(torch, ORBAX_ZARR3_FIXTURE)
     chunk = OcdbtStore(ORBAX_FIXTURE)["smooth/0"]
     decoded = _native.zstd_decompress(chunk)
     reps = 20
@@ -1104,8 +1151,9 @@ def check_orbax_fixture(torch) -> dict:
     for _ in range(reps):
         _native.zstd_decompress(chunk)
     seconds = (time.perf_counter() - t0) / reps
-    return dict(leaves=len(got), read_ms=read_ms,
-                zstd_frame_bytes=len(chunk), zstd_decoded_bytes=len(decoded),
+    return dict(leaves=len(got), read_ms=read_ms, zarr3_leaves=len(zarr3),
+                zarr3_read_ms=zarr3_read_ms, zstd_frame_bytes=len(chunk),
+                zstd_decoded_bytes=len(decoded),
                 zstd_decode_mb_per_s=len(decoded) / seconds / 1e6)
 
 
@@ -2866,106 +2914,133 @@ def split_timings(torch, run, reps: int = 5) -> dict:
                 busy_share=device / ms)
 
 
+# The heights of ``mesh_dnn_rows``: KITTI's 384 rows (16 divide a shard's
+# rows at tile 2 and 4: every level splits) and 368 (16 x 23, the old rule
+# dealt whole frames there): 184 rows a shard at tile 2, whose hourglasses
+# gather ahead of their second stride, and 92 at tile 4, ahead of their
+# first.
+ROW_SPLIT_HEIGHTS = (384, 368)
+
+
 def phase_mesh_dnn_rows(torch, dev, config):
-    """Each of ``ROW_SPLIT_NETS`` at ``config``'s shape on virtual meshes
-    (1,4,1) and (1,2,1), one frame (the synthetic KITTI pair) through the
+    """Each of ``ROW_SPLIT_NETS`` at each of ``ROW_SPLIT_HEIGHTS`` x
+    ``config``'s width on virtual meshes (1,4,1) and (1,2,1), one frame
+    (the synthetic KITTI pair, cropped to the height) through the
     pipeline's ``process_batch`` and ``process``: the frame's rows split
     over the tile devices, with a halo exchange at each row-mixing layer
-    (``ops.rows``), run both eagerly (the shard threads launching) and
-    replayed from the split's CUDA graph (``ShardThreads.replay``).  The
-    replay must equal the eager split bit for bit, each must be within
-    5e-3 px of the single-device backend, and GwcNet must launch
-    ``gwc_volume`` once per shard in a replay.  Returns the launch counts
-    of the replays summed over the cases, the numbers (row_split, graphs
-    captured, launches per replay, halo exchanges and bytes per frame,
-    ms/frame, device ms and busy share of both runs, a profile of each
-    and peak memory beside the single device's) and the cases that failed
-    a gate, so that every case is reported before the phase fails."""
+    and a gather ahead of a stride that would split a row (``ops.rows``),
+    run eagerly (the shard threads launching), replayed from the split's
+    CUDA graph (``ShardThreads.replay``) and, for the record, dealt whole
+    (``row_split = False``).  The replay must equal the eager split bit
+    for bit, each must be within 5e-3 px of the single-device backend,
+    and GwcNet must launch ``gwc_volume`` ``tile`` times in a replay
+    (once per shard).  Returns the launch counts of the replays summed
+    over the cases, the numbers (row_split, the gathers ahead of a
+    stride, graphs captured, launches per replay, halo exchanges and bytes
+    per frame, ms/frame, device ms and busy share of the replayed, eager
+    and dealt runs, a profile of the first two and peak memory beside the
+    single device's) and the cases that failed a gate, so that every
+    case is reported before the phase fails."""
     from stereo_tpu_torch.core.config import MeshConfig
     from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
     from stereo_tpu_torch.pipeline import (DepthEstimationPipeline,
                                            DnnStereoMatchingBackend)
 
-    shape = tuple(config.image_shape)
-    left, right = (torch.from_numpy(x).to(dev)[None] for x in kitti_pair())
+    width = config.image_shape[1]
+    pair = [torch.from_numpy(x).to(dev)[None] for x in kitti_pair()]
     totals = {k: 0 for k in LAUNCHES}
     cases, failed = [], []
-    for name, dtype in ROW_SPLIT_NETS:
-        single = DnnStereoMatchingBackend(name, shape, max_disparity=64,
-                                          compute_dtype=dtype, device=dev)
-        want = single.process_batch(left, right)
-        single_ms = frame_ms(torch, lambda: single.process_batch(left, right),
-                             5)
-        single_profile = brief_profile(torch, lambda: single.process_batch(
-            left, right))
-        single_peak = peak_bytes(torch,
-                                 lambda: single.process_batch(left, right))
-        for tile in (4, 2):
-            mc = MeshConfig(tile=tile)
-            pipeline = DepthEstimationPipeline(
-                config.replace(stereo_matching_backend=name,
-                               compute_dtype=dtype, max_disparity=64,
-                               mesh=mc),
-                device=dev, mesh_devices=virtual_mesh(torch, tile))
-            engine = pipeline.stereo_matching.engine
+    for height in ROW_SPLIT_HEIGHTS:
+        left, right = (x[..., :height, :].contiguous() for x in pair)
+        shape = (height, width)
+        for name, dtype in ROW_SPLIT_NETS:
+            single = DnnStereoMatchingBackend(name, shape, max_disparity=64,
+                                              compute_dtype=dtype, device=dev)
+            want = single.process_batch(left, right)
+            single_ms = frame_ms(torch, lambda: single.process_batch(
+                left, right), 5)
+            single_profile = brief_profile(torch, lambda: single.process_batch(
+                left, right))
+            single_peak = peak_bytes(torch,
+                                     lambda: single.process_batch(left, right))
+            for tile in (4, 2):
+                mc = MeshConfig(tile=tile)
+                pipeline = DepthEstimationPipeline(
+                    config.replace(image_shape=shape,
+                                   stereo_matching_backend=name,
+                                   compute_dtype=dtype, max_disparity=64,
+                                   mesh=mc),
+                    device=dev, mesh_devices=virtual_mesh(torch, tile))
+                engine = pipeline.stereo_matching.engine
 
-            def run():
-                return pipeline.process_batch(left, right).disparity_map
+                def run():
+                    return pipeline.process_batch(left, right).disparity_map
 
-            # Eager: every shard thread launches its network.
-            engine.graph_splits = False
-            reset_launch_counts()
-            eager = run()
-            torch.cuda.synchronize()
-            eager_counts = dict(LAUNCHES)
-            eager_numbers = split_timings(torch, run)
-            eager_profile = brief_profile(torch, run)
-            # Replayed: the first call runs eagerly and captures the
-            # split; the counted call replays it.
-            engine.graph_splits = True
-            run()
-            reset_launch_counts()
-            got = run()
-            torch.cuda.synchronize()
-            counts = dict(LAUNCHES)
-            for k, v in counts.items():
-                totals[k] += v
-            one = pipeline.process(left[0], right[0]).disparity_map
-            diff = float((got - want).abs().max())
-            diff_one = float((one - want[0]).abs().max())
-            gwc_wanted = tile if name == "gwcnet" else 0
-            case = dict(
-                network=name, dtype=dtype, mesh=[1, tile, 1],
-                weights=engine.weights, row_split=engine.row_split,
-                graph_splits=engine.graph_splits,
-                graphs_captured=engine.graphs_captured,
-                launches_per_replay=counts,
-                replay_equals_eager=bool(torch.equal(got, eager)),
-                gwc_volume_launches=counts["gwc_volume"],
-                eager_launches=eager_counts,
-                halo_rounds_per_frame=engine.halo["rounds"],
-                halo_bytes_per_frame=engine.halo["bytes"],
-                max_abs_diff=diff, mean_abs_diff=float(
-                    (got - want).abs().mean()),
-                equal=bool(torch.equal(got, want)),
-                process_max_abs_diff=diff_one,
-                finite=bool(torch.isfinite(got).all()),
-                **split_timings(torch, run),
-                profile=brief_profile(torch, run),
-                eager=dict(eager_numbers, profile=eager_profile),
-                single_ms_per_frame_median=statistics.median(single_ms),
-                single_profile=single_profile,
-                max_memory_allocated_bytes=peak_bytes(torch, run),
-                single_max_memory_allocated_bytes=single_peak)
-            if not (case["row_split"] and case["finite"] and diff <= 5e-3
-                    and diff_one <= 5e-3 and case["replay_equals_eager"]
-                    and engine.graphs_captured >= 1
-                    and counts["gwc_volume"] == gwc_wanted):
-                failed.append(f"{name} {dtype} (1,{tile},1)")
-            cases.append(case)
-            del pipeline, engine
-        del single
-        torch.cuda.empty_cache()
+                # Dealt: the whole frame on the group's first device.
+                engine.row_split = False
+                dealt = run()
+                dealt_numbers = split_timings(torch, run)
+                engine.row_split = True
+                # Eager: every shard thread launches its network.
+                engine.graph_splits = False
+                reset_launch_counts()
+                eager = run()
+                torch.cuda.synchronize()
+                eager_counts = dict(LAUNCHES)
+                eager_numbers = split_timings(torch, run)
+                eager_profile = brief_profile(torch, run)
+                # Replayed: the first call runs eagerly and captures the
+                # split; the counted call replays it.
+                engine.graph_splits = True
+                run()
+                reset_launch_counts()
+                got = run()
+                torch.cuda.synchronize()
+                counts = dict(LAUNCHES)
+                for k, v in counts.items():
+                    totals[k] += v
+                one = pipeline.process(left[0], right[0]).disparity_map
+                diff = float((got - want).abs().max())
+                diff_one = float((one - want[0]).abs().max())
+                gwc_wanted = tile if name == "gwcnet" else 0
+                case = dict(
+                    network=name, dtype=dtype, shape=list(shape),
+                    mesh=[1, tile, 1], weights=engine.weights,
+                    row_split=engine.row_split,
+                    graph_splits=engine.graph_splits,
+                    graphs_captured=engine.graphs_captured,
+                    launches_per_replay=counts,
+                    replay_equals_eager=bool(torch.equal(got, eager)),
+                    gwc_volume_launches=counts["gwc_volume"],
+                    eager_launches=eager_counts,
+                    halo_rounds_per_frame=engine.halo["rounds"],
+                    gather_rounds_per_frame=engine.halo["gather_rounds"],
+                    halo_bytes_per_frame=engine.halo["bytes"],
+                    max_abs_diff=diff, mean_abs_diff=float(
+                        (got - want).abs().mean()),
+                    equal=bool(torch.equal(got, want)),
+                    process_max_abs_diff=diff_one,
+                    finite=bool(torch.isfinite(got).all()),
+                    **split_timings(torch, run),
+                    profile=brief_profile(torch, run),
+                    eager=dict(eager_numbers, profile=eager_profile),
+                    dealt=dict(dealt_numbers, max_abs_diff=float(
+                        (dealt - want).abs().max())),
+                    single_ms_per_frame_median=statistics.median(single_ms),
+                    single_profile=single_profile,
+                    max_memory_allocated_bytes=peak_bytes(torch, run),
+                    single_max_memory_allocated_bytes=single_peak)
+                if not (case["row_split"] and case["finite"]
+                        and diff <= 5e-3 and diff_one <= 5e-3
+                        and case["replay_equals_eager"]
+                        and engine.graphs_captured >= 1
+                        and counts["gwc_volume"] == gwc_wanted):
+                    failed.append(f"{name} {dtype} {height}x{width} "
+                                  f"(1,{tile},1)")
+                cases.append(case)
+                del pipeline, engine
+            del single
+            torch.cuda.empty_cache()
     return totals, dict(mesh="virtual: cuda:0 named n times", cases=cases), \
         failed
 
@@ -3090,6 +3165,67 @@ MESH_TRAIN_STEPS = 3
 # printed beside them.
 MESH_TRAIN_LOSS_RTOL = 1e-4
 MESH_TRAIN_GRAD_NORM_RTOL = 1e-2
+
+
+# The allocator's counters printed by ``memory_line``.
+MEMORY_STATS = ("reserved_bytes.all.current", "allocated_bytes.all.current",
+                "active_bytes.all.current",
+                "inactive_split_bytes.all.current", "segment.all.current")
+
+
+def port_frame(block: dict) -> Optional[str]:
+    """The innermost frame of the repo's code in a block's allocation
+    stack (recorded under ``--memory-history``), as ``file:line name``."""
+    for frame in block.get("frames") or ():
+        name = frame.get("filename", "")
+        if name.startswith(ROOT) and "/torch/" not in name:
+            return (f"{os.path.relpath(name, ROOT)}:{frame.get('line')} "
+                    f"{frame.get('name')}")
+    return None
+
+
+def memory_line(torch, after: str, top: int = 40) -> None:
+    """One line on what holds the card after ``after``: the allocator's
+    ``MEMORY_STATS``; from ``torch.cuda.memory_snapshot()`` the bytes of
+    every segment by memory pool ((0, 0) the default one, others a CUDA
+    graph's) and by stream, and the segments that still hold a live block
+    (the largest ``top`` of them: stream, size, pool, the live blocks'
+    sizes and, where the allocations were recorded, the frame of the repo
+    that made each), with their bytes by pool.  A graph's pool keeps its
+    segments, live block or not, while the graph lives."""
+    stats = torch.cuda.memory_stats()
+    pinned, by_pool, reserved, by_stream = [], {}, {}, {}
+    for seg in torch.cuda.memory_snapshot():
+        pool = str(tuple(seg.get("segment_pool_id", ())))
+        reserved[pool] = reserved.get(pool, 0) + seg["total_size"]
+        by_stream[seg["stream"]] = (by_stream.get(seg["stream"], 0)
+                                    + seg["total_size"])
+        live = [b for b in seg["blocks"] if b["state"].startswith("active")]
+        if not live:
+            continue
+        by_pool[pool] = by_pool.get(pool, 0) + seg["total_size"]
+        pinned.append(dict(
+            stream=seg["stream"], size=seg["total_size"], pool=pool,
+            live=[b["size"] for b in live],
+            frames=sorted({port_frame(b) or "?" for b in live})))
+    pinned.sort(key=lambda seg: -seg["size"])
+    print(json.dumps({"phase": "memory", "after": after,
+                      **{k: stats.get(k, 0) for k in MEMORY_STATS},
+                      "reserved_bytes_by_pool": reserved,
+                      "reserved_bytes_by_stream": by_stream,
+                      "pinned_segments": len(pinned),
+                      "pinned_bytes_by_pool": by_pool,
+                      "largest_pinned": pinned[:top]}), flush=True)
+
+
+def clear_cublas_workspaces(torch) -> None:
+    """Free cuBLAS's workspaces (one per handle and stream, made on the
+    first cuBLAS call of each and kept by PyTorch), then the cache: for
+    the last ``memory`` line, which tells the segments they pin apart."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
 
 
 def free_card(torch) -> None:
@@ -3249,7 +3385,12 @@ MULTIPROCESS_CASES = (
     ("gwcnet_rows_121", "gwcnet", (1, 2, 1), (1, 1)),
     ("single_view_rows_121", "single_view", (1, 2, 1), (1, 1)),
     ("single_view_rows_141", "single_view", (1, 4, 1), (2, 2)),
+    ("gwcnet_rows_121_h368", "gwcnet", (1, 2, 1), (1, 1)),
 )
+# The cases at another height than KITTI's 384 rows: GwcNet's split across
+# the ranks at 368 rows (184 a shard: the hourglasses gather across the
+# ranks ahead of their second stride), which the old rule dealt whole.
+MULTIPROCESS_HEIGHTS = {"gwcnet_rows_121_h368": 368}
 MULTIPROCESS_RANKS = 2
 # Deep3D's training step in ``multiprocess``: ``data`` across the two
 # ranks, one entry each.
@@ -3334,10 +3475,11 @@ def multiprocess_train(torch, dev, synthesis, mesh) -> dict:
     return numbers
 
 
-def multiprocess_case(torch, kind, mc, mesh, synthesis, dev):
-    """The engine of one case on ``mesh`` and its inputs at 384x1280: a
-    call returning its outputs as a tuple, the frames per call, the path
-    taken (the kernel path or the row split) and the engine."""
+def multiprocess_case(torch, kind, mc, mesh, synthesis, dev, height=384):
+    """The engine of one case on ``mesh`` and its inputs at 384x1280 (a
+    network's at ``height`` x 1280): a call returning its outputs as a
+    tuple, the frames per call, the path taken (the kernel path or the
+    row split) and the engine."""
     from stereo_tpu_torch.core.config import PipelineConfig
     from stereo_tpu_torch.parallel import (ShardedClassicalEngine,
                                            ShardedDnnEngine,
@@ -3357,7 +3499,8 @@ def multiprocess_case(torch, kind, mc, mesh, synthesis, dev):
                                          synthesis=synthesis)
         return (lambda: engine.process_batch(left, return_right=True), n,
                 engine.row_split, engine)
-    engine = ShardedDnnEngine("gwcnet", (384, 1280), mc, mesh=mesh,
+    left = left[..., :height, :].contiguous()
+    engine = ShardedDnnEngine("gwcnet", (height, 1280), mc, mesh=mesh,
                               max_disparity=64)
     right = torch.roll(left, -7, dims=-1)
     return (lambda: (engine.process_batch(left, right),), n,
@@ -3407,8 +3550,9 @@ def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
         for label, kind, shape, entries in MULTIPROCESS_CASES:
             mc = MeshConfig(*shape)
             mesh = make_mesh(mc, [dev] * entries[rank])
-            run, n, path, engine = multiprocess_case(torch, kind, mc, mesh,
-                                                     synthesis, dev)
+            run, n, path, engine = multiprocess_case(
+                torch, kind, mc, mesh, synthesis, dev,
+                MULTIPROCESS_HEIGHTS.get(label, 384))
             run()       # a row split captures its CUDA graph here
             dist.barrier()
             torch.cuda.synchronize()
@@ -3447,7 +3591,7 @@ def multiprocess_rank(rank: int, world: int, init: str, out: str) -> None:
                 grid[:] = [dev] * mc.num_devices
                 run, n, _, engine = multiprocess_case(
                     torch, kind, mc, Mesh(grid.reshape(shape)), synthesis,
-                    dev)
+                    dev, MULTIPROCESS_HEIGHTS.get(label, 384))
                 run()
                 maps[label] = [x.cpu() for x in run()]
                 halos[label] = getattr(engine, "halo", None)
@@ -3773,6 +3917,7 @@ def main() -> int:
                 max_memory_allocated_bytes=numbers[
                     "max_memory_allocated_bytes"])
             torch.cuda.empty_cache()
+        memory_line(torch, "train_stereo")
         training["train_stereo_kitti2015"] = {
             k: numbers["kitti2015"][k] for k in ("epoch_s",
                                                  "max_memory_allocated_bytes")}
@@ -3841,6 +3986,11 @@ def main() -> int:
     numbers = phase_mesh_train(torch, dev, synthesis, deep3d_weights)
     counts["mesh_train"] = numbers["launches"]
     report("mesh_train", t, **numbers)
+    memory_line(torch, "mesh_train")
+    free_card(torch)
+    memory_line(torch, "free_card")
+    clear_cublas_workspaces(torch)
+    memory_line(torch, "cublas_workspaces_cleared")
     counts["multiprocess"] = multiprocess_counts
     require(not failed, f"mesh_dnn_rows failed its gates: {failed}")
     require(not failed_sv,
@@ -4050,6 +4200,11 @@ def compare_gwc(torch, libs, dev) -> None:
                ms=times, order=order)
 
 
+# What ``--phases`` runs, in this order.
+ONLY_PHASES = ("multiprocess", "mesh_dnn_rows", "orbax", "train_stereo",
+               "mesh_single_view_rows", "mesh_train", "synthetic")
+
+
 def only(names) -> int:
     """``--phases``: see the module's docstring."""
     import tempfile
@@ -4059,10 +4214,8 @@ def only(names) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    require(set(names) <= {"mesh_single_view_rows", "mesh_train",
-                           "multiprocess", "synthetic"},
-            f"--phases takes mesh_single_view_rows, mesh_train, "
-            f"multiprocess and synthetic, not {names}")
+    require(set(names) <= set(ONLY_PHASES),
+            f"--phases takes {', '.join(ONLY_PHASES)}, not {names}")
     sys.path.insert(0, ROOT)
     from stereo_tpu_torch.ops.cuda import build
 
@@ -4075,6 +4228,38 @@ def only(names) -> int:
     t = time.perf_counter()
     build.library()
     report("build", t, nvcc_seconds=round(build.build_seconds, 3))
+    if "multiprocess" in names:
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            counts, numbers = phase_multiprocess(
+                torch, os.path.join(tmp, "multiprocess"))
+            report("multiprocess", t, launches=counts, **numbers)
+    if "mesh_dnn_rows" in names:
+        from stereo_tpu_torch.core.config import PipelineConfig
+
+        t = time.perf_counter()
+        counts, numbers, failed = phase_mesh_dnn_rows(torch, dev,
+                                                      PipelineConfig())
+        report("mesh_dnn_rows", t, launches=counts, **numbers)
+        require(not failed, f"mesh_dnn_rows failed its gates: {failed}")
+    if "orbax" in names:
+        synthesis, deep3d_weights = make_synthesis(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            counts, numbers = phase_orbax(torch, dev, synthesis,
+                                          deep3d_weights,
+                                          os.path.join(tmp, "orbax"))
+            report("orbax", t, launches=counts, **numbers)
+        del synthesis
+        torch.cuda.empty_cache()
+    if "train_stereo" in names:
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            counts, numbers = phase_train_stereo(
+                torch, dev, os.path.join(tmp, "train_stereo"))
+            report("train_stereo", t, **numbers)
+        torch.cuda.empty_cache()
+        memory_line(torch, "train_stereo")
     if "mesh_single_view_rows" in names:
         from stereo_tpu_torch.core.config import PipelineConfig
 
@@ -4093,14 +4278,13 @@ def only(names) -> int:
         t = time.perf_counter()
         report("mesh_train", t, **phase_mesh_train(torch, dev, synthesis,
                                                    deep3d_weights))
+        memory_line(torch, "mesh_train")
+        free_card(torch)
+        memory_line(torch, "free_card")
+        clear_cublas_workspaces(torch)
+        memory_line(torch, "cublas_workspaces_cleared")
         del synthesis
         torch.cuda.empty_cache()
-    if "multiprocess" in names:
-        with tempfile.TemporaryDirectory() as tmp:
-            t = time.perf_counter()
-            counts, numbers = phase_multiprocess(
-                torch, os.path.join(tmp, "multiprocess"))
-            report("multiprocess", t, launches=counts, **numbers)
     if "synthetic" in names:
         synthesis, deep3d_weights = make_synthesis(dev)
         t = time.perf_counter()
@@ -4164,6 +4348,12 @@ def compare(specs) -> int:
 
 
 if __name__ == "__main__":
+    if "--memory-history" in sys.argv:
+        # Every allocation's Python stack, for ``memory_line``'s frames.
+        import torch
+
+        sys.argv.remove("--memory-history")
+        torch.cuda.memory._record_memory_history(max_entries=200000)
     if len(sys.argv) > 2 and sys.argv[1] == "--compare":
         sys.exit(compare(sys.argv[2:]))
     if len(sys.argv) > 2 and sys.argv[1] == "--phases":

@@ -10,16 +10,31 @@ Training mode builds it with the differentiable composition the JAX model
 runs at all times (``gwc_volume_plain``) and returns the four classifiers'
 regressions, each a full trilinear upsample, a softmax over D and the
 expectation (``gwcnet_loss`` weighs them 0.5/0.5/0.7/1.0).
+
+Inside a row split (``parallel.dnn``) a shard of any whole number of rows
+runs the network on its rows, the row-mixing layers reading their halo
+rows from the neighbouring shards (``ops.rows``).  The strides (two in
+the feature extractor, down to 1/4, two in each hourglass, down to 1/16)
+each need an even number of rows in a shard: before a stride that would
+split a row, or leave the 1/4 level fewer rows than its dilated blocks'
+halo of two, the shard gathers the whole frame's rows and runs on them
+(``ops.rows.Descent``).  Gathered in the feature extractor (4 does not
+divide a shard's rows, or a shard holds 4), the rest of the network runs on the whole frame,
+the volume included, and the disparities are narrowed to the shard's
+rows.  Gathered in an hourglass, the deconvolution whose output meets a
+skip of the shard's rows is narrowed before the addition, and the
+hourglass ends on the shard's rows at 1/4.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import rows
 from ..ops.cuda import gwc_volume_plain
 from .cost_volumes import (build_gwc_volume, masked_huber_loss,
                            regress_full, upsampled_soft_argmin)
@@ -47,13 +62,23 @@ class GwcFeatureExtractor(nn.Module):
             self.add_module(f"BasicResBlock_{i}",
                             BasicResBlock(cin, cout, stride, dilation))
         self.num_blocks = len(specs)
+        # The deepest halo at 1/4, from the strided block on: a block of
+        # dilation d reads d rows of each neighbouring shard.
+        first = [spec[2] for spec in specs].index(2)
+        self.quarter_halo = max(spec[3] for spec in specs[first:])
         self.layer2_end = 3 + layer2_blocks          # blocks [3, layer2_end)
 
-    def forward(self, x):
-        x = self.ConvBnAct_2(self.ConvBnAct_1(self.ConvBnAct_0(x)))
+    def forward(self, x, descent: Optional[rows.Descent] = None):
+        """``descent`` gathers the rows ahead of each stride inside a row
+        split (None: no gather)."""
+        stride = (descent.stride if descent is not None
+                  else lambda x, depth=1: x)
+        x = self.ConvBnAct_2(self.ConvBnAct_1(self.ConvBnAct_0(stride(x))))
         outs = []
         for i in range(self.num_blocks):
-            x = getattr(self, f"BasicResBlock_{i}")(x)
+            block = getattr(self, f"BasicResBlock_{i}")
+            x = block(stride(x, depth=self.quarter_halo)
+                      if block.stride == 2 else x)
             if i in (self.layer2_end - 1, self.layer2_end + 2,
                      self.layer2_end + 5):
                 outs.append(x)
@@ -74,10 +99,11 @@ class Hourglass3D(nn.Module):
         self.DeconvBn_1 = DeconvBn(2 * c, c, rank=3)
 
     def forward(self, x):
-        c2 = self.ConvBnAct_1(self.ConvBnAct_0(x))
-        c4 = self.ConvBnAct_3(self.ConvBnAct_2(F.relu(c2)))
-        up1 = F.relu(self.DeconvBn_0(c4) + c2)
-        return F.relu(self.DeconvBn_1(up1) + x)
+        with rows.Descent() as d:
+            c2 = self.ConvBnAct_1(self.ConvBnAct_0(d.stride(x)))
+            c4 = self.ConvBnAct_3(self.ConvBnAct_2(d.stride(F.relu(c2))))
+            up1 = F.relu(d.join(self.DeconvBn_0(c4), c2) + c2)
+            return F.relu(d.join(self.DeconvBn_1(up1), x) + x)
 
 
 class Classifier3D(nn.Module):
@@ -113,10 +139,15 @@ class GwcNet(nn.Module):
             self.add_module(f"Hourglass3D_{i}", Hourglass3D(32))
 
     def forward(self, left, right):
-        n, _, height, width = left.shape
-        out_dhw = (self.max_disparity, height, width)
+        with rows.Descent() as descent:
+            return descent.rejoin(self._forward(left, right, descent))
+
+    def _forward(self, left, right, descent):
+        n = left.shape[0]
         # One application over the stacked pair (shared weights).
-        both = self.GwcFeatureExtractor_0(torch.cat([left, right], dim=0))
+        both = self.GwcFeatureExtractor_0(torch.cat([left, right], dim=0),
+                                          descent)
+        out_dhw = (self.max_disparity, descent.height(left), left.shape[-1])
         build = gwc_volume_plain if self.training else build_gwc_volume
         volume = build(both[:n].contiguous(), both[n:].contiguous(),
                        self.max_disparity // 4, self.num_groups)

@@ -212,6 +212,7 @@ class BasicResBlock(nn.Module):
     def __init__(self, in_channels: int, features: int, stride: int = 1,
                  dilation: int = 1):
         super().__init__()
+        self.stride = stride
         self.ConvBnAct_0 = ConvBnAct(in_channels, features, (3, 3), stride,
                                      dilation)
         self.ConvBnAct_1 = ConvBnAct(features, features, (3, 3), 1, dilation,
@@ -256,6 +257,7 @@ class _MobileV2Block(nn.Module):
                  stride: int = 1, expansion: int = 2, dilation: int = 1):
         super().__init__()
         hidden = in_channels * expansion
+        self.stride = stride
         self.residual = stride == 1 and in_channels == features
         self.Conv_0 = Conv(in_channels, hidden, (1,) * rank)
         self.BatchNorm_0 = BatchNorm(hidden)

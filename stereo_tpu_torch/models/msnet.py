@@ -10,16 +10,28 @@ aggregates in 3-D inverted-residual blocks.  The mode is
 the streaming soft-argmin; training mode returns the three heads'
 regressions (full trilinear upsample, softmax over D, expectation), which
 ``msnet_loss`` weighs 0.5/0.7/1.0.
+
+Inside a row split (``parallel.dnn``) a shard of any whole number of rows
+runs the network on its rows, as GwcNet's do (``models/gwcnet.py``): the
+row-mixing layers read their halo rows from the neighbouring shards, and
+before a stride that would split a row (two in the feature extractor,
+two in each hourglass, 2-D or 3-D), or leave the 1/4 level fewer rows
+than its dilated blocks' halo of two, the shard gathers the whole
+frame's rows (``ops.rows.Descent``).  Gathered in the feature extractor, the rest
+runs on the whole frame and the disparities are narrowed to the shard's
+rows; gathered in an hourglass, the deconvolution whose output meets a
+skip of the shard's rows is narrowed before the addition.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import rows
 from .cost_volumes import (build_concat_volume, interlace, masked_huber_loss,
                            regress_full, upsampled_soft_argmin)
 from .layers import (Conv, ConvBnAct, DeconvBn, MobileV2Block2D,
@@ -45,12 +57,22 @@ class MobileFeatureExtractor(nn.Module):
             self.add_module(f"MobileV2Block2D_{i}", MobileV2Block2D(
                 cin, cout, stride, dilation=dilation))
         self.num_blocks = len(specs)
+        # The deepest halo at 1/4, from the strided block on: a block of
+        # dilation d reads d rows of each neighbouring shard.
+        first = [spec[2] for spec in specs].index(2)
+        self.quarter_halo = max(spec[3] for spec in specs[first:])
 
-    def forward(self, x):
-        x = self.SeparableConvBn2D_0(self.ConvBnAct_0(x))
+    def forward(self, x, descent: Optional[rows.Descent] = None):
+        """``descent`` gathers the rows ahead of each stride inside a row
+        split (None: no gather)."""
+        stride = (descent.stride if descent is not None
+                  else lambda x, depth=1: x)
+        x = self.SeparableConvBn2D_0(self.ConvBnAct_0(stride(x)))
         outs = []
         for i in range(self.num_blocks):
-            x = getattr(self, f"MobileV2Block2D_{i}")(x)
+            block = getattr(self, f"MobileV2Block2D_{i}")
+            x = block(stride(x, depth=self.quarter_halo)
+                      if block.stride == 2 else x)
             if i in (8, 11, 14):
                 outs.append(x)
         return torch.cat(outs, dim=1)                # 64 + 128 + 128
@@ -109,10 +131,13 @@ class Hourglass2D(nn.Module):
         self.DeconvBn_1 = DeconvBn(2 * c, c, rank=2)
 
     def forward(self, x):
-        c2 = self.SeparableConvBn2D_1(self.SeparableConvBn2D_0(x))
-        c4 = self.SeparableConvBn2D_3(self.SeparableConvBn2D_2(F.relu(c2)))
-        up1 = F.relu(self.DeconvBn_0(c4) + c2)
-        return F.relu(self.DeconvBn_1(up1) + x)
+        with rows.Descent() as d:
+            c2 = self.SeparableConvBn2D_1(self.SeparableConvBn2D_0(
+                d.stride(x)))
+            c4 = self.SeparableConvBn2D_3(self.SeparableConvBn2D_2(
+                d.stride(F.relu(c2))))
+            up1 = F.relu(d.join(self.DeconvBn_0(c4), c2) + c2)
+            return F.relu(d.join(self.DeconvBn_1(up1), x) + x)
 
 
 class Hourglass3DSeparable(nn.Module):
@@ -129,10 +154,11 @@ class Hourglass3DSeparable(nn.Module):
         self.DeconvBn_1 = DeconvBn(2 * c, c, rank=3)
 
     def forward(self, x):
-        c2 = self.MobileV2Block3D_1(self.MobileV2Block3D_0(x))
-        c4 = self.MobileV2Block3D_3(self.MobileV2Block3D_2(c2))
-        up1 = F.relu(self.DeconvBn_0(c4) + c2)
-        return F.relu(self.DeconvBn_1(up1) + x)
+        with rows.Descent() as d:
+            c2 = self.MobileV2Block3D_1(self.MobileV2Block3D_0(d.stride(x)))
+            c4 = self.MobileV2Block3D_3(self.MobileV2Block3D_2(d.stride(c2)))
+            up1 = F.relu(d.join(self.DeconvBn_0(c4), c2) + c2)
+            return F.relu(d.join(self.DeconvBn_1(up1), x) + x)
 
 
 class _MSNet(nn.Module):
@@ -145,10 +171,17 @@ class _MSNet(nn.Module):
         self.MobileFeatureExtractor_0 = MobileFeatureExtractor()
         self.FeatureCompressor_0 = FeatureCompressor()
 
-    def features(self, left, right):
+    def forward(self, left, right):
+        with rows.Descent() as descent:
+            fl, fr = self.features(left, right, descent)
+            out_dhw = (self.max_disparity, descent.height(left),
+                       left.shape[-1])
+            return descent.rejoin(self.aggregate(fl, fr, out_dhw))
+
+    def features(self, left, right, descent: Optional[rows.Descent] = None):
         n = left.shape[0]
         both = self.FeatureCompressor_0(self.MobileFeatureExtractor_0(
-            torch.cat([left, right], dim=0)))
+            torch.cat([left, right], dim=0), descent))
         return both[:n], both[n:]
 
     def regress(self, x, hourglass: str, volume_of, out_dhw):
@@ -181,13 +214,11 @@ class MSNet2D(_MSNet):
             self.add_module(f"head{i}", SeparableConvBn2D(d4, d4))
             self.add_module(f"classif{i}", Conv(d4, d4, (3, 3), bias=True))
 
-    def forward(self, left, right):
-        _, _, height, width = left.shape
-        fl, fr = self.features(left, right)
+    def aggregate(self, fl, fr, out_dhw):
         volume = self.InterlacedVolume2D_0(fl, fr)          # (N, D4, H4, W4)
         x = self.SeparableConvBn2D_1(self.SeparableConvBn2D_0(volume)) + volume
         return self.regress(x, "Hourglass2D", lambda logits: logits[:, None],
-                            (self.max_disparity, height, width))
+                            out_dhw)
 
 
 class MSNet3D(_MSNet):
@@ -204,13 +235,11 @@ class MSNet3D(_MSNet):
             self.add_module(f"head{i}", MobileV2Block3D(32, 32))
             self.add_module(f"classif{i}", Conv(32, 1, (3, 3, 3), bias=True))
 
-    def forward(self, left, right):
-        _, _, height, width = left.shape
-        fl, fr = self.features(left, right)
+    def aggregate(self, fl, fr, out_dhw):
         volume = build_concat_volume(fl, fr, self.max_disparity // 4)
         x = self.MobileV2Block3D_0(self.ConvBnAct_0(volume))
         return self.regress(x, "Hourglass3DSeparable", lambda logits: logits,
-                            (self.max_disparity, height, width))
+                            out_dhw)
 
 
 def msnet_loss(outputs: Sequence[torch.Tensor], gt_disparity: torch.Tensor,

@@ -47,7 +47,13 @@ class GraphPool:
         shards) may enqueue on the capture stream.  A capture that fails raises with the caller's
         stream put back: ``torch.cuda.graph`` leaves the thread on its
         capture stream when the capture fails to end, and the caller's
-        later work would run unordered with the default stream's."""
+        later work would run unordered with the default stream's.  It
+        also leaves the caching allocator recording into the pool (the
+        graph ends that only after the capture has ended), and while the
+        allocator counts a capture underway ``torch.cuda.empty_cache``
+        frees no block of its default pool: ended here too.  PyTorch then
+        still refuses a capture into that pool ("already recording"), so
+        the next capture makes a pool of its own."""
         if self._handle is None:
             self._handle = torch.cuda.graph_pool_handle()
         caller = torch.cuda.current_stream(device)
@@ -57,6 +63,27 @@ class GraphPool:
                     graph, pool=self._handle,
                     capture_error_mode="thread_local"):
                 outputs = fn(*inputs)
+        except BaseException:
+            _stop_recording(device, self._handle)
+            self._handle = None
+            raise
         finally:
             torch.cuda.set_stream(caller)
         return CapturedGraph(inputs, graph, counts, outputs)
+
+
+def _stop_recording(device: torch.device, pool) -> None:
+    """End the caching allocator's recording into ``pool`` that a failed
+    capture on ``device`` left on; nothing where the capture ended (the
+    allocator then says it records into the pool no longer) or where this
+    PyTorch has no binding for it.  Any other error of the allocator's
+    raises."""
+    end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+    if end is None:
+        return
+    index = torch.device(device).index
+    try:
+        end(torch.cuda.current_device() if index is None else index, pool)
+    except RuntimeError as e:
+        if "not currently recording" not in str(e):
+            raise

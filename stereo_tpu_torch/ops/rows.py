@@ -34,6 +34,13 @@ upsample takes one volume row from each neighbour and none beyond the
 frame's edges (:func:`neighbour_rows`), so that each output row reads
 what it reads in the whole frame.
 
+GwcNet's and MSNet's split (``models/gwcnet.py``, ``models/msnet.py``,
+under ``parallel.dnn``; a shard of any whole number of rows) gathers the
+same way ahead of a stride-2 layer whose input rows a shard cannot halve,
+or would halve to fewer rows than the halo of the level below it
+(:class:`Descent`), and narrows back where a skip of the shard's rows
+meets the gathered levels' output, or at the disparities.
+
 Everything else the networks do is row-local and runs on each shard
 unchanged.  Outside a split these functions do what they always did.
 
@@ -75,6 +82,15 @@ token on a loss, so every round's backward runs, sending zeros where
 its rows got no gradient.  Each backward wait is bounded by the run's
 timeout, and the round's key digest travels with the gradients: an
 exchange out of step raises on both ranks.
+
+A node keeps only what its backward reads (:class:`_Side`, one per split:
+the shard count, the ``Line``, each shard's spec, key digest and rows,
+and the counts its backward adds to), never the run's exchanges: an
+exchange holds the run's last token, whose node reaches every earlier
+round's, and a node that held the exchanges would close a cycle through
+the autograd graph, which Python's collector cannot see.  So a run is
+freed once its outputs are, whether or not its backward ever runs (a loss
+computed for evaluation, an error between forward and backward).
 """
 
 from __future__ import annotations
@@ -96,26 +112,25 @@ class RowExchange:
     """What the shards of one row split share: the two alternating slots
     of published tensors, the ``line`` of the split's ranks when its
     shards lie on more than one process (None when all are this
-    process's), and what was exchanged: ``rounds`` exchanges, ``bytes``
-    read from neighbours, and of those ``cross_rounds`` exchanges and
-    ``cross_bytes`` received from other processes, which took
-    ``cross_seconds`` on the host clock (waits for the other processes
-    included).  The ``back_*`` counts are the same of the backward
-    (:class:`_Round`), which adds them when it runs; ``token`` is the
+    process's), and what was exchanged: ``rounds`` exchanges, of which
+    ``gather_rounds`` gathered the whole frame's rows (:func:`gather`),
+    ``bytes`` read from neighbours, and of those ``cross_rounds``
+    exchanges and ``cross_bytes`` received from other processes, which
+    took ``cross_seconds`` on the host clock (waits for the other
+    processes included).  ``back`` holds the same of the backward
+    (:class:`_Round`), which adds to it when it runs; ``token`` is the
     run's last round's token under grad mode (for :func:`tie`)."""
 
     def __init__(self, count: int, line=None):
         self.count = count
         self.line = line
         self.rounds = 0
+        self.gather_rounds = 0
         self.bytes = 0
         self.cross_rounds = 0
         self.cross_bytes = 0
         self.cross_seconds = 0.0
-        self.back_rounds = 0
-        self.back_cross_rounds = 0
-        self.back_cross_bytes = 0
-        self.back_cross_seconds = 0.0
+        self.back = BackCounts()
         self.token = None
         self._slots = [[None] * count, [None] * count]
         self._outs = [[None] * count, [None] * count]
@@ -126,10 +141,22 @@ class RowExchange:
         return self.line is None or self.line.local(j)
 
     def release(self) -> None:
-        """Drop the slots' tensors once the run has ended (a round's
-        outputs would otherwise stay reachable from its node's plan)."""
+        """Drop the slots' tensors once the run has ended (they would
+        otherwise live as long as the exchange)."""
         self._slots = [[None] * self.count, [None] * self.count]
         self._outs = [[None] * self.count, [None] * self.count]
+
+
+@dataclass
+class BackCounts:
+    """What the backward of a split's rounds exchanged (``RowExchange.back``,
+    read as the ``back_*`` of ``parallel.rows.exchanged``), added to by
+    each round's backward."""
+
+    rounds: int = 0
+    cross_rounds: int = 0
+    cross_bytes: int = 0
+    cross_seconds: float = 0.0
 
 
 class Rounds:
@@ -152,7 +179,7 @@ class Rounds:
             return
         self.done = r
         plan = _Plan(self, r)
-        xs = [ex._slots[r % 2][j][0] for ex, j in plan.inputs]
+        xs = [self.exchanges[k]._slots[r % 2][j][0] for k, j in plan.keys]
         if torch.is_grad_enabled():
             if self.token is None:
                 # A leaf that requires grad: every round is a node, the
@@ -165,46 +192,65 @@ class Rounds:
                 ex.token = self.token
         else:
             outs = _exchange(plan)
-        for (ex, j), out in zip(plan.inputs, outs):
-            ex._outs[r % 2][j] = out
+        for (k, j), out in zip(plan.keys, outs):
+            self.exchanges[k]._outs[r % 2][j] = out
+
+
+class _Side:
+    """What the backward of round ``r`` reads of one split, which runs on
+    autograd's thread, outside the split: its shard ``count``, ``line``,
+    the wait's ``timeout_s``, the counts it adds to (``back``), and
+    (filled in by :func:`_exchange`) each local shard's spec, key digest,
+    rows and joined rows above (``meta``).  It holds no
+    :class:`RowExchange` (see the module's docstring)."""
+
+    def __init__(self, ex: RowExchange, r: int, timeout_s: float):
+        self.count = ex.count
+        self.line = ex.line
+        self.back = ex.back
+        self.r = r
+        self.timeout_s = timeout_s
+        self.meta = {}
+
+    def local(self, j: int) -> bool:
+        return self.line is None or self.line.local(j)
 
 
 class _Plan:
-    """One round of a run: its exchanges, the round, the ``(exchange,
-    shard)`` of each local shard, and (filled in by :func:`_exchange`)
-    each one's spec, key digest, rows and joined rows above; what a
-    :class:`_Round` node keeps for its backward, which runs on
-    autograd's thread, outside the split."""
+    """One round of a run: its exchanges, the round, the ``(split,
+    shard)`` of each local shard (``keys``, the split by its index in
+    ``exchanges``) and each split's :class:`_Side`, of which a
+    :class:`_Round` node keeps the ``sides`` and ``keys``."""
 
     def __init__(self, rounds: Rounds, r: int):
         self.exchanges = rounds.exchanges
-        self.timeout_s = rounds.timeout_s
         self.r = r
-        self.inputs = [(ex, j) for ex in self.exchanges
-                       for j in range(ex.count) if ex.local(j)]
-        self.meta = {}
+        self.keys = [(k, j) for k, ex in enumerate(self.exchanges)
+                     for j in range(ex.count) if ex.local(j)]
+        self.sides = [_Side(ex, r, rounds.timeout_s)
+                      for ex in self.exchanges]
 
 
 def _exchange(plan: _Plan) -> List[torch.Tensor]:
     """Round ``plan.r`` of every split in split order: the cross-rank step
     of a split whose shards lie on several processes, then each local
     shard's joined rows (:func:`halo`'s or :func:`gather`'s), in the order
-    of ``plan.inputs``."""
+    of ``plan.keys``."""
     r, joined = plan.r, {}
-    for ex in plan.exchanges:
+    for k, (ex, side) in enumerate(zip(plan.exchanges, plan.sides)):
         slot = ex._slots[r % 2]
         local = [j for j in range(ex.count) if ex.local(j)]
         if ex.line is not None:
-            _cross(ex, r, plan.timeout_s)
+            _cross(ex, r, side.timeout_s)
         with _streams([slot[j] for j in local]):
             for j in local:
                 x, _, key, spec = slot[j]
                 parts = (_gathered(ex, slot, j) if spec is None
                          else _halo_parts(ex, slot, j))
-                plan.meta[ex, j] = (spec, _digest(key), x.shape[-2],
-                                    parts[0].shape[-2] if spec else 0)
-                joined[ex, j] = torch.cat(parts, dim=-2)
-    return [joined[key] for key in plan.inputs]
+                side.meta[j] = (spec, _digest(key), x.shape[-2],
+                                parts[0].shape[-2] if spec else 0)
+                joined[k, j] = torch.cat(parts, dim=-2)
+    return [joined[key] for key in plan.keys]
 
 
 class _Round(torch.autograd.Function):
@@ -214,24 +260,22 @@ class _Round(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, plan: _Plan, token, *xs):
-        ctx.plan = plan
+        # Only the sides and keys: never the exchanges (module docstring).
+        ctx.sides, ctx.keys = plan.sides, plan.keys
         return (torch.zeros((), device=xs[0].device), *_exchange(plan))
 
     @staticmethod
     def backward(ctx, _, *douts):
-        # The plan reaches this node again (through its exchanges' token):
-        # a cycle through the graph that Python's collector cannot see.
-        # Drop it, so the run is freed once its outputs are.
-        plan, ctx.plan = ctx.plan, None
-        wanted = dict(zip(plan.inputs, ctx.needs_input_grad[2:]))
+        keys = ctx.keys
+        wanted = dict(zip(keys, ctx.needs_input_grad[2:]))
         grads = {}
-        for ex in plan.exchanges:
-            d = {j: g for (e, j), g in zip(plan.inputs, douts) if e is ex}
+        for k, side in enumerate(ctx.sides):
+            d = {j: g for (s, j), g in zip(keys, douts) if s == k}
             if not d:
                 continue
-            grads.update(((ex, j), g) for j, g in _carry_back(
-                ex, plan, d, {j: wanted[ex, j] for j in d}).items())
-        return (None, None, *(grads[key] for key in plan.inputs))
+            grads.update(((k, j), g) for j, g in _carry_back(
+                side, d, {j: wanted[k, j] for j in d}).items())
+        return (None, None, *(grads[key] for key in keys))
 
 
 def tie(x: torch.Tensor, token: Optional[torch.Tensor]) -> torch.Tensor:
@@ -454,6 +498,65 @@ def unsplit():
         set_current(shard)
 
 
+class Descent:
+    """The gathers of a network's strided descent inside a row split
+    (GwcNet's and MSNet's layers; outside a split it does nothing).  Before
+    a layer of stride ``s``, :meth:`stride` gives the whole frame's rows
+    of ``x`` (:func:`gather`) where the calling shard's rows of ``x`` do
+    not stride whole, or would stride to fewer rows than ``depth``, the
+    deepest halo that the layers after the stride read (a 3x3 convolution
+    of dilation d reads d rows of each neighbour), and the shard then
+    runs unsplit (the layers see the whole frame).  :meth:`join` narrows ``y``, made from the whole frame,
+    to the shard's rows where the ``skip`` it is added to holds the
+    shard's rows, and takes the shard back into its split; :meth:`rejoin`
+    does so for the descent's last output.  As a context manager the
+    shard is back in its split at the end, whatever happens."""
+
+    def __init__(self):
+        self._shard = None      # the shard suspended at the gather
+
+    def __enter__(self) -> "Descent":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._shard is not None:
+            set_current(self._shard)
+            self._shard = None
+
+    def stride(self, x: torch.Tensor, s: int = 2,
+               depth: int = 1) -> torch.Tensor:
+        shard = current()
+        if shard is None or (x.shape[-2] % s == 0
+                             and x.shape[-2] // s >= depth):
+            return x
+        x = gather(x)
+        self._shard = shard
+        set_current(None)
+        return x
+
+    def height(self, x: torch.Tensor) -> int:
+        """The rows of ``x``, a tensor of the shard's rows from before the
+        gather, as the layers after it see them: the whole frame's while
+        gathered."""
+        return x.shape[-2] * (1 if self._shard is None else self._shard.count)
+
+    def join(self, y: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        if self._shard is None or y.shape[-2] == skip.shape[-2]:
+            return y
+        return self.rejoin(y)
+
+    def rejoin(self, y):
+        """``y`` (a tensor, or a tuple of tensors of one shape), narrowed
+        to the shard's rows if the descent gathered."""
+        if self._shard is None:
+            return y
+        set_current(self._shard)
+        self._shard = None
+        if isinstance(y, torch.Tensor):
+            return narrow(y)
+        return tuple(narrow(torch.stack(y)).unbind(0))
+
+
 def _publish(x: torch.Tensor, key: tuple,
              spec: Optional[Tuple[int, int, str]]):
     """Publish ``x`` at the calling shard's next exchange (its slot holds
@@ -467,6 +570,7 @@ def _publish(x: torch.Tensor, key: tuple,
     shard.rounds += 1
     if i == ex.first:
         ex.rounds += 1
+        ex.gather_rounds += spec is None
     slot[i] = (x, shard.stream, key + (r,), spec)
     shard.turns.pass_on(shard.thread)
     shard.turns.wait(shard.thread)
@@ -561,24 +665,24 @@ def _cross(ex: RowExchange, r: int, timeout_s: float) -> None:
     ex.cross_seconds += time.perf_counter() - start
 
 
-def _carry_back(ex: RowExchange, plan: _Plan, d: dict, wanted: dict) -> dict:
-    """Round ``plan.r``'s backward of split ``ex``: from ``d``, each local
+def _carry_back(side: _Side, d: dict, wanted: dict) -> dict:
+    """Round ``side.r``'s backward of a split: from ``d``, each local
     shard's gradient of its joined rows, each local shard's gradient of
     its published tensor (None where ``wanted`` says none is needed).
     Every reader's gradient of a shard's rows goes back to that shard,
-    across ranks through ``ex.line``, beside the round's key digest; the
+    across ranks through ``side.line``, beside the round's key digest; the
     terms are summed in one order whichever process holds each shard.
     Every rank of the line calls it, whatever ``wanted`` says."""
     start = time.perf_counter()
-    n, local = ex.count, sorted(d)
-    spec = plan.meta[ex, local[0]][0]
-    home = ("cpu" if ex.line is not None and ex.line.transport.staging
+    n, local = side.count, sorted(d)
+    spec = side.meta[local[0]][0]
+    home = ("cpu" if side.line is not None and side.line.transport.staging
             else d[local[0]].device)
     values, wants = {}, []
     if spec is None:
-        per = plan.meta[ex, local[0]][2]
+        per = side.meta[local[0]][2]
         for i in local:
-            values[i] = (d[i], i, torch.tensor([plan.meta[ex, i][1]],
+            values[i] = (d[i], i, torch.tensor([side.meta[i][1]],
                                                device=home))
         # Reader i + o hands shard i its part of its gradient.
         for o in range(1, n):
@@ -593,7 +697,7 @@ def _carry_back(ex: RowExchange, plan: _Plan, d: dict, wanted: dict) -> dict:
                 g.new_empty(g.shape[:-2] + (above, g.shape[-1])),
                 g.narrow(-2, g.shape[-2] - below, below) if i < n - 1 else
                 g.new_empty(g.shape[:-2] + (below, g.shape[-1])),
-                torch.tensor([plan.meta[ex, i][1]], device=home))
+                torch.tensor([side.meta[i][1]], device=home))
         # From the shard below, its gradient of the rows it read above it
         # (this shard's last rows); from the shard above, of those below.
         wants = [(1, lambda e: e[2]), (-1, lambda e: e[2])]
@@ -603,22 +707,24 @@ def _carry_back(ex: RowExchange, plan: _Plan, d: dict, wanted: dict) -> dict:
             wants.append((-1, lambda e: e[1]))
     xs = [values.get(j) for j in range(n)]
     wrap = spec is None
-    got = (ex.line.ring_fetch(xs, wants, wrap=wrap, timeout_s=plan.timeout_s)
-           if ex.line is not None else _local_ring(xs, wants, wrap))
+    got = (side.line.ring_fetch(xs, wants, wrap=wrap,
+                                timeout_s=side.timeout_s)
+           if side.line is not None else _local_ring(xs, wants, wrap))
 
     def term(j, i, digest, w=None):
         """Want ``w`` of shard ``j`` (None: none), from shard ``i``, whose
         key digest is want ``digest``."""
         theirs = int(got[j][digest])
-        if theirs != plan.meta[ex, j][1]:
+        if theirs != side.meta[j][1]:
             raise RuntimeError(
                 f"row split out of step in backward: shard {j} carries "
-                f"back round {plan.r}, shard {i} digest {theirs} from rank "
-                f"{ex.line.ranks[i] if ex.line is not None else 'here'}")
+                f"back round {side.r}, shard {i} digest {theirs} from rank "
+                f"{side.line.ranks[i] if side.line is not None else 'here'}")
         if w is None:
             return None
-        if not ex.local(i):
-            ex.back_cross_bytes += got[j][w].numel() * got[j][w].element_size()
+        if not side.local(i):
+            side.back.cross_bytes += (got[j][w].numel()
+                                      * got[j][w].element_size())
         return got[j][w]
 
     grads = {}
@@ -635,7 +741,7 @@ def _carry_back(ex: RowExchange, plan: _Plan, d: dict, wanted: dict) -> dict:
             for t in terms[1:]:
                 g.add_(t)
         else:
-            _, _, rows, top = plan.meta[ex, j]
+            _, _, rows, top = side.meta[j]
             upward = (term(j, j + 1, 0, 2 if above else None)
                       if j < n - 1 else None)
             downward = (term(j, j - 1, 1, 2 + bool(above) if below else None)
@@ -655,10 +761,10 @@ def _carry_back(ex: RowExchange, plan: _Plan, d: dict, wanted: dict) -> dict:
             if upward is not None:
                 g.narrow(-2, rows - above, above).add_(upward)
         grads[j] = g
-    ex.back_rounds += 1
-    if ex.line is not None:
-        ex.back_cross_rounds += 1
-        ex.back_cross_seconds += time.perf_counter() - start
+    side.back.rounds += 1
+    if side.line is not None:
+        side.back.cross_rounds += 1
+        side.back.cross_seconds += time.perf_counter() - start
     return grads
 
 

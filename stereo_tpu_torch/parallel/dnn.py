@@ -21,15 +21,23 @@ layout and batch shape): each shard's launches come from one thread at a
 time, and eagerly they would bound the split.  A mesh of distinct cards
 keeps the eager shard threads (:attr:`ShardedDnnEngine.graph_splits`).
 
-The rows are split when ``tile > 1`` and the height is a multiple of
-``ROW_STRIDE * tile``: the networks' strides multiply to 16, so every shard
-then holds at least one row at 1/16 and four at 1/4, enough for each halo.
-Other heights that JAX accepts (a multiple of ``tile``) keep the frame
-placement of :func:`frame_devices`, whole frames dealt round-robin over a
-group's ``tile`` devices; :attr:`ShardedDnnEngine.row_split` says which
-was taken.  Both give the single device's result up to float rounding.
-Each distinct device of the mesh holds one replica of the weights, loaded
-once and copied to the others.
+The rows are split whenever ``tile > 1``, at every height JAX accepts (a
+multiple of ``tile``), as GSPMD splits them.  The networks' four strides
+(two in the feature extractor, down to 1/4, two in each hourglass, down
+to 1/16) each need an even number of rows in a shard, and the dilated
+blocks at 1/4 a halo of two rows: where a shard's rows would stop
+striding whole, or the 1/4 level would hold fewer rows than that halo,
+the shard gathers the whole frame's rows ahead of that stride and runs
+the levels below on them, then narrows back to its own rows where they
+divide again (``ops.rows.Descent``; the networks' docstrings say where).
+The ``gather_rounds`` of :attr:`ShardedDnnEngine.halo` count the gathers
+the last call ran: none where 16 divides a shard's rows.  A GwcNet shard
+launches ``gwc_volume`` once a call either way, on its own rows where
+they split at 1/4, else on the whole frame's.  Dealing whole frames
+round-robin over a group's ``tile`` devices (:func:`frame_devices`) stays
+as a switch (``row_split = False``).  Both give the single device's
+result up to float rounding.  Each distinct device of the mesh holds one
+replica of the weights, loaded once and copied to the others.
 
 On a mesh that spans processes every rank calls with the same global
 batch and builds replicas on its own devices only; it runs the frames
@@ -54,9 +62,6 @@ from ..core.config import MeshConfig
 from . import rows
 from .mesh import Mesh, make_mesh
 
-# The product of the strides of GwcNet, MSNet2D and MSNet3D: two in the
-# feature extractors (1/4), two in each hourglass (1/16).
-ROW_STRIDE = 16
 
 
 def frame_slots(mesh: Mesh, n: int) -> list:
@@ -146,12 +151,15 @@ class ShardedDnnEngine:
     (default: the first ``mesh_config.num_devices`` cards).
     ``process_batch`` expects the batch divisible by :attr:`batch_group`
     (= data x disp) and the image height divisible by ``tile``.
-    :attr:`row_split` says whether frames are split by rows over ``tile``
-    (else dealt whole), and :attr:`halo` what the last row-split call
-    exchanged (``rows.exchanged``): ``rounds`` (halo exchanges per
-    forward), ``bytes`` (read from neighbouring shards, over all groups),
-    and of those ``cross_rounds`` and ``cross_bytes`` received from other
-    processes, recorded at capture for a replay.  :attr:`graph_splits`
+    :attr:`row_split` says whether frames are split by rows over ``tile``:
+    true for every ``tile > 1``; set it False to deal whole frames over a
+    group's ``tile`` devices instead.  :attr:`halo` says what the last
+    row-split call exchanged (``rows.exchanged``): ``rounds`` (halo
+    exchanges per forward), of which ``gather_rounds`` gathered the whole
+    frame's rows ahead of a stride (module docstring), ``bytes`` (read
+    from neighbouring shards, over all groups), and of those
+    ``cross_rounds`` and ``cross_bytes`` received from other processes,
+    recorded at capture for a replay.  :attr:`graph_splits`
     says whether a split within one process is replayed from a CUDA graph
     (every device of the mesh one card); set it False to run the split
     eagerly.  ``graphs_captured`` counts the graphs."""
@@ -171,8 +179,7 @@ class ShardedDnnEngine:
         if image_shape[0] % max(self._tile, 1):
             raise ValueError(f"image height {image_shape[0]} not divisible "
                              f"by the tile mesh extent {self._tile}")
-        self.row_split = (self._tile > 1
-                          and image_shape[0] % (ROW_STRIDE * self._tile) == 0)
+        self.row_split = self._tile > 1
         self._lines = (self.mesh.tile_lines() if self.row_split
                        else [None] * self.batch_group)
         self.halo = None

@@ -227,20 +227,22 @@ class ShardThreads:
         self._finalizer()
 
 
-HALO_KEYS = ("rounds", "bytes", "cross_rounds", "cross_bytes",
-             "cross_seconds", "back_rounds", "back_cross_rounds",
-             "back_cross_bytes", "back_cross_seconds")
+HALO_KEYS = ("rounds", "gather_rounds", "bytes", "cross_rounds",
+             "cross_bytes", "cross_seconds", "back_rounds",
+             "back_cross_rounds", "back_cross_bytes", "back_cross_seconds")
 
 
 def exchanged(exchanges: Sequence[RowExchange]) -> dict:
     """What the splits of one run exchanged per forward: ``rounds``
-    exchanges, of which ``cross_rounds`` crossed processes, ``bytes``
+    exchanges, of which ``gather_rounds`` gathered the whole frame's rows
+    and ``cross_rounds`` crossed processes, ``bytes``
     read from neighbouring shards over all splits, of which
     ``cross_bytes`` were received from other processes, and the host
     seconds of the cross-process steps (``cross_seconds``); the
     ``back_*`` of the same in the backward, once it has run (0 under no
-    grad)."""
-    return merge_halos([{k: getattr(e, k) for k in HALO_KEYS}
+    grad, read from each exchange's ``back``)."""
+    return merge_halos([{k: getattr(e.back, k[5:]) if k.startswith("back_")
+                         else getattr(e, k) for k in HALO_KEYS}
                         for e in exchanges])
 
 

@@ -3,11 +3,26 @@ read and written without Orbax, tensorstore or zstandard.
 
 A checkpoint directory holds JSON files (``_METADATA``: the tree's key
 paths and each leaf's kind; ``_CHECKPOINT_METADATA``; ``_sharding``;
-``array_metadatas/process_N``) and the arrays as zarr v2 entries
-``<a.b.c>/.zarray`` (JSON: shape, chunks, dtype, compressor) and
-``<a.b.c>/<i.j...>`` (one chunk each), which live in an OCDBT key-value
-store (``utils/ocdbt.py``) or, for a tree written with ``use_ocdbt=False``,
-as plain files.
+``array_metadatas/process_N``) and the arrays, which live in an OCDBT
+key-value store (``utils/ocdbt.py``) or, for a tree written with
+``use_ocdbt=False``, as plain files.  An array is a zarr v2 entry
+(``StandardCheckpointer``'s default) or, in a tree written with
+``use_zarr3=True``, a zarr v3 one:
+
+* v2: ``<a.b.c>/.zarray`` (JSON: shape, chunks, dtype, compressor) and
+  ``<a.b.c>/<i.j...>``, one chunk each;
+* v3: ``<a.b.c>/zarr.json`` (``node_type`` ``array``, a ``regular`` chunk
+  grid, ``data_type``, ``fill_value``, the codec chain) and the chunks
+  under the ``default`` chunk-key encoding, ``<a.b.c>/c/<i>/<j>...``
+  (``c`` alone for a scalar), or the ``v2`` one, ``<a.b.c>/<i.j...>``.
+  Orbax writes one ``sharding_indexed`` codec per array: each stored
+  chunk (a shard) holds inner chunks, each encoded by the inner codecs
+  (``bytes`` little endian, then ``zstd``), and an index of one
+  ``(offset, size)`` uint64 pair per inner chunk (2^64-1 twice for an
+  inner chunk left at ``fill_value``), encoded by ``bytes`` and
+  ``crc32c``, at the shard's end (or start).  The reader also takes the
+  ``transpose``, ``gzip`` and ``crc32c`` codecs and big-endian ``bytes``;
+  any other codec raises, naming it.
 
 ``read_tree`` gives the nested dicts and lists the tree was saved from
 (named tuples come back as dicts, tuples as lists, as Orbax restores them
@@ -32,7 +47,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from .ocdbt import OcdbtStore, write_ocdbt
+from .ocdbt import OcdbtStore, crc32c, write_ocdbt
 
 METADATA = "_METADATA"
 _CONVERT = ("convert it to npz with stereo_tpu.models.save_params_npz "
@@ -42,6 +57,11 @@ _CONVERT = ("convert it to npz with stereo_tpu.models.save_params_npz "
 _DTYPES = {"<f2": np.float16, "<f4": np.float32, "<f8": np.float64,
            "<i4": np.int32, "<i8": np.int64, "|u1": np.uint8,
            "|b1": np.bool_, "bfloat16": np.uint16}
+# zarr v3 data types (bfloat16 read as its 16 bits).
+_DTYPES3 = {"float16": np.float16, "float32": np.float32,
+            "float64": np.float64, "int32": np.int32, "int64": np.int64,
+            "uint8": np.uint8, "bool": np.bool_, "bfloat16": np.uint16}
+_EMPTY = 2 ** 64 - 1         # an inner chunk's index entry when not stored
 _KEY_DICT, _KEY_SEQUENCE = 2, 1
 
 
@@ -97,10 +117,14 @@ def _decompress(raw: bytes, compressor, key: str) -> bytes:
 
 
 def _read_array(source: _Source, name: str):
-    """One zarr v2 array, all its chunks assembled."""
+    """One zarr v2 or v3 array, all its chunks assembled."""
     raw = source.get(f"{name}/.zarray")
     if raw is None:
-        raise ValueError(f"{source.root!r}: no zarr metadata for {name!r}")
+        raw = source.get(f"{name}/zarr.json")
+        if raw is None:
+            raise ValueError(f"{source.root!r}: no zarr metadata for "
+                             f"{name!r}")
+        return _read_array3(source, name, json.loads(raw))
     meta = json.loads(raw)
     if meta.get("zarr_format") != 2:
         raise ValueError(f"{name}: zarr_format {meta.get('zarr_format')} "
@@ -136,10 +160,192 @@ def _read_array(source: _Source, name: str):
                        for i, c, s in zip(index, chunks, shape))
         out[region] = chunk[tuple(slice(0, r.stop - r.start)
                                   for r in region)]
+    return _bfloat16(out) if code == "bfloat16" else out
+
+
+def _bfloat16(bits: np.ndarray) -> torch.Tensor:
+    """A bfloat16 tensor of the uint16 ``bits``."""
+    return torch.from_numpy(bits.astype(np.int16, copy=False)).view(
+        torch.bfloat16)
+
+
+def _fill3(meta: dict, dtype: np.dtype, name: str):
+    """A v3 array's ``fill_value`` as a value of ``dtype`` (bfloat16 as
+    its bits): a number, a bool, ``"NaN"``, ``"Infinity"``,
+    ``"-Infinity"`` or the value's bits in hex (``"0x..."``)."""
+    fill = meta.get("fill_value", 0)
+    code = meta["data_type"]
+    if isinstance(fill, str) and fill.startswith("0x"):
+        bits = int(fill, 16)
+        if code == "bfloat16":
+            return np.uint16(bits)
+        return np.array([bits], f"<u{dtype.itemsize}").view(dtype)[0]
+    if isinstance(fill, str):
+        fill = {"NaN": float("nan"), "Infinity": float("inf"),
+                "-Infinity": float("-inf")}.get(fill)
+        if fill is None:
+            raise ValueError(f"{name}: fill_value {meta['fill_value']!r} "
+                             f"is not read")
     if code == "bfloat16":
-        return torch.from_numpy(out.astype(np.int16, copy=False)).view(
-            torch.bfloat16)
+        return np.uint16(torch.tensor(float(fill), dtype=torch.bfloat16)
+                         .view(torch.int16).item() & 0xFFFF)
+    return np.array(fill).astype(dtype)
+
+
+def _split_codecs(codecs: List[dict], name: str):
+    """``(array->array codecs, the array->bytes codec, bytes->bytes
+    codecs)`` of a v3 codec chain, in the order they encode."""
+    codecs = list(codecs)
+    cut = next((i for i, c in enumerate(codecs)
+                if c["name"] != "transpose"), None)
+    if cut is None or codecs[cut]["name"] not in ("bytes",
+                                                  "sharding_indexed"):
+        raise ValueError(f"{name}: zarr v3 codec chain "
+                         f"{[c['name'] for c in codecs]} has no bytes or "
+                         f"sharding_indexed codec")
+    return codecs[:cut], codecs[cut], codecs[cut + 1:]
+
+
+def _unbytes(raw: bytes, codec: dict, name: str) -> bytes:
+    """One bytes->bytes codec undone."""
+    from .. import _native
+
+    kind = codec["name"]
+    if kind == "zstd":
+        return _native.zstd_decompress(raw)
+    if kind == "gzip":
+        return _native.inflate(raw)
+    if kind == "crc32c":
+        if len(raw) < 4:
+            raise ValueError(f"{name}: {len(raw)} bytes cannot end in a "
+                             f"crc32c")
+        body, want = raw[:-4], int.from_bytes(raw[-4:], "little")
+        if crc32c(body) != want:
+            raise ValueError(f"{name}: crc32c mismatch")
+        return body
+    raise ValueError(f"{name}: zarr v3 codec {kind!r} is not supported "
+                     f"(bytes, sharding_indexed, transpose, zstd, gzip, "
+                     f"crc32c)")
+
+
+def _transposed(shape: Tuple[int, ...], codec: dict, name: str) -> list:
+    """The axis order of a ``transpose`` codec for an array of ``shape``
+    (the encoded array's axis k is the decoded array's axis order[k])."""
+    order = codec.get("configuration", {}).get("order")
+    if sorted(order) != list(range(len(shape))):
+        raise ValueError(f"{name}: transpose order {order!r} is not a "
+                         f"permutation of {len(shape)} axes")
+    return list(order)
+
+
+def _decode3(raw: bytes, codecs: List[dict], shape: Tuple[int, ...],
+             dtype: np.dtype, fill, name: str) -> np.ndarray:
+    """A v3 chunk of ``shape`` decoded through ``codecs``."""
+    to_array, to_bytes, on_bytes = _split_codecs(codecs, name)
+    for codec in reversed(on_bytes):
+        raw = _unbytes(raw, codec, name)
+    orders, encoded = [], tuple(shape)
+    for codec in to_array:
+        order = _transposed(encoded, codec, name)
+        orders.append(order)
+        encoded = tuple(encoded[k] for k in order)
+    config = to_bytes.get("configuration", {})
+    if to_bytes["name"] == "bytes":
+        order = {"little": "<", "big": ">"}.get(config.get("endian"), "=")
+        count = int(np.prod(encoded))
+        if len(raw) != count * dtype.itemsize:
+            raise ValueError(f"{name}: a chunk of {len(raw)} bytes, "
+                             f"expected {count * dtype.itemsize}")
+        out = np.frombuffer(raw, dtype.newbyteorder(order)).astype(
+            dtype).reshape(encoded)
+    else:
+        out = _unshard(raw, config, encoded, dtype, fill, name)
+    for order in reversed(orders):
+        out = out.transpose(np.argsort(order))
     return out
+
+
+def _unshard(raw: bytes, config: dict, shape: Tuple[int, ...],
+             dtype: np.dtype, fill, name: str) -> np.ndarray:
+    """A ``sharding_indexed`` chunk of ``shape``: its inner chunks placed
+    by the index (at the end or the start), each decoded by the inner
+    codecs; an inner chunk not stored is ``fill``."""
+    inner = tuple(config["chunk_shape"])
+    if any(s % c for s, c in zip(shape, inner)) or len(inner) != len(shape):
+        raise ValueError(f"{name}: inner chunks {list(inner)} do not tile "
+                         f"the shard {list(shape)}")
+    grid = tuple(s // c for s, c in zip(shape, inner))
+    count = int(np.prod(grid))
+    # The index's own encoding, whose byte count its codecs fix.
+    index_codecs = config["index_codecs"]
+    other = [c["name"] for c in index_codecs
+             if c["name"] not in ("bytes", "crc32c")]
+    if other:
+        raise ValueError(f"{name}: shard index codecs {other} are not "
+                         f"supported (bytes, crc32c)")
+    size = 16 * count + 4 * sum(c["name"] == "crc32c" for c in index_codecs)
+    at_end = config.get("index_location", "end") == "end"
+    if len(raw) < size:
+        raise ValueError(f"{name}: a shard of {len(raw)} bytes holds no "
+                         f"index of {size}")
+    index_raw = raw[len(raw) - size:] if at_end else raw[:size]
+    index = _decode3(index_raw, index_codecs, grid + (2,),
+                     np.dtype(np.uint64), 0, f"{name} (shard index)")
+    out = np.empty(shape, dtype)
+    out.fill(fill)
+    for pos in np.ndindex(*grid) if grid else [()]:
+        offset, nbytes = (int(v) for v in index[pos])
+        if offset == _EMPTY and nbytes == _EMPTY:
+            continue
+        if offset + nbytes > len(raw):
+            raise ValueError(f"{name}: inner chunk {pos} runs past the "
+                             f"shard's {len(raw)} bytes")
+        region = tuple(slice(i * c, (i + 1) * c) for i, c in zip(pos, inner))
+        out[region] = _decode3(raw[offset:offset + nbytes],
+                               config["codecs"], inner, dtype, fill, name)
+    return out
+
+
+def _read_array3(source: _Source, name: str, meta: dict):
+    """One zarr v3 array (the module's docstring), all its chunks
+    assembled."""
+    if meta.get("zarr_format") != 3 or meta.get("node_type") != "array":
+        raise ValueError(f"{name}: zarr.json is not a zarr v3 array")
+    code = meta["data_type"]
+    if code not in _DTYPES3:
+        raise ValueError(f"{name}: zarr data type {code!r} is not "
+                         f"supported")
+    dtype = np.dtype(_DTYPES3[code])
+    grid_meta = meta["chunk_grid"]
+    if grid_meta.get("name") != "regular":
+        raise ValueError(f"{name}: chunk grid {grid_meta.get('name')!r} is "
+                         f"not supported")
+    encoding = meta.get("chunk_key_encoding", {"name": "default"})
+    kind = encoding.get("name")
+    if kind not in ("default", "v2"):
+        raise ValueError(f"{name}: chunk key encoding {kind!r} is not "
+                         f"supported")
+    sep = encoding.get("configuration", {}).get(
+        "separator", "/" if kind == "default" else ".")
+    shape = tuple(meta["shape"])
+    chunks = tuple(grid_meta["configuration"]["chunk_shape"])
+    fill = _fill3(meta, dtype, name)
+    out = np.empty(shape, dtype)
+    out.fill(fill)
+    grid = [-(-s // c) for s, c in zip(shape, chunks)]
+    for index in np.ndindex(*grid) if shape else [()]:
+        coords = sep.join(map(str, index))
+        key = (f"{name}/c{sep}{coords}" if index else f"{name}/c"
+               ) if kind == "default" else f"{name}/{coords or '0'}"
+        raw = source.get(key)
+        if raw is None:
+            continue
+        chunk = _decode3(raw, meta["codecs"], chunks, dtype, fill, key)
+        region = tuple(slice(i * c, min((i + 1) * c, s))
+                       for i, c, s in zip(index, chunks, shape))
+        out[region] = chunk[tuple(slice(0, r.stop - r.start)
+                                  for r in region)]
+    return _bfloat16(out) if code == "bfloat16" else out
 
 
 def _insert(tree, path: List[Tuple[str, int]], value) -> Any:
@@ -161,15 +367,11 @@ def _insert(tree, path: List[Tuple[str, int]], value) -> Any:
 
 def read_tree(root: str):
     """The tree of the Orbax checkpoint in ``root`` (see the module's
-    docstring).  Raises ``ValueError`` for a zarr3 or a pre-OCDBT msgpack
-    tree, naming the route to convert it."""
+    docstring), zarr v2 or v3.  Raises ``ValueError`` for a pre-OCDBT
+    msgpack tree, naming the route to convert it."""
     _check_format(root)
     with open(os.path.join(root, METADATA)) as f:
         meta = json.load(f)
-    if meta.get("use_zarr3") or os.path.isfile(os.path.join(root,
-                                                            "zarr.json")):
-        raise ValueError(f"{root!r} is a zarr3 Orbax tree, which the port "
-                         f"does not read; {_CONVERT}")
     source = _Source(root, meta.get("use_ocdbt", True))
     tree = None
     for key_str, entry in sorted(meta["tree_metadata"].items(),

@@ -28,6 +28,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec
 from stereo_tpu.core.config import TrainerConfig as JaxTrainerConfig
 from stereo_tpu.models import build_stereo_model as jax_build_stereo_model
 from stereo_tpu.models import load_params as jax_load_params
+from stereo_tpu.models import load_params_npz
 from stereo_tpu.models import save_params as jax_save_params
 from stereo_tpu.synthesis import RightViewSynthesis as JaxRightViewSynthesis
 from stereo_tpu.train import StereoTrainer as JaxStereoTrainer
@@ -49,6 +50,7 @@ from stereo_tpu_torch.train import StereoTrainer, Trainer
 from stereo_tpu_torch.train import stereo_trainer as stereo_trainer_module
 from stereo_tpu_torch.utils.ocdbt import OcdbtStore, write_ocdbt
 from stereo_tpu_torch.utils.orbax import read_tree
+from stereo_tpu_torch.utils.paths import model_checkpoint_dir
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures")
@@ -596,18 +598,148 @@ def test_export_script_reads_a_jax_training_checkpoint(tmp_path):
 # --- refused formats and the fixture -----------------------------------------
 
 def test_zarr3_and_msgpack_trees_raise(tmp_path):
+    """A zarr3 tree is read as it was saved; a pre-OCDBT msgpack tree
+    raises, naming the route to convert it."""
     tree = {"w": jnp.arange(4.0)}
     zarr3 = str(tmp_path / "zarr3")
     with ocp.Checkpointer(ocp.PyTreeCheckpointHandler(use_zarr3=True)) as c:
         c.save(zarr3, tree)
-    with pytest.raises(ValueError, match="zarr3.*save_params_npz"):
-        load_params(zarr3)
+    assert_trees_equal(load_params(zarr3),
+                       {"w": np.arange(4.0, dtype=np.float32)})
     legacy = tmp_path / "legacy"
     legacy.mkdir()
     from flax import serialization
     (legacy / "checkpoint").write_bytes(serialization.to_bytes(tree))
     with pytest.raises(ValueError, match="msgpack.*save_params_npz"):
         load_params(str(legacy))
+
+
+def save_zarr3(tree, path, ocdbt=True):
+    with ocp.Checkpointer(ocp.PyTreeCheckpointHandler(
+            use_ocdbt=ocdbt, use_zarr3=True)) as c:
+        c.save(path, tree)
+    return path
+
+
+@pytest.mark.parametrize("ocdbt", [True, False])
+def test_zarr3_tree_reads(tmp_path, ocdbt):
+    """A tree written with ``use_zarr3=True``, in OCDBT or as plain files
+    (``<name>/zarr.json``, chunks under ``c/``): float32, bfloat16, int32,
+    int64, float64, nested lists and dicts, a scalar and an array sharded
+    over two devices (two chunks), read bit for bit as JAX restores it."""
+    path = save_zarr3(mixed_tree(), str(tmp_path / "zarr3"), ocdbt)
+    assert json.load(open(os.path.join(path, "_METADATA")))["use_zarr3"]
+    assert os.path.exists(os.path.join(path, "manifest.ocdbt")) == ocdbt
+    if not ocdbt:
+        assert sorted(os.listdir(os.path.join(path, "sharded", "c"))) == [
+            "0", "1"]
+    want = jax.tree_util.tree_map(np.asarray, jax_load_params(path))
+    got = load_params(path)
+    assert got["params"]["scale"].dtype == torch.bfloat16
+    assert_trees_equal(got, want)
+
+
+# zarr v3 arrays that tensorstore writes with codecs Orbax does not pick:
+# name -> (array, data type, chunk shape, codecs, fill value, key encoding).
+_BYTES_LE = {"name": "bytes", "configuration": {"endian": "little"}}
+_INDEX = [_BYTES_LE, {"name": "crc32c"}]
+_RNG = np.random.default_rng(21)
+_PATCHY = _RNG.normal(size=(6, 10)).astype(np.float32)
+_PATCHY[:3, :5] = 7.5         # one inner chunk all fill: not stored
+ZARR3_ARRAYS = {
+    "transpose_big_endian_gzip": (
+        _RNG.normal(size=(6, 10)).astype(np.float32), "float32", [4, 4],
+        [{"name": "transpose", "configuration": {"order": [1, 0]}},
+         {"name": "bytes", "configuration": {"endian": "big"}},
+         {"name": "gzip", "configuration": {"level": 5}}], None, None),
+    "index_at_start_empty_inner_chunk": (
+        _PATCHY, "float32", [6, 10],
+        [{"name": "sharding_indexed", "configuration": {
+            "chunk_shape": [3, 5], "codecs": [_BYTES_LE, {
+                "name": "zstd", "configuration": {"level": 1}}],
+            "index_codecs": _INDEX, "index_location": "start"}}], 7.5,
+        None),
+    "v2_keys_int64": (np.arange(30, dtype=np.int64).reshape(5, 6), "int64",
+                      [4, 4], [_BYTES_LE], None,
+                      {"name": "v2", "configuration": {"separator": "."}}),
+    "bfloat16_fill": (
+        np.full((4, 4), 2.5, np.float32), "bfloat16", [2, 2],
+        [{"name": "sharding_indexed", "configuration": {
+            "chunk_shape": [1, 2], "codecs": [_BYTES_LE],
+            "index_codecs": _INDEX}}], 2.5, None),
+    "bool_crc32c": (np.arange(7) % 3 == 0, "bool", [3],
+                    [_BYTES_LE, {"name": "crc32c"}], None, None),
+    "uint8_gzip": (np.arange(50, dtype=np.uint8).reshape(5, 10), "uint8",
+                   [2, 8], [{"name": "bytes"}, {
+                       "name": "gzip", "configuration": {"level": 1}}],
+                   None, None),
+}
+
+
+def ts_write_zarr3(path, arr, dtype, chunks, codecs, fill=None,
+                   encoding=None):
+    """A zarr v3 array at ``path`` (plain files) written by tensorstore."""
+    meta = {"shape": list(arr.shape), "data_type": dtype,
+            "chunk_grid": {"name": "regular",
+                           "configuration": {"chunk_shape": chunks}},
+            "codecs": codecs}
+    if fill is not None:
+        meta["fill_value"] = fill
+    if encoding is not None:
+        meta["chunk_key_encoding"] = encoding
+    shutil.rmtree(path, ignore_errors=True)
+    ts.open({"driver": "zarr3", "kvstore": {"driver": "file", "path": path},
+             "metadata": meta}, create=True).result().write(
+        arr.astype(jnp.bfloat16) if dtype == "bfloat16" else arr).result()
+
+
+@pytest.mark.parametrize("name", sorted(ZARR3_ARRAYS))
+def test_zarr3_codecs(tmp_path, name):
+    """A plain-file zarr3 tree whose array tensorstore rewrote with other
+    codecs (transpose, big-endian bytes, gzip, crc32c, a shard index at
+    the start with an inner chunk left at the fill value, the ``v2`` key
+    encoding, several chunks) reads bit for bit."""
+    arr, dtype, chunks, codecs, fill, encoding = ZARR3_ARRAYS[name]
+    path = save_zarr3({"a": {"b": np.zeros(arr.shape, np.float32)}},
+                      str(tmp_path / "tree"), ocdbt=False)
+    ts_write_zarr3(os.path.join(path, "a.b"), arr, dtype, chunks, codecs,
+                   fill, encoding)
+    got = read_tree(path)["a"]["b"]
+    if dtype == "bfloat16":
+        want = torch.from_numpy(arr).to(torch.bfloat16)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    else:
+        assert_trees_equal(got, arr)
+
+
+def test_zarr3_other_codec_or_bad_checksum_raises(tmp_path):
+    """A codec the reader does not take raises, naming it; a shard index
+    whose crc32c does not match raises."""
+    arr = np.arange(12, dtype=np.float32).reshape(3, 4)
+    path = save_zarr3({"w": arr}, str(tmp_path / "tree"), ocdbt=False)
+    assert_trees_equal(read_tree(path)["w"], arr)
+    chunk = os.path.join(path, "w", "c", "0", "0")
+    raw = bytearray(open(chunk, "rb").read())
+    raw[-5] ^= 1                  # a bit of the index, under its checksum
+    open(chunk, "wb").write(bytes(raw))
+    with pytest.raises(ValueError, match="crc32c"):
+        read_tree(path)
+    ts_write_zarr3(os.path.join(path, "w"), arr, "float32", [3, 4],
+                   [_BYTES_LE, {"name": "blosc", "configuration": {
+                       "cname": "lz4", "clevel": 5, "shuffle": "shuffle",
+                       "typesize": 4, "blocksize": 0}}])
+    with pytest.raises(ValueError, match="'blosc'"):
+        read_tree(path)
+
+
+def test_load_params_reads_a_zarr3_gwcnet_tree(tmp_path):
+    """GwcNet's committed variables saved by Orbax as zarr3: the port's
+    ``load_params`` gives the committed npz's tree."""
+    want = jax.tree_util.tree_map(np.asarray, load_params_npz(
+        model_checkpoint_dir("gwcnet") + ".npz"))
+    path = save_zarr3(jax.tree_util.tree_map(jnp.asarray, want),
+                      str(tmp_path / "gwcnet"))
+    assert_trees_equal(load_params(path), want)
 
 
 @pytest.mark.parametrize("compressor", ["zstd", "zlib", "gzip", None])
@@ -662,6 +794,26 @@ def fixture_twin():
         return {k: (torch.from_numpy(data[k].view(np.int16)).view(
             torch.bfloat16) if k in bf16 else data[k])
             for k in data.files if k != "__bfloat16__"}
+
+
+@pytest.mark.parametrize("layout", ["as_saved", "process_trees_only"])
+def test_committed_zarr3_fixture_equals_its_twin(tmp_path, layout):
+    """``tests/fixtures/orbax_small_zarr3`` (the fixture's tree written
+    with ``use_zarr3=True``) read by the port equals the same twin; also
+    from the per-process tree alone."""
+    root = os.path.join(FIXTURES, "orbax_small_zarr3")
+    if layout == "process_trees_only":
+        root = shutil.copytree(root, str(tmp_path / "orbax_small_zarr3"))
+        os.remove(os.path.join(root, "manifest.ocdbt"))
+        shutil.rmtree(os.path.join(root, "d"))
+    flat = dotted_leaves(read_tree(root))
+    twin = fixture_twin()
+    assert set(flat) == set(twin)
+    for key, want in twin.items():
+        if key == "epoch":
+            assert flat[key] == int(want)
+        else:
+            assert_trees_equal(flat[key], want, key)
 
 
 @pytest.mark.parametrize("layout", ["as_saved", "process_trees_only"])

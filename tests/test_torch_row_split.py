@@ -1,12 +1,16 @@
 """The row split inside the stereo networks (``stereo_tpu_torch/ops/
-rows.py``, its threads in ``parallel/rows.py``) on the CPU: each halo funnel split by rows against the whole
-frame, the three networks split by rows against the single device, GwcNet
-on (1,4,1) against JAX's ``ShardedDnnEngine`` (GSPMD on the 8 virtual
-devices of ``tests/conftest.py``), the fall-back to whole frames, and a
-failing shard.  Gates: 1e-5 for a funnel, 1e-4 px for a network against the
-single device, JAX's own 5e-3 px against JAX
-(``tests/test_parallel_dnn.py``)."""
+rows.py``, its threads in ``parallel/rows.py``) on the CPU: each halo
+funnel split by rows against the whole frame, the three networks split by
+rows against the single device, GwcNet on (1,4,1), (1,8,1) at 48 and 64
+rows and shards of four rows against JAX's ``ShardedDnnEngine`` (GSPMD on
+the 8 virtual devices of ``tests/conftest.py``), the three networks at
+heights whose shards gather ahead of a stride, whole frames
+dealt through ``row_split = False``, a split forward under grad freed
+without its backward, and a failing shard.  Gates: 1e-5 for a funnel,
+1e-4 px for a network against the single device, JAX's own 5e-3 px
+against JAX (``tests/test_parallel_dnn.py``)."""
 
+import gc
 import threading
 
 import numpy as np
@@ -150,8 +154,37 @@ def test_network_split_matches_single_device(singles, name, tile):
     assert got.shape == (2, H, W)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     # Every shard exchanged at every row-mixing layer; the bytes are the
-    # halo rows each of the 2 x (tile - 1) inner edges passed.
+    # halo rows each of the 2 x (tile - 1) inner edges passed.  16 divides
+    # a shard's rows: no gather.
     assert engine.halo["rounds"] > 0 and engine.halo["bytes"] > 0
+    assert engine.halo["gather_rounds"] == 0
+
+
+# Heights whose shards' rows 16 does not divide: 24 rows (1/8 odd: the
+# three hourglasses gather ahead of their second stride), 12 (1/4 odd:
+# ahead of their first), 8 (1/8 of one row: ahead of their second), 6
+# (1/2 odd: the feature extractors gather ahead of their second stride),
+# 4 (1/4 of one row, short of the dilated blocks' halo of two: there too).
+OTHER_HEIGHTS = [(48, 2), (48, 4), (64, 8), (48, 8), (16, 4), (32, 8)]
+GATHERS = {24: 3, 12: 3, 8: 3, 6: 1, 4: 1}
+
+
+@pytest.mark.parametrize("h,tile", OTHER_HEIGHTS)
+@pytest.mark.parametrize("name", ["gwcnet", "msnet2d", "msnet3d"])
+def test_network_split_at_every_height(singles, name, h, tile):
+    """At every height JAX splits, the rows split: a shard gathers ahead
+    of the stride that would split a row and narrows back where the rows
+    divide again, within 1e-4 px of the single device."""
+    single = singles[name]
+    engine = _engine(single, tile, h=h)
+    assert engine.row_split
+    left, right = _inputs(1, h=h, seed=tile)
+    got = engine.process_batch(left, right)
+    want = single.process_batch(left, right)
+    assert got.shape == (1, h, W)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert engine.halo["rounds"] > 0 and engine.halo["bytes"] > 0
+    assert engine.halo["gather_rounds"] == GATHERS[h // tile]
 
 
 def test_gwcnet_split_matches_jax(singles):
@@ -167,16 +200,57 @@ def test_gwcnet_split_matches_jax(singles):
     np.testing.assert_allclose(out, want, rtol=0, atol=5e-3)
 
 
+@pytest.mark.parametrize("h", [48, 64])
+def test_gwcnet_split_on_tile_8_matches_jax(singles, h):
+    """(1,8,1) at 48 rows (the feature extractor gathers) and 64 (the
+    hourglasses gather), against JAX's GSPMD engine, which splits both."""
+    single = singles["gwcnet"]
+    engine = _engine(single, 8, h=h)
+    left, right = _inputs(1, h=h, seed=h)
+    out = engine.process_batch(left, right).numpy()
+    jax_engine = JaxShardedDnnEngine(
+        "gwcnet", (h, W), JaxMeshConfig(data=1, tile=8, disp=1),
+        max_disparity=16,
+        params=load_params_npz(model_checkpoint_dir("gwcnet") + ".npz"))
+    want = np.asarray(jax_engine.process_batch(left, right))
+    np.testing.assert_allclose(out, want, rtol=0, atol=5e-3)
+
+
+# Shards of four rows, whose 1/4 level (one row) is short of the dilated
+# blocks' halo: (height, tile, the tile of JAX's engine held to).  At 32
+# rows on (1,8,1) JAX's GSPMD engine lies pixels off its own unsharded
+# engine, which the port is held to there.
+FOUR_ROW_SHARDS = [(16, 4, 4), (32, 8, 1)]
+
+
+@pytest.mark.parametrize("h,tile,jax_tile", FOUR_ROW_SHARDS)
+def test_gwcnet_split_of_four_row_shards_matches_jax(singles, h, tile,
+                                                     jax_tile):
+    """The feature extractor gathers ahead of its second stride, within
+    JAX's 5e-3 px of JAX's engine."""
+    engine = _engine(singles["gwcnet"], tile, h=h)
+    left, right = _inputs(1, h=h, seed=h)
+    out = engine.process_batch(left, right).numpy()
+    assert engine.halo["gather_rounds"] == 1
+    jax_engine = JaxShardedDnnEngine(
+        "gwcnet", (h, W), JaxMeshConfig(data=1, tile=jax_tile, disp=1),
+        max_disparity=16,
+        params=load_params_npz(model_checkpoint_dir("gwcnet") + ".npz"))
+    want = np.asarray(jax_engine.process_batch(left, right))
+    np.testing.assert_allclose(out, want, rtol=0, atol=5e-3)
+
+
 def test_row_split_reported_and_frame_fallback(singles):
-    """``row_split`` is true exactly when ``tile > 1`` and 16 * tile
-    divides the height; other heights JAX accepts deal whole frames, equal
-    to the single device.  The pipeline's mesh route and a single frame
-    take the split."""
+    """``row_split`` is true exactly when ``tile > 1``, at every height
+    JAX accepts, 48 rows on tile 2 included; set False, the engine deals
+    whole frames, equal to the single device.  The pipeline's mesh route
+    and a single frame take the split."""
     single = singles["gwcnet"]
     assert not _engine(single, 1, data=2).row_split
     assert _engine(single, 4).row_split
     fallback = _engine(single, 2, h=48)           # 48 % 32 != 0
-    assert not fallback.row_split
+    assert fallback.row_split
+    fallback.row_split = False
     left, right = _inputs(2, h=48, seed=7)
     got = fallback.process_batch(left, right)
     assert torch.equal(got, torch.stack([single.process(l, r)
@@ -197,6 +271,36 @@ def test_row_split_reported_and_frame_fallback(singles):
     whole = engine.replicas[torch.device("cpu")].process(left[0], right[0])
     torch.testing.assert_close(result.disparity_map, whole, rtol=0,
                                atol=1e-4)
+
+
+def _live_runs() -> int:
+    gc.collect()
+    return sum(type(o) in (rows.RowExchange, rows.Rounds)
+               for o in gc.get_objects())
+
+
+def test_split_forward_under_grad_without_backward_is_freed():
+    """A split forward under grad mode whose outputs are dropped without a
+    backward (a loss for evaluation, an error before the backward) leaves
+    none of its exchanges behind: each round's autograd node holds what
+    its backward reads, and not the run's exchanges, which reach the node
+    again through their token."""
+    w1, w2 = (_randn(4, 4, 3, 3, seed=s).requires_grad_() for s in (1, 2))
+    x = _randn(1, 4, 8, 6)
+    before = _live_runs()
+    threads = ShardThreads()
+    try:
+        for _ in range(3):
+            with torch.enable_grad():
+                results, exchanges = threads.run([[(
+                    "cpu", lambda t=t: rows.conv2d(rows.conv2d(
+                        x[..., 4 * t:4 * t + 4, :], w1), w2))
+                    for t in range(2)]])
+            assert results[0][0].requires_grad and exchanges[0].rounds == 2
+            del results, exchanges
+            assert _live_runs() == before
+    finally:
+        threads.close()
 
 
 def test_failing_shard_raises_without_hanging():

@@ -170,7 +170,7 @@ def test_one_row_shards_carry_gradient_back(funnel):
             got_grads = torch.autograd.grad(loss, leaves)
     finally:
         threads.close()
-    assert exchanges[0].back_rounds == exchanges[0].rounds == 1
+    assert exchanges[0].back.rounds == exchanges[0].rounds == 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     for g, want_g in zip(got_grads, want_grads):
         torch.testing.assert_close(g, want_g, rtol=0, atol=1e-5)

@@ -69,7 +69,9 @@ CASES = {
     "middlebury_blockwise_132": ("middlebury", (1, 3, 2), (2, 2, 1, 1), {}),
     "pipeline_122": ("pipeline", (1, 2, 2), None, {}),
     "gwcnet_split_221": ("gwcnet", (2, 2, 1), (2, 2, 2, 2), {}),
-    "gwcnet_dealt_221": ("gwcnet", (2, 2, 1), (1, 1, 1, 1), dict(h=48)),
+    # Whole frames dealt over the tile devices: the engine's switch.
+    "gwcnet_dealt_221": ("gwcnet", (2, 2, 1), (1, 1, 1, 1),
+                         dict(h=48, row_split=False)),
     "single_view_split_221": ("single_view", (2, 2, 1), (2, 2, 2, 2), {}),
     # Row splits whose tile group spans ranks: the halo exchange crosses
     # them at every row-mixing layer.  (1,2,1) leaves ranks 2 and 3
@@ -78,6 +80,9 @@ CASES = {
     "gwcnet_split_121": ("gwcnet", (1, 2, 1), (1, 1, 1, 1), {}),
     "gwcnet_split_141": ("gwcnet", (1, 4, 1), (1, 1, 1, 1), {}),
     "gwcnet_split_221_overlap": ("gwcnet", (2, 2, 1), (1, 2, 1, 1), {}),
+    # 24 rows a shard: the hourglasses gather across the ranks ahead of
+    # their second stride, and narrow back.
+    "gwcnet_split_121_h48": ("gwcnet", (1, 2, 1), (1, 1, 1, 1), dict(h=48)),
     "msnet2d_split_121": ("msnet2d", (1, 2, 1), (1, 1, 1, 1), dict(d=64)),
     "msnet3d_split_121": ("msnet3d", (1, 2, 1), (1, 1, 1, 1), {}),
     "single_view_split_121": ("single_view", (1, 2, 1), (1, 1, 1, 1), {}),
@@ -200,6 +205,7 @@ def run_case(name, across: bool):
     if kind in NETWORKS:
         engine = ShardedDnnEngine(kind, (h, 96), mc, mesh=mesh_of(mc, entries),
                                   max_disparity=opts.get("d", 16))
+        engine.row_split = opts.get("row_split", engine.row_split)
         disparity = engine.process_batch(left, torch.roll(left, -3, dims=-1))
         halo = engine.halo
         return dict(disparity=disparity,
@@ -335,9 +341,9 @@ def funnel_backward(threads, line, name, x, w):
         y, ex = results[0][t], exchanges[0]
         torch.autograd.backward(rows.tie(y, ex.token),
                                 upstream(name, t, y.shape))
-    return dict(grad=shard.grad, back_rounds=ex.back_rounds,
-                back_cross_rounds=ex.back_cross_rounds,
-                back_cross_bytes=ex.back_cross_bytes)
+    return dict(grad=shard.grad, back_rounds=ex.back.rounds,
+                back_cross_rounds=ex.back.cross_rounds,
+                back_cross_bytes=ex.back.cross_bytes)
 
 
 def backward_failure(threads, line, order, timeout_s=None):
