@@ -543,6 +543,7 @@ void prefetch_worker(Prefetcher* p) {
     std::pair<int64_t, std::string> job;
     {
       std::unique_lock<std::mutex> lock(p->mu);
+      // An idle worker waits for work without a bound: destroy() wakes it.
       p->cv_work.wait(lock, [&] { return p->stopping || !p->work.empty(); });
       if (p->stopping && p->work.empty()) return;
       job = std::move(p->work.front());
@@ -584,6 +585,8 @@ void* sn_prefetcher_create(int slots, int out_h, int out_w, int pad_left,
 int64_t sn_prefetcher_submit(void* handle, const char* path) {
   auto* p = static_cast<Prefetcher*>(handle);
   std::unique_lock<std::mutex> lock(p->mu);
+  // Bounded by the consumer: the Python wrapper never submits more than
+  // `slots` ahead of the frames it takes (FramePrefetcher).
   p->cv_done.wait(lock, [&] {
     return p->next_ticket - p->next_consume < p->slots;
   });
@@ -602,6 +605,8 @@ int sn_prefetcher_next(void* handle, float* out) {
   std::unique_lock<std::mutex> lock(p->mu);
   const int64_t ticket = p->next_consume;
   const int slot = int(ticket % p->slots);
+  // Bounded by one decode of a submitted file (the wrapper takes only
+  // tickets it submitted); a decoder error ends it too.
   p->cv_done.wait(lock, [&] { return p->status[slot] != 0; });
   const int rc = p->status[slot];
   if (rc == 1)
@@ -621,6 +626,7 @@ void sn_prefetcher_destroy(void* handle) {
     p->stopping = true;
   }
   p->cv_work.notify_all();
+  // Each worker ends after the decode it is in, if any.
   for (auto& t : p->threads) t.join();
   delete p;
 }

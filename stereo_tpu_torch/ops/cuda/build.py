@@ -40,6 +40,9 @@ _SIGNATURES = {
     "stereo_gwc_volume": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
+# Seconds one nvcc call may take before the build is given up (the one
+# call for every kernel takes 15-20 s on the card's machine).
+NVCC_TIMEOUT_S = 900
 _lock = threading.Lock()
 _library = None
 build_seconds = 0.0   # wall time of this process's nvcc call, 0 on a cache hit
@@ -87,7 +90,12 @@ def compile_library(sources=None):
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=NVCC_TIMEOUT_S)
+    except subprocess.TimeoutExpired as exc:
+        raise RuntimeError(f"nvcc took more than {NVCC_TIMEOUT_S} s: "
+                           f"{' '.join(cmd)}") from exc
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")

@@ -301,8 +301,9 @@ class Shard:
     """The calling thread's part of a row split: shard ``index`` of
     ``exchange.count`` (its index in the whole split, which may have
     shards in other processes), thread ``thread`` of the run's ``turns``
-    (which has ``pass_on(thread)`` and ``wait(thread)``), whose rounds
-    ``run`` steps, on ``stream`` (None on the CPU)."""
+    (which has ``pass_on(thread)``, ``wait(thread)`` and ``bounded()``,
+    the context of a step whose waits carry their own bounds), whose
+    rounds ``run`` steps, on ``stream`` (None on the CPU)."""
 
     index: int
     exchange: RowExchange
@@ -574,7 +575,8 @@ def _publish(x: torch.Tensor, key: tuple,
     slot[i] = (x, shard.stream, key + (r,), spec)
     shard.turns.pass_on(shard.thread)
     shard.turns.wait(shard.thread)
-    shard.run(r)
+    with shard.turns.bounded():
+        shard.run(r)
     return ex._outs[r % 2][i]
 
 

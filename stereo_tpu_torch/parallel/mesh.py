@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.config import MeshConfig
+from . import transport
 from .transport import Line, Transport, world_size
 
 MESH_AXES = ("data", "tile", "disp")
@@ -168,7 +169,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     any init-method URL, e.g. ``file://PATH``) with the given world size
     and rank, on ``backend`` (default NCCL with CUDA, else gloo; gloo
     stages CUDA tensors through the host, as two ranks on one card need:
-    NCCL refuses them)."""
+    NCCL refuses them).  The group's timeout is ``transport.TIMEOUT_S``:
+    it bounds the rendezvous (a rank that never comes) and every
+    collective of the group."""
     if coordinator_address is None:
         return
     import torch.distributed as dist
@@ -176,9 +179,15 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     address = coordinator_address
     if "://" not in address:
         address = f"tcp://{address}"
-    dist.init_process_group(
-        backend or ("nccl" if torch.cuda.is_available() else "gloo"),
-        init_method=address, world_size=num_processes, rank=process_id)
+    try:
+        dist.init_process_group(
+            backend or ("nccl" if torch.cuda.is_available() else "gloo"),
+            init_method=address, world_size=num_processes, rank=process_id,
+            timeout=transport.timeout())
+    except RuntimeError as exc:
+        raise RuntimeError(
+            f"rank {process_id} of {num_processes} joining the group at "
+            f"{address} (bound {transport.TIMEOUT_S} s): {exc}") from exc
 
 
 @dataclass(frozen=True)

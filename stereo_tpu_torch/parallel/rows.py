@@ -24,6 +24,16 @@ shard failed leaves its peers waiting that long at most, and they raise.
 Under grad mode each exchange is an autograd node whose backward
 crosses ranks again (``ops.rows._Round``), bounded by the same timeout.
 
+Every wait of a run is bounded.  A shard waits at most ``TURN_TIMEOUT_S``
+for its turn, and the caller of :meth:`ShardThreads.run` gives the run up
+once a shard has held the turn that long without reaching its next
+exchange (its cross-rank steps carry their own bounds): the run raises an
+error naming the stuck shard, the others raise at once, and the stuck
+thread is retired (it ends when its job returns; nothing waits for it,
+and as a daemon it does not keep its process alive).
+:meth:`ShardThreads.close` waits at most ``TURN_TIMEOUT_S`` for its
+threads.
+
 When every shard of a split lies on one card, the launches of all shards
 still come from one thread at a time, and they bound the split (each
 shard launches the whole network).  :meth:`ShardThreads.replay` then
@@ -39,6 +49,7 @@ import contextlib
 import functools
 import queue
 import threading
+import time
 import weakref
 from typing import (Any, Callable, Dict, List, Optional, Sequence,
                     Tuple)
@@ -50,41 +61,57 @@ from ..ops.cuda.graphs import CapturedGraph, GraphPool
 from ..ops.cuda.launch import capturing_counts, thread_counts
 from ..ops.rows import RowExchange, Rounds, Shard
 
-# Seconds a shard waits for its turn, or for another process's rows, before
-# the run is given up (a build or a first cuDNN call of another shard may
-# take a while).
+# Seconds a shard waits for its turn, or for another process's rows, or
+# holds its turn between two exchanges, before the run is given up (a
+# build or a first cuDNN call of another shard may take a while); also how
+# long ShardThreads.close waits for its threads.
 TURN_TIMEOUT_S = 300.0
 
 
 class RowSplitAborted(RuntimeError):
     """Raised in a shard whose turn came after another shard failed, or
-    that waited longer than the timeout for its turn."""
+    that waited longer than the timeout for its turn, and by
+    :meth:`ShardThreads.run` for a shard that held its turn longer than
+    the timeout."""
 
 
 class _Turns:
     """The ring of a run's shard threads, of which one runs at a time:
-    thread ``k`` waits on its own lock, and the thread whose turn it is
-    hands it on by releasing the next one's.  Only the thread holding the
-    turn changes the ring."""
+    thread ``k`` waits on its own condition until the turn is its own, and
+    the thread whose turn it is hands it on to the next.  Only the thread
+    holding the turn changes the ring.  ``since`` is when the turn last
+    moved, None while its holder is in a step whose waits carry their own
+    bounds (:meth:`bounded`)."""
 
     def __init__(self, n: int):
-        self._locks = [threading.Lock() for _ in range(n)]
-        for lock in self._locks:
-            lock.acquire()
+        self._lock = threading.Lock()
+        self._ready = [threading.Condition(self._lock) for _ in range(n)]
         self._ring = list(range(n))
+        self.turn = None
         self.holder = None
+        self.since = None
         self.failed = False
 
     def start(self) -> None:
-        self._locks[0].release()
+        self._hand(0)
+
+    def _hand(self, k: int) -> None:
+        with self._lock:
+            self.turn = k
+            self.since = time.monotonic()
+            self._ready[k].notify()
 
     def wait(self, k: int) -> None:
-        if not self._locks[k].acquire(timeout=TURN_TIMEOUT_S):
-            self.failed = True
-            raise RowSplitAborted(f"row split: no turn for {TURN_TIMEOUT_S} s")
-        self.holder = k
-        if self.failed:
-            raise RowSplitAborted("row split aborted: another shard failed")
+        with self._lock:
+            if not self._ready[k].wait_for(
+                    lambda: self.turn == k or self.failed, TURN_TIMEOUT_S):
+                self._abort()
+                raise RowSplitAborted(
+                    f"row split: shard thread {k} got no turn for "
+                    f"{TURN_TIMEOUT_S} s")
+            if self.failed:
+                raise RowSplitAborted("row split aborted: another shard failed")
+            self.holder = k
 
     def pass_on(self, k: int, leave: bool = False) -> None:
         ring = self._ring
@@ -93,7 +120,34 @@ class _Turns:
             ring.remove(k)
         self.holder = None
         if nxt != k or not leave:       # alone, a thread hands itself on
-            self._locks[nxt].release()
+            self._hand(nxt)
+
+    def abort(self) -> None:
+        """Mark the run failed: every thread waiting for its turn raises."""
+        with self._lock:
+            self._abort()
+
+    def _abort(self) -> None:
+        self.failed = True
+        for ready in self._ready:
+            ready.notify()
+
+    @contextlib.contextmanager
+    def bounded(self):
+        """A step of the holder whose every wait has a bound of its own (a
+        round's cross-rank messages): the caller's watch does not count
+        it as holding the turn."""
+        self.since = None
+        try:
+            yield
+        finally:
+            self.since = time.monotonic()
+
+    def stalled(self) -> Optional[float]:
+        """Seconds the turn has stayed with its holder outside a bounded
+        step, None inside one."""
+        since = self.since
+        return None if since is None else time.monotonic() - since
 
 
 class ShardThreads:
@@ -108,7 +162,9 @@ class ShardThreads:
 
     def __init__(self):
         self._queues = []
-        self._finalizer = weakref.finalize(self, _stop, self._queues)
+        self._guard = threading.Lock()      # over _queues
+        self._finalizer = weakref.finalize(self, _stop, self._queues,
+                                           self._guard)
         self._lock = threading.RLock()
         self._graphs: Dict[Any, CapturedGraph] = {}
         self._pool = GraphPool()
@@ -195,36 +251,87 @@ class ShardThreads:
                     results[s][i] = work()
             except BaseException as e:       # re-raised by the caller below
                 errors.append(e)
-                turns.failed = True
+                turns.abort()
             finally:
                 rows.set_current(None)
                 if turns.holder == k:
                     turns.pass_on(k, leave=True)
                 done.put(k)
 
-        while len(self._queues) < len(jobs):
-            q = queue.SimpleQueue()
-            thread = threading.Thread(target=_serve, args=(q,), daemon=True,
-                                      name=f"row-shard-{len(self._queues)}")
-            thread.start()
-            self._queues.append((q, thread))
+        with self._guard:
+            while len(self._queues) < len(jobs):
+                self._queues.append(_start(len(self._queues)))
         for k, (s, i, device, work) in enumerate(jobs):
             stream = (torch.cuda.current_stream(device)
                       if device.type == "cuda" else None)
             self._queues[k][0].put(functools.partial(shard_main, k, s, i,
                                                   device, work, stream))
         turns.start()
-        for _ in jobs:
-            done.get()
+        stuck = self._watch(turns, done, jobs)
         for ex in exchanges:
             ex.release()
-        if errors:
+        if errors or stuck:
             raise next((e for e in errors
-                        if not isinstance(e, RowSplitAborted)), errors[0])
+                        if not isinstance(e, RowSplitAborted)),
+                       stuck or errors[0])
         return results, exchanges
 
+    def _watch(self, turns: _Turns, done: queue.SimpleQueue,
+               jobs: list) -> Optional[RowSplitAborted]:
+        """Wait until every job of the run has reported on ``done``, or
+        until a shard has held the turn ``TURN_TIMEOUT_S`` outside a
+        bounded step: the run is then marked failed (the shards waiting
+        for their turn raise at once) and the error naming the stuck
+        shard is returned.  A thread that has not reported by then, or
+        within another ``TURN_TIMEOUT_S`` for the others, is retired: it
+        ends when its job returns, and a new thread takes its place."""
+        pending, stuck, deadline = set(range(len(jobs))), None, None
+        while pending:
+            if deadline is None:
+                left = TURN_TIMEOUT_S - (turns.stalled() or 0.0)
+            else:
+                left = deadline - time.monotonic()
+            try:
+                pending.discard(done.get(timeout=max(left, 0.0)))
+                continue
+            except queue.Empty:
+                pass
+            if deadline is not None:
+                break
+            stalled = turns.stalled()
+            if stalled is None or stalled < TURN_TIMEOUT_S:
+                continue
+            k = turns.turn
+            s, i, device, _ = jobs[k]
+            stuck = RowSplitAborted(
+                f"row split: shard {i} of split {s} (on {device}, thread "
+                f"{_name(k)}) held its turn for more than {TURN_TIMEOUT_S} s "
+                f"without reaching its next exchange")
+            turns.abort()
+            pending.discard(k)
+            self._retire(k)
+            deadline = time.monotonic() + TURN_TIMEOUT_S
+        for k in pending:
+            self._retire(k)
+        return stuck
+
+    def _retire(self, k: int) -> None:
+        """Replace thread ``k``, which is still in a job, with a new one
+        (none once closed, which has stopped it); it ends when that job
+        returns."""
+        with self._guard:
+            if self._finalizer.alive:
+                self._queues[k][0].put(None)
+                self._queues[k] = _start(k)
+
     def close(self) -> None:
-        self._finalizer()
+        """Stop the threads, waiting at most ``TURN_TIMEOUT_S`` for them;
+        raises ``RuntimeError`` naming a thread that is still in a job
+        then (it is left to end on its own: a daemon)."""
+        left = self._finalizer()
+        if left:
+            raise RuntimeError(f"ShardThreads.close: {', '.join(left)} still "
+                               f"in a job after {TURN_TIMEOUT_S} s")
 
 
 HALO_KEYS = ("rounds", "gather_rounds", "bytes", "cross_rounds",
@@ -261,16 +368,39 @@ def _serve(jobs: queue.SimpleQueue) -> None:
         del job
 
 
-def _stop(queues: list) -> None:
-    """Stop the threads and wait for them: a thread that has run CUDA or
-    CPU work must end before the interpreter does, or its native state is
-    torn down under it (the process aborts).  Also run at exit."""
-    for q, _ in queues:
+def _start(k: int) -> Tuple[queue.SimpleQueue, threading.Thread]:
+    """Shard thread ``k``, started, and the queue of its jobs."""
+    q = queue.SimpleQueue()
+    thread = threading.Thread(target=_serve, args=(q,), daemon=True,
+                              name=_name(k))
+    thread.start()
+    return q, thread
+
+
+def _name(k: int) -> str:
+    return f"row-shard-{k}"
+
+
+def _stop(queues: list, guard: threading.Lock) -> List[str]:
+    """Stop the threads and wait for them, at most ``TURN_TIMEOUT_S`` in
+    all: a thread that has run CUDA or CPU work must end before the
+    interpreter does, or its native state is torn down under it (the
+    process aborts).  Also run at exit.  Returns the names of the threads
+    still running then (each a daemon, which does not hold the process
+    at exit)."""
+    with guard:
+        stopping = list(queues)
+        queues.clear()
+    for q, _ in stopping:
         q.put(None)
-    for _, thread in queues:
+    deadline = time.monotonic() + TURN_TIMEOUT_S
+    left = []
+    for _, thread in stopping:
         if thread is not threading.current_thread():
-            thread.join()
-    queues.clear()
+            thread.join(max(deadline - time.monotonic(), 0.0))
+            if thread.is_alive():
+                left.append(thread.name)
+    return left
 
 
 def _on(device: torch.device, stream):

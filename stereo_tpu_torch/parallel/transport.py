@@ -45,6 +45,18 @@ from typing import Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+# Seconds any wait of the transport lasts at most before it raises: each
+# message and collective it waits on, and the groups it makes (and the
+# default group of ``parallel.initialize_distributed``), whose own timeout
+# bounds the collectives that take none (``new_group``,
+# ``all_gather_object``, ``barrier``).  PyTorch's default is 30 minutes.
+TIMEOUT_S = 300.0
+
+
+def timeout() -> datetime.timedelta:
+    """:data:`TIMEOUT_S` as a process group takes it."""
+    return datetime.timedelta(seconds=TIMEOUT_S)
+
 
 def world_size() -> int:
     """The default process group's size, 1 without one."""
@@ -73,7 +85,8 @@ class Transport:
         if len(ranks) == dist.get_world_size():
             return dist.group.WORLD
         if ranks not in self._groups:
-            self._groups[ranks] = dist.new_group(list(ranks))
+            self._groups[ranks] = dist.new_group(list(ranks),
+                                                 timeout=timeout())
         return self._groups[ranks]
 
     # -- host staging (gloo) ----------------------------------------------
@@ -105,7 +118,9 @@ class Transport:
         buf = self._out(t)
         if buf is t:
             buf = t.clone()
-        dist.all_reduce(buf, op, group=group)
+        _wait(dist.all_reduce(buf, op, group=group, async_op=True), None,
+              f"rank {self.rank}: all_reduce over ranks "
+              f"{dist.get_process_group_ranks(group)}")
         return self._back(buf, t.device)
 
     def all_gather_parts(self, parts: Sequence[Optional[torch.Tensor]],
@@ -139,7 +154,7 @@ class Transport:
         sent = self._out(flat)
         bufs = [torch.empty_like(sent) for _ in members]
         _wait(dist.all_gather(bufs, sent, group=group, async_op=True),
-              timeout_s)
+              timeout_s, f"rank {self.rank}: all_gather over ranks {members}")
         bufs = [self._back(b, device) for b in bufs]
         out, seen = [], {}
         for o in owners:
@@ -174,8 +189,9 @@ class Line:
         shape of ``piece(xs[i])``.  Messages are posted in one global
         order (receiver, then want), so both ends of a pair post theirs
         in the same order; each carries its own tag.  ``timeout_s`` bounds
-        the wait for each message (None: the group's own limit); on gloo
-        a message that times out raises ``RuntimeError``."""
+        the wait for each message (None: :data:`TIMEOUT_S`); on gloo a
+        message that times out raises ``RuntimeError``, naming the ranks
+        it waited for."""
         tr, n = self.transport, len(xs)
         out = [[None] * len(wants) if self.local(i) else None
                for i in range(n)]
@@ -200,8 +216,10 @@ class Line:
                                           self.group, tag))
                     pending.append((i, w, buf, mine.device))
         if ops:
+            peers = sorted({op.peer for op in ops})
             for work in dist.batch_isend_irecv(ops):
-                _wait(work, timeout_s)
+                _wait(work, timeout_s, f"rank {tr.rank}: ring_fetch over "
+                      f"ranks {self.ranks}, messages with ranks {peers}")
         for i, w, buf, device in pending:
             out[i][w] = tr._back(buf, device)
         return out
@@ -221,12 +239,15 @@ class Line:
             like=next(x for x in xs if x is not None), timeout_s=timeout_s)
 
 
-def _wait(work, timeout_s: Optional[float]) -> None:
-    """Wait for ``work``, at most ``timeout_s`` seconds when given."""
-    if timeout_s is None:
-        work.wait()
-    else:
-        work.wait(datetime.timedelta(seconds=timeout_s))
+def _wait(work, timeout_s: Optional[float], what: str) -> None:
+    """Wait for ``work`` at most ``timeout_s`` seconds (None:
+    :data:`TIMEOUT_S`); a wait that fails raises ``RuntimeError`` naming
+    ``what`` it waited for."""
+    seconds = TIMEOUT_S if timeout_s is None else timeout_s
+    try:
+        work.wait(datetime.timedelta(seconds=seconds))
+    except RuntimeError as exc:
+        raise RuntimeError(f"{what} (bound {seconds} s): {exc}") from exc
 
 
 def spawn_ranks(target: Callable, world: int, store: str, args=(),
@@ -256,7 +277,7 @@ def spawn_ranks(target: Callable, world: int, store: str, args=(),
             p.join(10)
             if p.is_alive():
                 p.kill()
-                p.join()
+                p.join(10)
             codes.append(None)
         else:
             codes.append(p.exitcode)

@@ -75,14 +75,14 @@ def run_depth_estimation_pipeline(
             still_pending = []
             for f in pending:
                 if f.done():
-                    f.result()   # surface hook exceptions instead of dropping them
+                    f.result()   # done: surface hook exceptions instead of dropping them
                 else:
                     still_pending.append(f)
             pending = still_pending
             pending += [pool.submit(DepthEstimationPipelineHook.invoke_in_context,
                                     hook, context) for hook in hooks]
         for f in pending:
-            f.result()
+            f.result()   # bounded by the hook's own work (a file written)
         list(pool.map(lambda h: h.on_pipeline_end(), hooks))
 
 
@@ -130,7 +130,7 @@ def run_depth_estimation_pipeline_batched(
         if batch:
             pending += flush(batch, start, pool)
         for f in pending:
-            f.result()
+            f.result()   # bounded by the hook's own work (a file written)
         list(pool.map(lambda h: h.on_pipeline_end(), hooks))
 
 

@@ -120,6 +120,8 @@ class MicroBatcher:
         return future
 
     def _drain_group(self):
+        # An idle batcher waits for its next request without a bound:
+        # shutdown() posts None.
         item = self._queue.get()
         if item is None:
             return None
@@ -161,6 +163,7 @@ class MicroBatcher:
 
     def _readback_loop(self) -> None:
         while True:
+            # The dispatcher posts every batch, and None when it stops.
             item = self._inflight.get()
             if item is None:
                 return
@@ -291,7 +294,7 @@ class DepthEstimationServer:
         bound = self.start(host, port)
         print(f"Serving depth estimation on http://{bound[0]}:{bound[1]}")
         try:
-            self._thread.join()
+            self._thread.join()     # serving until interrupted, by design
         except KeyboardInterrupt:
             pass
         finally:

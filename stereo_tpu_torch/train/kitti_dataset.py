@@ -87,6 +87,8 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
     t.start()
     try:
         while True:
+            # Bounded by one batch's loading: the worker always posts
+            # `done` at its end, and an error before it.
             batch = q.get()
             if batch is done:
                 return
@@ -96,8 +98,8 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
     finally:
         stop.set()
         while t.is_alive():          # unblock a worker waiting on put()
-            try:
+            try:                     # (it stops after the item it loads)
                 q.get(timeout=0.1)
             except queue.Empty:
                 pass
-        t.join()
+        t.join()                     # it has ended: returns at once

@@ -30,6 +30,10 @@ from stereo_tpu_torch.matching.classical import ClassicalStereoEngine
 from stereo_tpu_torch.ops import cuda as tcuda
 from stereo_tpu_torch.ops.gather import take_lane, take_window_lanes
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 # The five configs of tests/test_pallas.py: KITTI-like, Middlebury-like
 # (nonzero min disparity), min disparity beyond the halo, a height with no
 # aligned tile, and enough planes for the TPU kernels' chunked loops.

@@ -24,6 +24,10 @@ from stereo_tpu_torch.ops.conv3d import (conv_same, deconv3d_parity,
                                          pack_deconv3d_weight, same_padding)
 from stereo_tpu_torch.ops.cuda import LAUNCHES, gwc_volume, gwc_volume_plain
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 
 def nchw(x):
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))

@@ -42,6 +42,10 @@ from stereo_tpu_torch.utils import paths
 from stereo_tpu_torch.utils.paths import model_checkpoint_dir
 from stereo_tpu_torch.utils.png import decode_png, encode_png
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 
 def numpy_variables(module, x, seed):
     """Flax variables of ``module`` for input ``x`` with every leaf drawn

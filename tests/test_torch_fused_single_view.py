@@ -42,6 +42,10 @@ from stereo_tpu_torch.synthesis.right_view_synthesis import (
 from stereo_tpu_torch.utils import png
 from stereo_tpu_torch.utils.png import encode_png
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 SHAPE = (48, 96)
 FULL, DOWN = (128, 256), (32, 64)
 MATCHING = dict(height=48, width=96, downscale_factor=2, min_disparity=0,

@@ -20,6 +20,10 @@ from test_torch_dnn import textured_pair
 
 from stereo_tpu_torch.pipeline import DnnStereoMatchingBackend
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 SHAPE = (64, 256)
 DEPTH = 192
 

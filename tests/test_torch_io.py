@@ -20,6 +20,10 @@ from stereo_tpu.utils import velodyne as jax_velodyne
 from stereo_tpu_torch import _native
 from stereo_tpu_torch.utils import image_io, pointcloud, png, velodyne
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 FIXTURE_CALIB = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "fixtures", "kitti", "2011_09_26")
 FIXTURE_DRIVE = os.path.join(FIXTURE_CALIB, "2011_09_26_drive_0001_sync")

@@ -53,6 +53,10 @@ from stereo_tpu_torch.parallel.train import (ShardedTrainStep, alias,
                                              train_layout)
 from stereo_tpu_torch.train.trainer import Trainer
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 FULL, DOWN = (128, 128), (32, 32)
 FILTERS = (16, 16, 16, 16, 16)
 MESHES = [(2, 1, 1), (1, 2, 1), (2, 2, 1), (1, 4, 1), (1, 8, 1), (1, 3, 1)]

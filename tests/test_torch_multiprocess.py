@@ -1,8 +1,10 @@
 """The port's mesh across processes (``stereo_tpu_torch.parallel`` under a
 ``torch.distributed`` group, ``parallel/transport.py``) on the CPU: one
 group of four gloo ranks, spawned once for the module
-(``tests/torch_multiprocess_ranks.py``), runs every case, and the tests
-compare what each rank received.
+(``tests/torch_multiprocess_ranks.py``'s ``run``), runs every case, and
+the tests compare what each rank received.  Deep3D's sharded training
+step across the ranks has a group of its own
+(``tests/test_torch_multiprocess_train.py``).
 
 Contract (JAX's, for its engines across hosts): on integer-valued pairs
 (and on the real pairs, whose sums are the same ones) each engine across
@@ -20,14 +22,10 @@ ranks matches the whole frame at the 1e-5 of
 seeded gradient of each shard's output rows (``conv2d``, ``gather``,
 ``upsample_bilinear``, and a halo whose received rows get no gradient);
 an exchange out of step, or a rank whose shard fails, raises on both
-ranks, in the forward and in the backward.  Deep3D's sharded training
-step with its data groups ((2,1,1), (4,1,1)) or its tile groups ((1,2,1),
-(1,4,1), (2,2,1), (1,4,1) two shards a rank, and (1,8,1) two shards a
-rank, 4 down rows a shard) across the ranks gives,
-on every rank, the losses, weights and Adam state of the same mesh in
-one process bit for bit, with every replica identical.  The group is
-joined within a time limit: a hung rank fails the fixture, it does not
-hang the run.
+ranks, in the forward and in the backward; a transport wait whose peer
+never sends raises within the transport's bound, naming the peer.  The
+group is joined within a time limit: a hung rank fails the fixture, it
+does not hang the run.
 """
 
 import numpy as np
@@ -43,10 +41,12 @@ from stereo_tpu.parallel import ShardedDnnEngine as JaxShardedDnnEngine
 
 from stereo_tpu_torch.ops import rows
 from stereo_tpu_torch.parallel.classical import _all_gather_rows
-from stereo_tpu_torch.parallel.transport import spawn_ranks
 from stereo_tpu_torch.utils.paths import model_checkpoint_dir
 
 import torch_multiprocess_ranks as ranks
+import torch_threads
+
+torch_threads.take_worker_share()
 
 WORLD = 4
 NAMES = sorted(ranks.CASES)
@@ -71,18 +71,10 @@ SPANNING = [n for n in NAMES if "split" in n and tile_group_spans_ranks(n)]
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
     """Every case across the 4 ranks: (each rank's results, the one
-    process results of every rank)."""
-    out = tmp_path_factory.mktemp("ranks")
-    codes = spawn_ranks(ranks.run, WORLD, str(out / "store"),
-                        args=(str(out), NAMES), timeout_s=240)
-    errors = {p.name: p.read_text() for p in out.glob("rank*.err")}
-    assert codes == [0] * WORLD, (codes, errors)
-    alone = torch.load(out / "one_process.pt", weights_only=False)
-    for r in range(1, WORLD):
-        alone.update(torch.load(out / f"one_process_train{r}.pt",
-                                weights_only=False))
-    return ([torch.load(out / f"rank{r}.pt", weights_only=False)
-             for r in range(WORLD)], alone)
+    process results of every case)."""
+    return ranks.spawn_group(ranks.run, NAMES, WORLD,
+                             str(tmp_path_factory.mktemp("ranks")),
+                             timeout_s=240)
 
 
 @pytest.mark.parametrize("name", sorted(ranks.CASES))
@@ -93,36 +85,6 @@ def test_case_across_processes_equals_one_process(group, name):
         assert results[name].keys() == want[name].keys()
         for key, value in want[name].items():
             assert torch.equal(results[name][key], value), (rank, key)
-
-
-@pytest.mark.parametrize("name", sorted(ranks.TRAIN_CASES))
-def test_training_across_processes_equals_one_process(group, name):
-    """Every rank, those outside the mesh included, ends each step with
-    the loss, weights and Adam state of one process, bit for bit.  Where
-    ``tile`` > 1 the step splits rows, and every rank holding a shard
-    crosses ranks in each round of the forward and of the backward."""
-    got, want = group
-    shape, entries = ranks.TRAIN_CASES[name]
-    assert want[name]["replicas"] == 1 and want[name]["replicas_identical"]
-    assert want[name]["row_split"] == (shape[1] > 1)
-    for rank, results in enumerate(got):
-        case = results[name]
-        assert torch.equal(case["losses"], want[name]["losses"]), rank
-        assert case["digest"] == want[name]["digest"], rank
-        assert case["replicas"] == 1 and case["replicas_identical"], rank
-        assert case["row_split"] == want[name]["row_split"], rank
-    if shape[1] == 1:
-        return
-    rounds = want[name]["halo"]["rounds"]
-    assert rounds > 0 and want[name]["halo"]["back_rounds"] == rounds
-    assert want[name]["halo"]["cross_rounds"] == 0
-    held = [r[name]["halo"] for r in got if r[name]["halo"] is not None]
-    owners = np.repeat(np.arange(WORLD), entries)[:np.prod(shape)]
-    assert len(held) == len(set(owners))
-    for h in held:
-        assert (h["rounds"] == h["cross_rounds"] == h["back_rounds"]
-                == h["back_cross_rounds"] == rounds), h
-        assert h["back_cross_bytes"] > 0 and h["cross_bytes"] > 0, h
 
 
 def test_paths_taken(group):
@@ -288,6 +250,19 @@ def test_failing_shard_across_ranks_ends_its_peer_within_the_timeout(group):
     kind, message, seconds = got[0]["funnels"]["failing_shard"]
     assert kind == "RuntimeError" and "Timed out" in message, message
     assert 1.5 < seconds < 30
+
+
+def test_transport_wait_without_a_peer_raises_within_its_bound(group):
+    """Rank 0 waits for rows that rank 1 never sends, under the
+    transport's own bound (no timeout given): it raises within the bound,
+    naming the line and the rank it waited for."""
+    got, _ = group
+    kind, message, seconds = got[0]["no_peer"]
+    assert kind == "RuntimeError", message
+    assert ("rank 0: ring_fetch over ranks [0, 1], messages with ranks [1] "
+            f"(bound {ranks.NO_PEER_TIMEOUT_S} s)") in message, message
+    assert ranks.NO_PEER_TIMEOUT_S * 0.75 < seconds < 10
+    assert all(results["no_peer"] is None for results in got[1:])
 
 
 def test_classical_across_processes_matches_jax(group):

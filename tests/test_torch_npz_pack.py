@@ -12,6 +12,10 @@ import pytest
 
 from stereo_tpu_torch.utils import npz_pack
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

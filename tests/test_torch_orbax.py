@@ -18,11 +18,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-import orbax.checkpoint as ocp
 import pytest
-import tensorstore as ts
 import torch
-import zstandard
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
 from stereo_tpu.core.config import TrainerConfig as JaxTrainerConfig
@@ -52,11 +49,18 @@ from stereo_tpu_torch.utils.ocdbt import OcdbtStore, write_ocdbt
 from stereo_tpu_torch.utils.orbax import read_tree
 from stereo_tpu_torch.utils.paths import model_checkpoint_dir
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures")
 
 # Orbax warns on every restore without a template.
 logging.getLogger("absl").setLevel(logging.ERROR)
+# orbax, tensorstore and zstandard are imported in the tests that use them:
+# every xdist worker imports this module when it collects, and they take
+# seconds to import.
 
 
 def bits(x):
@@ -110,6 +114,7 @@ def payload(size, seed=0):
 def test_zstd_equals_zstandard(size, level):
     """With and without the content size and the checksum in the
     header."""
+    import zstandard
     flags = [(True, True), (True, False), (False, True), (False, False)]
     if size == 3_000_000 and level == 19:
         # Level 19 takes 1.7 s to encode 3 MB: level 12 (0.3 s) writes the
@@ -128,6 +133,7 @@ def test_zstd_equals_zstandard(size, level):
 
 
 def test_zstd_concatenated_and_skippable_frames():
+    import zstandard
     a, b = payload(70_000, 1), payload(5_000, 2)
     c = zstandard.ZstdCompressor(level=3)
     skippable = (0x184D2A53).to_bytes(4, "little") + (5).to_bytes(
@@ -143,6 +149,7 @@ def test_zstd_refuses_corrupt_input():
     flip either breaks a field or the checksum, or lands on a bit the
     content does not depend on), a dictionary's frame and a foreign magic
     all raise ``ValueError``."""
+    import zstandard
     data = payload(150_000, 3)
     frame = zstandard.ZstdCompressor(level=3, write_checksum=True).compress(
         data)
@@ -188,6 +195,7 @@ def test_ocdbt_store_reads_and_writes_what_tensorstore_does(tmp_path):
     """A tree of three levels of interior nodes, zstd-compressed, with
     inline and indirect values (tensorstore's writer with small nodes),
     read key for key; and the port's writer read back by tensorstore."""
+    import tensorstore as ts
     root = str(tmp_path / "deep")
     kv = ts.KvStore.open({"driver": "ocdbt", "base": f"file://{root}/",
                           "config": {"max_decoded_node_bytes": 300,
@@ -525,6 +533,7 @@ def test_stereo_trainer_checkpoints_resume_both_ways(tmp_path, monkeypatch,
     (the JAX trainer has no ``load_checkpoint``), one step on each side.
     ``tiny`` hands both trainers ``TinyBnNet``'s variables in MSNet2D's
     place."""
+    import orbax.checkpoint as ocp
     jcfg = JaxTrainerConfig(learning_rate=1e-2, weight_decay=0.1)
     cfg = TrainerConfig(learning_rate=1e-2, weight_decay=0.1)
     if name == "tiny":
@@ -600,6 +609,7 @@ def test_export_script_reads_a_jax_training_checkpoint(tmp_path):
 def test_zarr3_and_msgpack_trees_raise(tmp_path):
     """A zarr3 tree is read as it was saved; a pre-OCDBT msgpack tree
     raises, naming the route to convert it."""
+    import orbax.checkpoint as ocp
     tree = {"w": jnp.arange(4.0)}
     zarr3 = str(tmp_path / "zarr3")
     with ocp.Checkpointer(ocp.PyTreeCheckpointHandler(use_zarr3=True)) as c:
@@ -615,6 +625,7 @@ def test_zarr3_and_msgpack_trees_raise(tmp_path):
 
 
 def save_zarr3(tree, path, ocdbt=True):
+    import orbax.checkpoint as ocp
     with ocp.Checkpointer(ocp.PyTreeCheckpointHandler(
             use_ocdbt=ocdbt, use_zarr3=True)) as c:
         c.save(path, tree)
@@ -679,6 +690,7 @@ ZARR3_ARRAYS = {
 def ts_write_zarr3(path, arr, dtype, chunks, codecs, fill=None,
                    encoding=None):
     """A zarr v3 array at ``path`` (plain files) written by tensorstore."""
+    import tensorstore as ts
     meta = {"shape": list(arr.shape), "data_type": dtype,
             "chunk_grid": {"name": "regular",
                            "configuration": {"chunk_shape": chunks}},
@@ -747,6 +759,8 @@ def test_plain_zarr_tree_reads(tmp_path, compressor):
     """A tree written with ``use_ocdbt=False``: the zarr keys as files;
     its chunks re-encoded with each compressor zarr names (zlib and gzip
     through the native runtime's zlib)."""
+    import orbax.checkpoint as ocp
+    import zstandard
     tree = mixed_tree()
     path = str(tmp_path / "plain")
     with ocp.Checkpointer(ocp.PyTreeCheckpointHandler(use_ocdbt=False)) as c:

@@ -42,6 +42,10 @@ from stereo_tpu_torch.serve.api import config_from_args, parse_args
 from stereo_tpu_torch.synthesis import RightViewSynthesis
 from stereo_tpu_torch.utils.png import decode_png, encode_png
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 # tests/test_parallel.py's config, and a Middlebury-like one (nonzero
 # minimum disparity, larger radii) from tests/test_pallas.py.
 CFG = dict(height=32, width=64, downscale_factor=2, min_disparity=0,

@@ -43,6 +43,10 @@ from stereo_tpu_torch.pipeline.backends import ShardedDnnBackend
 from stereo_tpu_torch.synthesis import RightViewSynthesis
 from stereo_tpu_torch.utils.paths import model_checkpoint_dir
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 H, W, D = 64, 96, 16
 MESH = (2, 2, 2)
 

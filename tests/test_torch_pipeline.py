@@ -19,6 +19,10 @@ from stereo_tpu.pipeline.depth_pipeline import (
 from stereo_tpu_torch.core.config import PipelineConfig
 from stereo_tpu_torch.pipeline import DepthEstimationPipeline
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 SHAPE = (96, 320)
 MAX_DISPARITY = 16
 

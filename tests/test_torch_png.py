@@ -24,6 +24,10 @@ from stereo_tpu_torch.serve import (BadRequestError,
                                     decode_png_to_pipeline_image)
 from stereo_tpu_torch.utils import image_io, png
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}

@@ -14,6 +14,10 @@ from stereo_tpu.ops.shift_stack import (
 
 from stereo_tpu_torch import _native, ops
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 
 @pytest.mark.parametrize("shape", [(5, 7), (24, 40)], ids=str)
 def test_grayscale_gradient_matches_jax(shape):

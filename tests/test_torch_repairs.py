@@ -19,6 +19,10 @@ from stereo_tpu_torch.pipeline import DepthEstimationPipeline
 from stereo_tpu_torch.utils import paths
 from stereo_tpu_torch.utils.profiling import StageTimer
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 STAGE_MS = {"right_view_generation": 4.0, "stereo_matching": 2.5}
 
 

@@ -29,6 +29,10 @@ from stereo_tpu_torch.scripts import (train_right_view_synthesis_model,
 from stereo_tpu_torch.train import StereoTrainer, Trainer
 from stereo_tpu_torch.utils.orbax import read_tree
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 
 class TinyDeep3D(torch.nn.Module):
     """Deep3D's call (left_full, left_down, generator) -> right view, with

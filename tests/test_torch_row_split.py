@@ -35,6 +35,10 @@ from stereo_tpu_torch.pipeline import (DepthEstimationPipeline,
                                        DnnStereoMatchingBackend)
 from stereo_tpu_torch.utils.paths import model_checkpoint_dir
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 H, W = 64, 96
 
 

@@ -47,6 +47,10 @@ from stereo_tpu_torch.synthesis import RightViewSynthesis
 from stereo_tpu_torch.synthesis.right_view_synthesis import (
     fused_blend_tail, resize_nchw, split_blend, synthesize_rows)
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 H, W = 64, 96
 FULL, DOWN = (128, 256), (32, 64)
 

@@ -49,6 +49,10 @@ from stereo_tpu_torch.utils.png import decode_png, encode_png
 from stereo_tpu_torch.utils.pointcloud import read_ply
 from stereo_tpu_torch.utils.profiling import device_trace
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 FIXTURE_DRIVE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "fixtures", "kitti", "2011_09_26",
                              "2011_09_26_drive_0001_sync")

@@ -26,6 +26,10 @@ from stereo_tpu_torch.synthesis import RightViewSynthesis
 from stereo_tpu_torch.utils.png import (decode_png, decode_png_rgb,
                                         encode_png)
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 SHAPE = (48, 96)
 
 

@@ -29,6 +29,10 @@ from stereo_tpu_torch.ops import weighted_shift_sum
 from stereo_tpu_torch.ops.cuda import upsample_blend
 from stereo_tpu_torch.synthesis import RightViewSynthesis
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 
 @pytest.fixture(scope="module")
 def checkpoint():

@@ -35,6 +35,10 @@ from stereo_tpu_torch.train.stereo_trainer import (Kitti2015StereoDataset,
                                                    read_disparity_png)
 from stereo_tpu_torch.utils import png
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 FIXTURE_DRIVE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "fixtures", "kitti", "2011_09_26",
                              "2011_09_26_drive_0001_sync")

@@ -38,6 +38,10 @@ from stereo_tpu_torch.train.trainer import (make_optimizer,
                                             set_learning_rate,
                                             step_lr_for_epoch)
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 SHAPES = {"a": (3, 4), "b": (5,), "c": (2, 3, 2)}
 
 

@@ -33,6 +33,10 @@ from stereo_tpu_torch.models.layers import BatchNorm
 from stereo_tpu_torch.ops.cuda import launch
 from stereo_tpu_torch.train.synthetic import SyntheticDeep3DTrainer
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 LOSSES = {"gwcnet": (gwcnet_loss, jax_gwcnet_loss, 4),
           "msnet2d": (msnet_loss, jax_msnet_loss, 3),
           "msnet3d": (msnet_loss, jax_msnet_loss, 3)}

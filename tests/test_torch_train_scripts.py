@@ -21,6 +21,10 @@ from stereo_tpu_torch.train import (Kitti2015StereoDataset, StereoTrainer,
                                     SyntheticDeep3DTrainer,
                                     SyntheticStereoTrainer, Trainer)
 
+import torch_threads
+
+torch_threads.take_worker_share()
+
 
 class SmallViews:
     """A KittiStereoDataset stand-in at 128x256 / 32x64: seeded views in

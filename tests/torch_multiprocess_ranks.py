@@ -1,22 +1,27 @@
-"""The ranks of ``tests/test_torch_multiprocess.py``: each case of
-:data:`CASES` run by every rank of a gloo group on the CPU, each rank
-saving what it received, and rank 0 also the same mesh in one process;
-before them each row-split funnel of :data:`FUNNELS` split over two of
-the ranks, forward and (:data:`GRAD_FUNNELS`) backward, and splits across
-ranks that fail, in the forward and in the backward.
+"""The ranks of ``tests/test_torch_multiprocess.py`` and
+``tests/test_torch_multiprocess_train.py``, two groups of gloo ranks on
+the CPU.
 
-Then Deep3D's sharded training step (``parallel.train``) on each mesh of
-:data:`TRAIN_CASES`, with its data groups or its tile groups across the
-ranks.
+:func:`run`: each case of :data:`CASES` run by every rank of the group,
+each rank saving what it received; before them each row-split funnel of
+:data:`FUNNELS` split over two of the ranks, forward and
+(:data:`GRAD_FUNNELS`) backward, splits across ranks that fail, in the
+forward and in the backward, and a transport wait with no peer.
+
+:func:`run_training`: Deep3D's sharded training step
+(``parallel.train``) on each mesh of :data:`TRAIN_CASES`, with its data
+groups or its tile groups across the ranks.
+
+After the cases across the group, each rank leaves it and runs its share
+of them (rank r: every world-th from r) on the same mesh in its process
+alone, the one-process references.
 
 A spawned child imports the module of the function it runs, so this one
 imports only numpy, torch and the port (the test modules import JAX).
 Run a group with ``stereo_tpu_torch.parallel.transport.spawn_ranks(run,
-4, STORE, args=(OUT_DIR, names))``; rank r writes ``OUT_DIR/rank{r}.pt``,
-rank 0 also ``OUT_DIR/one_process.pt`` and ranks 1-3 a share of the
-training cases alone each, ``OUT_DIR/one_process_train{r}.pt``; a rank
-that fails writes its traceback to ``OUT_DIR/rank{r}.err`` and exits 1
-(it re-raises).
+4, STORE, args=(OUT_DIR, names))``; rank r writes ``OUT_DIR/rank{r}.pt``
+and ``OUT_DIR/one_process{r}.pt``; a rank that fails writes its traceback
+to ``OUT_DIR/rank{r}.err`` and exits 1 (it re-raises).
 """
 
 import hashlib
@@ -38,9 +43,10 @@ from stereo_tpu_torch.parallel import (ShardedClassicalEngine,
 from stereo_tpu_torch.ops import rows
 from stereo_tpu_torch.parallel.mesh import Mesh
 from stereo_tpu_torch.parallel import rows as parallel_rows
+from stereo_tpu_torch.parallel import transport
 from stereo_tpu_torch.parallel.rows import ShardThreads
 from stereo_tpu_torch.parallel.train import ShardedTrainStep
-from stereo_tpu_torch.parallel.transport import Line, Transport
+from stereo_tpu_torch.parallel.transport import Line, Transport, spawn_ranks
 from stereo_tpu_torch.pipeline import DepthEstimationPipeline
 from stereo_tpu_torch.synthesis import RightViewSynthesis
 
@@ -132,6 +138,8 @@ TRAIN_CASES = {"train_211": ((2, 1, 1), (1, 1, 1, 1)),
 TRAIN_STEPS = 2
 # make_mesh's global order: ranks list 2, 1, 1, 1 entries.
 ORDER_COUNTS = (2, 1, 1, 1)
+# The transport's bound in no_peer().
+NO_PEER_TIMEOUT_S = 1.0
 
 
 def integer_batch(cfg, n=2, seed=11, shift=5):
@@ -418,34 +426,99 @@ def mesh_order():
                 first_device=str(mesh.first_device), error=error)
 
 
+def no_peer():
+    """Rank 0 fetches its neighbour's rows on a line of ranks 0 and 1 that
+    rank 1 never serves, under the transport's own bound
+    (``transport.TIMEOUT_S``, made :data:`NO_PEER_TIMEOUT_S`): ``(error
+    type, message, seconds)`` of what it raised, None on the other ranks
+    or when nothing was raised.  Every rank makes the line (collective)."""
+    line = Line(Transport(), FUNNEL_RANKS)
+    if dist.get_rank() != 0:
+        return None
+    saved = transport.TIMEOUT_S
+    transport.TIMEOUT_S = NO_PEER_TIMEOUT_S
+    start = time.monotonic()
+    try:
+        line.ring_fetch([torch.ones(2), None], [(1, lambda x: x)],
+                        wrap=False)
+    except RuntimeError as exc:
+        return type(exc).__name__, str(exc), time.monotonic() - start
+    finally:
+        transport.TIMEOUT_S = saved
+    return None
+
+
 def run(rank, world, init, out_dir, names):
-    """One rank: every case of ``names`` and of :data:`TRAIN_CASES` across
-    the group, then each case on the same mesh in this process alone (rank
-    0 those of ``names``, ranks 1-3 a share of the training cases each)."""
+    """One rank of the group of :data:`CASES`: the funnels, a wait with no
+    peer and every case of ``names`` across the group, then a share of
+    those cases (rank r: every world-th from r) on the same mesh in this
+    process alone."""
+    def across():
+        got = {"world_size": dist.get_world_size(),
+               "mesh_order": mesh_order(), "funnels": funnels(),
+               "no_peer": no_peer(), "halo": {}}
+        for name in names:
+            got[name], got["halo"][name] = run_case(name, across=True)
+        return got
+
+    def alone(share):
+        got = {"halo": {}}
+        for name in share:
+            got[name], got["halo"][name] = run_case(name, across=False)
+        return got
+
+    in_group(rank, world, init, out_dir, names, across, alone)
+
+
+def run_training(rank, world, init, out_dir, names):
+    """One rank of the group of :data:`TRAIN_CASES`: every case of
+    ``names`` across the group, then a share of them alone, as
+    :func:`run`."""
+    in_group(rank, world, init, out_dir, names,
+             lambda: {name: train_case(name, across=True) for name in names},
+             lambda share: {name: train_case(name, across=False)
+                            for name in share})
+
+
+def in_group(rank, world, init, out_dir, names, across, alone):
+    """Join the gloo group, save ``across()`` to ``rank{rank}.pt``, leave
+    the group, then save ``alone(share)`` of this rank's share of
+    ``names`` to ``one_process{rank}.pt`` (each rank on a core of its
+    own)."""
     torch.set_num_threads(1)
     try:
         initialize_distributed(init, world, rank, backend="gloo")
         initialize_distributed()        # no address: a no-op
-        got = {"world_size": dist.get_world_size(),
-               "mesh_order": mesh_order(), "funnels": funnels(), "halo": {}}
-        for name in names:
-            got[name], got["halo"][name] = run_case(name, across=True)
-        for name in TRAIN_CASES:
-            got[name] = train_case(name, across=True)
-        torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
+        torch.save(across(), os.path.join(out_dir, f"rank{rank}.pt"))
         dist.barrier()
         dist.destroy_process_group()
-        if rank > 0:        # beside rank 0's cases, each on a core of its own
-            torch.save({name: train_case(name, across=False)
-                        for name in sorted(TRAIN_CASES)[rank - 1::world - 1]},
-                       os.path.join(out_dir, f"one_process_train{rank}.pt"))
-        if rank == 0:
-            alone = {"halo": {}}
-            for name in names:
-                alone[name], alone["halo"][name] = run_case(name,
-                                                            across=False)
-            torch.save(alone, os.path.join(out_dir, "one_process.pt"))
+        torch.save(alone(sorted(names)[rank::world]),
+                   os.path.join(out_dir, f"one_process{rank}.pt"))
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
+
+
+def spawn_group(target, names, world, out_dir, timeout_s):
+    """``target``'s group of ``world`` ranks over ``names``, spawned on a
+    store in ``out_dir`` and joined within ``timeout_s``: (each rank's
+    results, the one-process results of every rank's share, merged).  A
+    rank that failed fails it, with every rank's traceback."""
+    codes = spawn_ranks(target, world, os.path.join(out_dir, "store"),
+                        args=(out_dir, names), timeout_s=timeout_s)
+    errors = {}
+    for r in range(world):
+        path = os.path.join(out_dir, f"rank{r}.err")
+        if os.path.exists(path):
+            with open(path) as f:
+                errors[r] = f.read()
+    assert codes == [0] * world, (codes, errors)
+    alone = {"halo": {}}
+    for r in range(world):
+        part = torch.load(os.path.join(out_dir, f"one_process{r}.pt"),
+                          weights_only=False)
+        alone["halo"].update(part.pop("halo", {}))
+        alone.update(part)
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)], alone
