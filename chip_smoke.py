@@ -16,8 +16,10 @@ Phases, each ending in one flushed JSON line with its name and seconds
              frames decoded by it equal the Python decoder's bytes, and the
              host ms of a 375x1242 frame for each decoder; the other PNG
              kinds (low-bit grey, palettes, grey+alpha, 16-bit colour, each
-             plain and Adam7) against the Python decoder; a probe for
-             libjpeg's header and library;
+             plain and Adam7) against the Python decoder; every committed
+             JPEG fixture (``tests/fixtures/jpeg``) decoded by the native
+             JPEG decoder to the SHA-256 of PIL's decode in its manifest,
+             and the host ms of the 375x1242 JPEG frame;
 3. kernels:  each kernel against its plain PyTorch version at the shapes of
              the single-view paths (384x1280, disparity 1..64; GwcNet's
              volume also at disparity 192 and in bf16), with its median
@@ -283,6 +285,11 @@ FIXTURE_DRIVE = os.path.join(ROOT, "tests", "fixtures", "kitti", "2011_09_26",
 FIXTURE_FRAMES = [os.path.join(FIXTURE_DRIVE, side, "data", name)
                   for side in ("image_02", "image_03")
                   for name in ("0000000000.png", "0000000001.png")]
+# JPEGs written by Pillow and the SHA-256 of PIL's decode of each
+# (tests/fixtures/make_jpeg_fixtures.py); the first frame above as a JPEG
+# at quality 90 among them.
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "jpeg")
+JPEG_FRAME = os.path.join(JPEG_FIXTURES, "kitti_0000000000_q90.jpg")
 # A Middlebury calibration for ``middlebury_pair()``: MatchingConfig()'s
 # 1080x1920 and disparity range 75..262.
 MIDDLEBURY_CALIB = """cam0=[1758.23 0 953.34; 0 1758.23 552.29; 0 0 1]
@@ -1482,12 +1489,52 @@ def profile(torch, label: str, pipeline, dev) -> None:
         report(label, t, error=f"{type(exc).__name__}: {exc}")
 
 
+def jpeg_manifest() -> dict:
+    with open(os.path.join(JPEG_FIXTURES, "expected.json")) as f:
+        return json.load(f)
+
+
+def manifest_checked_jpeg(path: str) -> tuple:
+    """A committed JPEG's bytes and the port's decode of it, which must
+    hash to the SHA-256 of PIL's decode in the fixtures' manifest."""
+    import hashlib
+
+    from stereo_tpu_torch.utils.image_io import decode_image_rgb
+
+    with open(path, "rb") as f:
+        data = f.read()
+    entry = jpeg_manifest()["files"][os.path.basename(path)]
+    rgb = decode_image_rgb(data)
+    digest = hashlib.sha256(rgb.tobytes()).hexdigest()
+    require(list(rgb.shape) == entry["shape"] and digest == entry["sha256"],
+            f"JPEG decode of {path}: shape {rgb.shape}, sha256 {digest}, "
+            f"manifest {entry['shape']} {entry['sha256']}")
+    return data, rgb
+
+
+def upload_ms(torch, data: bytes, shape, dev, reps: int = 10) -> float:
+    """Host ms of ``decode_png_to_pipeline_image`` to the card, median."""
+    from stereo_tpu_torch.serve import decode_png_to_pipeline_image
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_png_to_pipeline_image(data, shape, dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def phase_server(torch, pipeline, dev, kernels):
-    """Four PNG uploads to a server around ``pipeline``: three seeded
-    frames at the pipeline's shape and the fixture frame's bytes (375x1242,
-    Paeth-filtered, resized by the server).  Every name in ``kernels`` must
-    launch in that run.  Also the host ms of decoding and uploading the
-    fixture frame (``decode_png_to_pipeline_image``)."""
+    """Five uploads to a server around ``pipeline``: three seeded PNG
+    frames at the pipeline's shape, the fixture frame's PNG bytes (375x1242,
+    Paeth-filtered, resized by the server) and the same frame as a JPEG
+    (``Content-Type: image/jpeg``), whose decoded upload tensor must equal
+    the one from a PNG of its manifest-checked pixels.  Every name in
+    ``kernels`` must launch in that run.  Also the host ms of decoding and
+    uploading the fixture frame, PNG and JPEG
+    (``decode_png_to_pipeline_image``)."""
     from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
     from stereo_tpu_torch.serve import (DepthEstimationServer,
                                         decode_png_to_pipeline_image)
@@ -1501,19 +1548,23 @@ def phase_server(torch, pipeline, dev, kernels):
                                        dtype=np.uint8)) for _ in range(3)]
     with open(FIXTURE_FRAMES[0], "rb") as f:
         uploads.append(f.read())
-    decode_ms = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        decode_png_to_pipeline_image(uploads[-1], config.image_shape, dev)
-        torch.cuda.synchronize()
-        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    jpeg, pixels = manifest_checked_jpeg(JPEG_FRAME)
+    uploads.append(jpeg)
+    types = ["image/png"] * 4 + ["image/jpeg"]
+    from_jpeg = decode_png_to_pipeline_image(jpeg, config.image_shape, dev)
+    from_png = decode_png_to_pipeline_image(encode_png(pixels),
+                                            config.image_shape, dev)
+    require(from_jpeg.dtype == torch.uint8
+            and torch.equal(from_jpeg, from_png),
+            "the JPEG upload's tensor differs from its pixels' PNG upload")
+    decode_ms = upload_ms(torch, uploads[3], config.image_shape, dev)
+    jpeg_decode_ms = upload_ms(torch, jpeg, config.image_shape, dev)
     replies = [None] * len(uploads)
     host, port = server.start("127.0.0.1", 0)
 
     def post(i):
         req = urllib.request.Request(f"http://{host}:{port}/", data=uploads[i],
-                                     headers={"Content-Type": "image/png"})
+                                     headers={"Content-Type": types[i]})
         with urllib.request.urlopen(req, timeout=120) as resp:
             replies[i] = (resp.status, resp.read())
 
@@ -1540,17 +1591,21 @@ def phase_server(torch, pipeline, dev, kernels):
         require(shape[:2] == tuple(config.image_shape), f"reply shape {shape}")
     require(all(counts[k] >= 1 for k in kernels),
             f"{config.stereo_matching_backend} path missed a kernel: {counts}")
-    return counts, dict(statuses=statuses, batches=server.batcher.batches_run,
+    return counts, dict(statuses=statuses, content_types=types,
+                        batches=server.batcher.batches_run,
                         frames=server.batcher.frames_run,
                         timer_pending=pending,
-                        fixture_decode_upload_ms_median=statistics.median(
-                            decode_ms))
+                        jpeg_upload_equals_png_of_its_pixels=True,
+                        fixture_decode_upload_ms_median=decode_ms,
+                        fixture_jpeg_decode_upload_ms_median=jpeg_decode_ms)
 
 
 def phase_io() -> dict:
     """The native host runtime: its g++ build, the committed fixture frames
     decoded by it equal byte for byte to the Python decoder, and the host
-    ms of a 375x1242 frame for each decoder (the Python one timed once)."""
+    ms of a 375x1242 frame for each decoder (the Python one timed once);
+    every committed JPEG decoded to its manifest's SHA-256, and the host ms
+    of the 375x1242 JPEG frame (median of 20, under the PNG's 50 ms)."""
     from stereo_tpu_torch import _native
     from stereo_tpu_torch.pipeline.camera.kitti import KITTI_PAD
     from stereo_tpu_torch.utils.png import decode_png, decode_png_python
@@ -1588,13 +1643,22 @@ def phase_io() -> dict:
 
     native_ms = host_ms(lambda: _native.decode_png_hwc(data))
     require(native_ms < 50, f"native decode took {native_ms} ms")
+    names = sorted(jpeg_manifest()["files"])
+    for name in names:
+        manifest_checked_jpeg(os.path.join(JPEG_FIXTURES, name))
+    with open(JPEG_FRAME, "rb") as f:
+        jpeg = f.read()
+    jpeg_ms = host_ms(lambda: _native.decode_jpeg_rgb(jpeg))
+    require(jpeg_ms < 50, f"native JPEG decode took {jpeg_ms} ms")
     return dict(gxx_seconds=round(_native.build_seconds, 3),
                 library=os.path.relpath(_native.library_path(), ROOT),
                 native_available=_native.available(),
                 build_error=_native.build_error(),
-                png_cases=check_png_cases(), jpeg_probe=probe_jpeg(),
+                png_cases=check_png_cases(),
+                jpeg_fixtures=dict(files=len(names), equal_to_manifest=True),
                 frames=frames, python_decode_ms_once=python_ms,
                 native_decode_ms=native_ms,
+                native_jpeg_decode_ms=jpeg_ms,
                 decode_png_ms=host_ms(lambda: decode_png(data)),
                 native_file_padded_ms=host_ms(
                     lambda: _native.decode_png_padded_chw(FIXTURE_FRAMES[0],
@@ -1701,18 +1765,6 @@ def check_png_cases() -> dict:
                         f"from the Python decoder")
                 cases += 1
     return dict(cases=cases, equal_to_python=True)
-
-
-def probe_jpeg() -> dict:
-    """Whether this machine has libjpeg's header and library (the port
-    decodes no JPEG; the JAX package reads it through PIL)."""
-    import ctypes.util
-
-    headers = [p for p in ("/usr/include/jpeglib.h",
-                           "/usr/include/x86_64-linux-gnu/jpeglib.h",
-                           "/usr/local/include/jpeglib.h")
-               if os.path.isfile(p)]
-    return dict(jpeglib_h=headers, libjpeg=ctypes.util.find_library("jpeg"))
 
 
 class plain_versions:

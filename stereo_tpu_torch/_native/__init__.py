@@ -1,17 +1,20 @@
-"""ctypes bindings of the port's native host runtime (``stereo_native.cc``).
+"""ctypes bindings of the port's native host runtime (``stereo_native.cc``
+and ``jpeg.cc``).
 
 A copy of ``stereo_tpu/_native`` for the port: a zlib PNG decoder (every
 colour type, bit depth and interlace, from bytes in memory or from a
-file), layout conversions (HWC uint8 -> padded
-CHW float32, bilinear resize, mean pool, RGB -> luma) and a threaded frame
-prefetcher, and a zstd decoder and zlib/gzip inflation for Orbax
-checkpoints (``zstd_decompress``, ``inflate``).  Unlike the JAX package's copy it has no NumPy or imaging
-fallback: the library is built with one ``g++ ... -lz`` call on first use
-into ``stereo_tpu_torch/_build/`` (named by a hash of the source and the
-flags, so a later process reuses it), and a failed build raises with the
-compiler's log.  Importing this module builds nothing.  ``available()``
-and ``build_error()`` report the build's state (they build on first call);
-with no fallback, nothing switches on them.
+file), a JPEG decoder (``jpeg_info``, ``decode_jpeg_rgb``: the bytes of
+PIL's ``convert("RGB")`` on libjpeg-turbo's defaults), layout conversions
+(HWC uint8 -> padded CHW float32, bilinear resize, mean pool, RGB ->
+luma) and a threaded frame prefetcher, and a zstd decoder and zlib/gzip
+inflation for Orbax checkpoints (``zstd_decompress``, ``inflate``).
+Unlike the JAX package's copy it has no NumPy or imaging fallback: the
+library is built from both sources with one ``g++ ... -lz`` call on first
+use into ``stereo_tpu_torch/_build/`` (named by a hash of the sources and
+the flags, so a later process reuses it), and a failed build raises with
+the compiler's log.  Importing this module builds nothing.
+``available()`` and ``build_error()`` report the build's state (they
+build on first call); with no fallback, nothing switches on them.
 """
 
 from __future__ import annotations
@@ -22,12 +25,13 @@ import os
 import subprocess
 import threading
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "stereo_native.cc")
+JPEG_SOURCE = os.path.join(_DIR, "jpeg.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -59,6 +63,8 @@ _SIGNATURES = {
     "sn_zstd_decompress": ((_P, _SIZE, _BUF), ctypes.c_int64),
     "sn_inflate": ((_P, _SIZE, _BUF), ctypes.c_int64),
     "sn_free": ((_P,), None),
+    "sn_jpeg_info_mem": ((_P, _SIZE, _IP, _IP, _IP), _I),
+    "sn_decode_jpeg_rgb_mem": ((_P, _SIZE, _P, _I, _I), _I),
 }
 
 _ZSTD_ERRORS = {-1: "truncated input", -2: "corrupt data",
@@ -68,12 +74,33 @@ _ZSTD_ERRORS = {-1: "truncated input", -2: "corrupt data",
                 -6: "content size differs from the frame header's",
                 -7: "out of memory"}
 
+# jpeg.cc's error codes (JpegCode).
+_JPEG_ERRORS = {
+    -1: "image file is truncated",
+    -2: "corrupt or malformed JPEG data",
+    -3: "not a JPEG file (it does not start with FF D8 FF)",
+    -4: "arithmetic coding (SOF9-11) is not supported",
+    -5: "lossless JPEG (SOF3) is not supported",
+    -6: "hierarchical JPEG (SOF5-7, SOF13-15) is not supported",
+    -7: "only 8-bit sample precision is supported",
+    -8: "only 1, 3 or 4 components are supported",
+    -9: "unsupported sampling factors",
+    -10: "image too large (a side over 65500, or over 178956970 pixels)",
+    -11: "out of memory",
+    -12: "no image (EOI before any scan)"}
+
+
+def _sources():
+    """The library's C++ sources, compiled together by one g++ call."""
+    return SOURCE, JPEG_SOURCE
+
 
 def library_path() -> str:
     """Where the library of the current source and flags lives."""
     digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        digest.update(f.read())
+    for source in _sources():
+        with open(source, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR,
                         f"libstereo_native_{digest.hexdigest()[:16]}.so")
 
@@ -84,7 +111,7 @@ def _build(path: str) -> None:
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = ["g++", *GXX_FLAGS, SOURCE, "-o", tmp, "-lz"]
+    cmd = ["g++", *GXX_FLAGS, *_sources(), "-o", tmp, "-lz"]
     start = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
@@ -258,6 +285,33 @@ def _decoded(fn, data, what: str) -> bytes:
         library().sn_free(out)
 
 
+def jpeg_info(data) -> Union[Tuple[int, int, int], int]:
+    """(H, W, components) of JPEG bytes from the markers up to the first
+    scan, or the decoder's error code (a negative int) for bytes it does
+    not take."""
+    src = bytes(data)
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = library().sn_jpeg_info_mem(src, len(src), ctypes.byref(h),
+                                    ctypes.byref(w), ctypes.byref(c))
+    return rc if rc else (h.value, w.value, c.value)
+
+
+def decode_jpeg_rgb(data) -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) uint8 RGB, the values of PIL's
+    ``Image.open(f).convert("RGB")`` on libjpeg-turbo (``jpeg.cc``).
+    Raises ``ValueError`` naming the reason for bytes it does not take."""
+    src = bytes(data)
+    info = jpeg_info(src)
+    if isinstance(info, int):
+        raise ValueError(f"JPEG: {_JPEG_ERRORS.get(info, info)}")
+    h, w, _ = info
+    out = np.empty((h, w, 3), np.uint8)
+    rc = library().sn_decode_jpeg_rgb_mem(src, len(src), _ptr(out), h, w)
+    if rc:
+        raise ValueError(f"JPEG: {_JPEG_ERRORS.get(rc, rc)}")
+    return out
+
+
 def zstd_decompress(data) -> bytes:
     """Every frame of ``data`` decoded (zstd frames, in order; skippable
     frames skipped).  Raises ``ValueError`` for truncated or corrupt input,
@@ -335,7 +389,8 @@ class FramePrefetcher:
         self.close()
 
 
-__all__ = ["FramePrefetcher", "available", "build_error", "decode_png_hwc",
-           "decode_png_padded_chw", "hwc_to_padded_chw", "inflate",
-           "library", "mean_pool", "png_info", "png_shape",
-           "resize_bilinear_chw", "rgb_to_gray", "zstd_decompress"]
+__all__ = ["FramePrefetcher", "available", "build_error", "decode_jpeg_rgb",
+           "decode_png_hwc", "decode_png_padded_chw", "hwc_to_padded_chw",
+           "inflate", "jpeg_info", "library", "mean_pool", "png_info",
+           "png_shape", "resize_bilinear_chw", "rgb_to_gray",
+           "zstd_decompress"]

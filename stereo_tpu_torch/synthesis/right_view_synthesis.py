@@ -257,7 +257,7 @@ def _main(argv=None) -> None:
 
     parser = argparse.ArgumentParser(
         description="Synthesize the right view of one left image.")
-    parser.add_argument("image", help="left view image path (PNG)")
+    parser.add_argument("image", help="left view image path (PNG or JPEG)")
     parser.add_argument("--out-prefix", default="rvs_smoke")
     parser.add_argument("--checkpoint-dir", default=None)
     parser.add_argument("--device", default="cuda",

@@ -1,8 +1,11 @@
 """Image and video I/O and grid composition (port of
 ``stereo_tpu/utils/image_io.py``; NumPy and the standard library only).
 
-Images are CHW float32 in 0..255 unless stated otherwise.  PNGs are
-decoded by the native host runtime and written by ``utils/png.py``.
+Images are CHW float32 in 0..255 unless stated otherwise.  PNG and JPEG
+files are told apart by their signature, as PIL tells them apart, and
+decoded by the native host runtime (``utils/png.py``;
+``_native.decode_jpeg_rgb``, ``_native/jpeg.cc``) to the values of PIL's
+``convert("RGB")``; PNGs are written by ``utils/png.py``.
 Video is an uncompressed RGB AVI (RIFF, ``00db`` DIB frames): the JAX
 package writes mp4 through OpenCV, which the card's machine does not have.
 The frames and their order are the same.
@@ -16,18 +19,51 @@ from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 
-from .png import encode_png
+from .png import BadRequestError, decode_png_rgb, encode_png
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SIGNATURE = b"\xff\xd8\xff"   # what PIL's JPEG plugin accepts
 
 ImageLike = Union[np.ndarray, "object"]  # ndarray or anything np.asarray-able
 
 
-def read_image_chw(path: str) -> np.ndarray:
-    """Decode a PNG file (any colour type, bit depth or interlace) to
-    (3, H, W) float32 in 0..255 with the native decoder, with the values of
-    PIL's ``convert("RGB")``, which the JAX package reads such files with.
-    JPEG and other formats raise ``ValueError``."""
+def decode_image_rgb(data: bytes) -> np.ndarray:
+    """PNG or JPEG bytes -> (H, W, 3) uint8 RGB, the values of PIL's
+    ``Image.open(...).convert("RGB")``, which the JAX package reads and
+    serves images with.  The format is the one the bytes' signature names,
+    whatever a file name says; anything else, and a file PIL would refuse,
+    is a ``BadRequestError`` (a ``ValueError``) naming the format and the
+    cause.  JPEG (``_native/jpeg.cc``): baseline, extended and progressive
+    Huffman files at 8 bits, 1, 3 or 4 components, any sampling factors
+    1-4, restart markers, the colour space libjpeg picks, CMYK and YCCK as
+    PIL converts them, block smoothing, damaged streams as libjpeg reads
+    them; EXIF orientation is not applied (PIL does not apply it);
+    arithmetic-coded, lossless, hierarchical and 12-bit files are refused
+    by name."""
     from .. import _native
 
+    if data[:len(_PNG_SIGNATURE)] == _PNG_SIGNATURE:
+        return decode_png_rgb(data)
+    if data[:len(_JPEG_SIGNATURE)] == _JPEG_SIGNATURE:
+        try:
+            return _native.decode_jpeg_rgb(data)
+        except ValueError as exc:
+            raise BadRequestError(str(exc)) from exc
+    raise BadRequestError("not a PNG or JPEG image")
+
+
+def read_image_chw(path: str) -> np.ndarray:
+    """Decode a PNG (any colour type, bit depth or interlace) or JPEG file
+    to (3, H, W) float32 in 0..255 with the native decoders, with the
+    values of PIL's ``convert("RGB")``, which the JAX package reads image
+    files with.  The format is told by the file's signature, not its name;
+    other formats raise ``ValueError``."""
+    from .. import _native
+
+    with open(path, "rb") as f:
+        head = f.read(len(_PNG_SIGNATURE))
+        if head != _PNG_SIGNATURE:
+            return _native.hwc_to_padded_chw(decode_image_rgb(head + f.read()))
     return _native.decode_png_padded_chw(path)
 
 

@@ -12,8 +12,9 @@ maps the samples to 8-bit RGB as an image library's RGB conversion does
 ``decode_png_python`` is the same decode in Python, the rows unfiltered
 byte by byte for the Average and Paeth filters: the native decoder's test
 oracle.  ``encode_png`` writes 8-bit grey and RGB with the standard
-library (``zlib``, ``struct``).  The card's machine has no imaging library,
-and JPEG is not decoded (that would need libjpeg).
+library (``zlib``, ``struct``).  The card's machine has no imaging library.
+JPEG bytes are refused here by name: ``utils.image_io.decode_image_rgb``
+takes either format by its signature.
 """
 
 from __future__ import annotations
@@ -116,7 +117,9 @@ def _parse(data: bytes) -> _Png:
     """Check the signature, chunks and header of PNG bytes."""
     if not data.startswith(_SIGNATURE):
         if data.startswith(_JPEG_SIGNATURE):
-            raise BadRequestError("JPEG images are not supported; send a PNG")
+            raise BadRequestError(
+                "JPEG data is not a PNG (utils.image_io.decode_image_rgb "
+                "decodes both)")
         raise BadRequestError("not a PNG file")
     header, idat, palette, trns = None, [], b"", b""
     try:

@@ -1,5 +1,6 @@
 """The port's serving path: its PNG codec against PIL, the upload resize,
-and the HTTP server with micro-batching, on the CPU."""
+JPEG uploads against the JAX package's upload decode, and the HTTP server
+with micro-batching, on the CPU."""
 
 import io
 import json
@@ -14,6 +15,8 @@ import pytest
 import torch
 from PIL import Image
 
+from stereo_tpu.serve.api import (
+    decode_png_to_pipeline_image as jax_decode_upload)
 from stereo_tpu.serve.api import quantize_disparity_u8 as jax_quantize
 
 from stereo_tpu_torch.core.config import PipelineConfig
@@ -195,6 +198,49 @@ class TestUpload:
         np.testing.assert_array_equal(decode_png(png)[..., 0], jax_quantize(d))
 
 
+def pil_jpeg(array, **save):
+    buf = io.BytesIO()
+    Image.fromarray(array).save(buf, format="JPEG", **save)
+    return buf.getvalue()
+
+
+def blocky(shape, seed):
+    """An (H, W, 3) image of 4x4 blocks (``test_resize_tracks_pil_bilinear``'s
+    kind of image)."""
+    base = np.random.default_rng(seed).integers(
+        0, 256, (shape[0] // 4 + 1, shape[1] // 4 + 1, 3))
+    image = np.repeat(np.repeat(base, 4, 0), 4, 1)[:shape[0], :shape[1]]
+    return image.astype(np.uint8)
+
+
+class TestJpegUpload:
+    @pytest.mark.parametrize("progressive", [False, True],
+                             ids=["baseline", "progressive"])
+    @pytest.mark.parametrize("subsampling", [0, 1, 2])
+    def test_at_pipeline_shape_equals_jax(self, subsampling, progressive):
+        """Decoded as the JAX server decodes it (PIL), with no resize:
+        equal in every element."""
+        data = pil_jpeg(blocky(SHAPE, subsampling), quality=90,
+                        subsampling=subsampling, progressive=progressive)
+        got = decode_png_to_pipeline_image(data, SHAPE, "cpu")
+        want = jax_decode_upload(data, SHAPE)
+        assert got.dtype == torch.uint8
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    @pytest.mark.parametrize("src", [(96, 192), (61, 133), (30, 50)])
+    @pytest.mark.parametrize("subsampling", [0, 1, 2])
+    def test_resized_within_one_level_of_jax(self, subsampling, src):
+        """The same decode, then the device resize against PIL's bilinear:
+        at most one grey level apart, as ``test_resize_tracks_pil_bilinear``
+        bounds PNG uploads."""
+        data = pil_jpeg(blocky(src, 10 + subsampling), quality=95,
+                        subsampling=subsampling)
+        got = decode_png_to_pipeline_image(data, SHAPE, "cpu").numpy()
+        want = jax_decode_upload(data, SHAPE)
+        assert got.shape == want.shape == (3, *SHAPE)
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+
+
 @pytest.fixture(scope="module")
 def server():
     synthesis = RightViewSynthesis(output_shape=SHAPE, seed=0,
@@ -263,6 +309,19 @@ class TestServer:
         _, url = server
         status, body = post(url, make())
         assert status == 200 and decode_png(body).shape == (*SHAPE, 1)
+
+    def test_jpeg_upload_and_multipart_jpeg_are_served(self, server):
+        """A JPEG upload, raw and as a multipart file: 200 and a disparity
+        PNG of the pipeline's shape."""
+        _, url = server
+        data = pil_jpeg(blocky((61, 133), 15), quality=90, subsampling=2)
+        status, reply = post(url, data, "image/jpeg")
+        assert status == 200 and decode_png(reply).shape == (*SHAPE, 1)
+        body = (b"--XyZ\r\nContent-Disposition: form-data; name=\"file\"; "
+                b"filename=\"a.jpg\"\r\nContent-Type: image/jpeg\r\n\r\n"
+                + data + b"\r\n--XyZ--\r\n")
+        status, reply = post(url, body, "multipart/form-data; boundary=XyZ")
+        assert status == 200 and decode_png(reply).shape == (*SHAPE, 1)
 
     def test_jpeg_is_400_naming_the_format(self, server):
         _, url = server
