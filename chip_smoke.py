@@ -72,9 +72,19 @@ Phases, each ending in one flushed JSON line with its name and seconds
              disparities against the same arm through the plain versions;
    runner:   ``run_depth_estimation_pipeline`` on the drive (classical,
              Deep3D) with every saver, each file read back (PNGs, PLYs, the
-             AVI), the batched runner at batch 2 against it, the
+             mp4, each of its frames read by the port's own MPEG-4 decoder
+             within ``VIDEO_PSNR_FLOOR_DB`` of the context PNG of its
+             index), the mp4's bytes a frame and the host ms to encode a
+             grid, the batched runner at batch 2 against it, the
              frames/s of both runners, and one frame under
              ``device_trace``, whose Chrome trace must hold the kernels;
+   video_stream: ``VIDEO_STREAM_FRAMES`` KITTI grids (1192x1300, the
+             runner's context grids rolled sideways a few pixels a frame)
+             streamed through ``open_video_writer``, past the ~923 frames
+             at which the uncompressed AVI the port wrote before hit 4
+             GiB: every frame counted in ``stsz``, 64-bit chunk offsets
+             (``co64``), the last frame decoded within the floor; the
+             median host ms to encode a frame and the bytes a frame;
    middlebury: ``middlebury_pair()`` written as a Middlebury scene, run
              through ``MiddleburyStereoCamera``, the config it implies and
              the runner at 1080x1920 / disparity 75..262, against the same
@@ -218,7 +228,8 @@ phase lines say which.
 runs the device and build phases and then only the named phases, in
 the order of ``ONLY_PHASES``, with their gates (``multiprocess``,
 ``mesh_dnn_rows``, ``orbax``, ``train_stereo``,
-``mesh_single_view_rows``, ``mesh_train``, ``synthetic``; Deep3D's
+``mesh_single_view_rows``, ``mesh_train``, ``synthetic``, ``runner``
+with ``video_stream`` after it; Deep3D's
 committed weights when ``data/checkpoints/deep3d.npz`` is present, which
 the whole smoke's copy may leave out), ending with the ``nvidia-smi``
 line and no kernels line.
@@ -305,6 +316,16 @@ vmax=262
 dyavg=0
 dymax=0
 """
+
+# The lowest PSNR a frame of the context video may have against its source
+# grid: the worst frame of the JAX package's mp4 (OpenCV's mp4v) of the
+# fixture drive's context grids, 32.83 dB with the committed Deep3D's right
+# view (33.01 dB with the real one, 33.34 dB with seeded Deep3D), less
+# 1 dB; ``python tests/video_floor.py`` measures them, and
+# tests/test_torch_video.py holds this floor to the real right view's.
+VIDEO_PSNR_FLOOR_DB = 31.8
+# Frames of the long-stream check (``phase_video_stream``).
+VIDEO_STREAM_FRAMES = 1000
 
 # The kernels each single-view path must launch.
 CLASSICAL_KERNELS = ("upsample_blend", "matching_core", "sampled_window")
@@ -2255,7 +2276,7 @@ def phase_runner(torch, dev, synthesis, tmp: str):
                                                  ContextVideoSaver,
                                                  DisparityMapSaver, LambdaHook,
                                                  PointCloudSaver)
-    from stereo_tpu_torch.utils.image_io import read_video
+    from stereo_tpu_torch.utils.image_io import open_video_writer, read_video
     from stereo_tpu_torch.utils.png import decode_png
     from stereo_tpu_torch.utils.pointcloud import read_ply
 
@@ -2269,7 +2290,7 @@ def phase_runner(torch, dev, synthesis, tmp: str):
             ctx.frame_index, ctx.disparity_map.cpu()))
 
     per_frame = {}
-    video = os.path.join(tmp, "video", "drive.avi")
+    video = os.path.join(tmp, "video", "drive.mp4")
     hooks = [collector(per_frame),
              DisparityMapSaver(os.path.join(tmp, "disparity")),
              ContextFrameSaver(os.path.join(tmp, "context")),
@@ -2308,6 +2329,22 @@ def phase_runner(torch, dev, synthesis, tmp: str):
     frames, fps = read_video(video)
     require(frames.shape == (n, *grid) and fps == 30,
             f"video {frames.shape} at {fps} fps")
+    contexts = [decode_png(open(path, "rb").read())
+                for path in files["context"]]
+    video_psnr = [psnr_db(frame, context)
+                  for frame, context in zip(frames, contexts)]
+    require(min(video_psnr) >= VIDEO_PSNR_FLOOR_DB,
+            f"video frames against their context PNGs: {video_psnr} dB, "
+            f"floor {VIDEO_PSNR_FLOOR_DB}")
+    writer = open_video_writer(os.path.join(tmp, "video", "timed.mp4"),
+                               *grid[:2], 30)
+    encode_ms = []
+    for _ in range(5):
+        for context in contexts:
+            t0 = time.perf_counter()
+            writer.write(context[:, :, ::-1])
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+    writer.release()
 
     # Both runners with one collecting hook, warm: agreement and frames/s.
     batched = {}
@@ -2352,6 +2389,10 @@ def phase_runner(torch, dev, synthesis, tmp: str):
         trace_kernel_events=len(traced),
         video_frames=int(frames.shape[0]),
         video_bytes=os.path.getsize(video),
+        video_bytes_per_frame=os.path.getsize(video) / n,
+        video_psnr_db=video_psnr, video_psnr_db_min=min(video_psnr),
+        video_psnr_floor_db=VIDEO_PSNR_FLOOR_DB,
+        video_encode_ms=statistics.median(encode_ms),
         batched_vs_per_frame=agreement,
         fps_per_frame_with_savers=n / with_savers_s,
         fps_per_frame=fps_of(lambda: run_depth_estimation_pipeline(
@@ -2359,7 +2400,77 @@ def phase_runner(torch, dev, synthesis, tmp: str):
         fps_batched_2=fps_of(lambda: run_depth_estimation_pipeline_batched(
             camera, pipeline, 2, [collector(sink)])),
         launches=counts)
-    return counts, numbers
+    return counts, numbers, contexts
+
+
+def psnr_db(a, b) -> float:
+    """PSNR of two uint8 images, in dB."""
+    err = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64))
+                  ** 2)
+    return float("inf") if err == 0 else float(10 * np.log10(255.0 ** 2
+                                                             / err))
+
+
+def phase_video_stream(grids: list, tmp: str) -> dict:
+    """``VIDEO_STREAM_FRAMES`` context grids through ``open_video_writer``
+    (frame k: grid k mod len(grids) rolled 4k pixels sideways), the file's
+    tables read back, and its last frame decoded by the port."""
+    from stereo_tpu_torch import _native
+    from stereo_tpu_torch.utils.image_io import open_video_writer
+    from stereo_tpu_torch.utils.mp4 import read_sample, read_track
+
+    def frame(k):
+        return np.roll(grids[k % len(grids)], 4 * k, axis=1)
+
+    path = os.path.join(tmp, "stream.mp4")
+    h, w, _ = grids[0].shape
+    writer = open_video_writer(path, h, w, 30)
+    encode_ms = []
+    t0 = time.perf_counter()
+    for k in range(VIDEO_STREAM_FRAMES):
+        bgr = frame(k)[:, :, ::-1]
+        t1 = time.perf_counter()
+        writer.write(bgr)
+        encode_ms.append((time.perf_counter() - t1) * 1e3)
+    writer.release()
+    stream_s = time.perf_counter() - t0
+    track = read_track(path)
+    require(len(track.sizes) == len(track.offsets) == VIDEO_STREAM_FRAMES,
+            f"stsz counts {len(track.sizes)} of {VIDEO_STREAM_FRAMES}")
+    with open(path, "rb") as f:
+        f.seek(max(track.offsets) + track.sizes[-1])
+        moov = f.read()
+        require(b"co64" in moov and b"stco" not in moov,
+                "the chunk offsets are not in co64")
+        last = read_sample(f, track, VIDEO_STREAM_FRAMES - 1)
+    t1 = time.perf_counter()
+    decoded = _native.decode_mp4v(track.config, last, threads=4)
+    decode_ms = (time.perf_counter() - t1) * 1e3
+    last_psnr = psnr_db(decoded[:, :, ::-1], frame(VIDEO_STREAM_FRAMES - 1))
+    require(last_psnr >= VIDEO_PSNR_FLOOR_DB,
+            f"last frame of the stream: {last_psnr} dB, floor "
+            f"{VIDEO_PSNR_FLOOR_DB}")
+    # The encoder alone at each thread count, on the stream's first frames.
+    by_threads = {}
+    for threads in (1, 2, 4, 8):
+        encoder = _native.Mpeg4Encoder(w & ~1, h & ~1, 30, 4, threads)
+        times = []
+        for k in range(10):
+            bgr = frame(k)[:, :, ::-1]
+            t1 = time.perf_counter()
+            encoder.encode(bgr, k)
+            times.append((time.perf_counter() - t1) * 1e3)
+        encoder.close()
+        by_threads[threads] = statistics.median(times)
+    size = os.path.getsize(path)
+    return dict(frames=VIDEO_STREAM_FRAMES, shape=[h, w], bytes=size,
+                encode_ms_by_threads=by_threads,
+                bytes_per_frame=size / VIDEO_STREAM_FRAMES,
+                stsz_count=len(track.sizes), chunk_offsets="co64",
+                encode_ms_median=statistics.median(encode_ms),
+                encode_ms_p90=float(np.percentile(encode_ms, 90)),
+                stream_s=stream_s, last_frame_psnr_db=last_psnr,
+                last_frame_decode_ms=decode_ms)
 
 
 def write_middlebury_scene(scene: str) -> tuple:
@@ -2486,8 +2597,9 @@ def phase_scripts(scene_root: str, tmp: str) -> dict:
     from stereo_tpu_torch.utils.image_io import read_video
 
     frames, _ = read_video(os.path.join(tmp, "kitti", "classical",
-                                        "classical.avi"))
-    require(frames.shape[0] == 2, f"KITTI run's video: {frames.shape}")
+                                        "classical.mp4"))
+    require(frames.shape == (2, 3 * 384 + 40, 1300, 3),
+            f"KITTI run's video: {frames.shape}")
     numbers["run_kitti_pipeline"]["video_frames"] = int(frames.shape[0])
     saved = [f for _, _, fs in os.walk(os.path.join(tmp, "middlebury"))
              for f in fs]
@@ -3976,10 +4088,14 @@ def main() -> int:
         print(json.dumps({"training": training}), flush=True)
 
         t = time.perf_counter()
-        runner_counts, numbers = phase_runner(torch, dev, synthesis,
-                                              os.path.join(tmp, "runner"))
+        runner_counts, numbers, grids = phase_runner(
+            torch, dev, synthesis, os.path.join(tmp, "runner"))
         counts.update(runner_counts)
         report("runner", t, deep3d_weights=deep3d_weights, **numbers)
+
+        t = time.perf_counter()
+        report("video_stream", t, **phase_video_stream(grids, tmp))
+        del grids
 
         t = time.perf_counter()
         scenes = os.path.join(tmp, "middlebury")
@@ -4254,7 +4370,7 @@ def compare_gwc(torch, libs, dev) -> None:
 
 # What ``--phases`` runs, in this order.
 ONLY_PHASES = ("multiprocess", "mesh_dnn_rows", "orbax", "train_stereo",
-               "mesh_single_view_rows", "mesh_train", "synthetic")
+               "mesh_single_view_rows", "mesh_train", "synthetic", "runner")
 
 
 def only(names) -> int:
@@ -4342,6 +4458,15 @@ def only(names) -> int:
         t = time.perf_counter()
         _, numbers = phase_synthetic(torch, dev, synthesis, deep3d_weights)
         report("synthetic", t, deep3d_weights=deep3d_weights, **numbers)
+    if "runner" in names:
+        synthesis, deep3d_weights = make_synthesis(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            counts, numbers, grids = phase_runner(
+                torch, dev, synthesis, os.path.join(tmp, "runner"))
+            report("runner", t, deep3d_weights=deep3d_weights, **numbers)
+            t = time.perf_counter()
+            report("video_stream", t, **phase_video_stream(grids, tmp))
     for line in smi:
         print(line, flush=True)
     return 0

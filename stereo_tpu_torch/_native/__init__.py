@@ -1,15 +1,18 @@
-"""ctypes bindings of the port's native host runtime (``stereo_native.cc``
-and ``jpeg.cc``).
+"""ctypes bindings of the port's native host runtime (``stereo_native.cc``,
+``jpeg.cc`` and ``mpeg4.cc``).
 
 A copy of ``stereo_tpu/_native`` for the port: a zlib PNG decoder (every
 colour type, bit depth and interlace, from bytes in memory or from a
 file), a JPEG decoder (``jpeg_info``, ``decode_jpeg_rgb``: the bytes of
-PIL's ``convert("RGB")`` on libjpeg-turbo's defaults), layout conversions
+PIL's ``convert("RGB")`` on libjpeg-turbo's defaults), an MPEG-4 Part 2
+video encoder and decoder (``Mpeg4Encoder``, ``mp4v_config``,
+``decode_mp4v``: the intra-only ``mp4v`` stream of the context video),
+layout conversions
 (HWC uint8 -> padded CHW float32, bilinear resize, mean pool, RGB ->
 luma) and a threaded frame prefetcher, and a zstd decoder and zlib/gzip
 inflation for Orbax checkpoints (``zstd_decompress``, ``inflate``).
 Unlike the JAX package's copy it has no NumPy or imaging fallback: the
-library is built from both sources with one ``g++ ... -lz`` call on first
+library is built from the three sources with one ``g++ ... -lz`` call on first
 use into ``stereo_tpu_torch/_build/`` (named by a hash of the sources and
 the flags, so a later process reuses it), and a failed build raises with
 the compiler's log.  Importing this module builds nothing.
@@ -32,6 +35,7 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "stereo_native.cc")
 JPEG_SOURCE = os.path.join(_DIR, "jpeg.cc")
+MPEG4_SOURCE = os.path.join(_DIR, "mpeg4.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -44,6 +48,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIZE = ctypes.c_size_t
+_I64 = ctypes.c_int64
 _IP = ctypes.POINTER(ctypes.c_int)
 _BUF = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
 _SIGNATURES = {
@@ -65,6 +70,14 @@ _SIGNATURES = {
     "sn_free": ((_P,), None),
     "sn_jpeg_info_mem": ((_P, _SIZE, _IP, _IP, _IP), _I),
     "sn_decode_jpeg_rgb_mem": ((_P, _SIZE, _P, _I, _I), _I),
+    "sn_mp4v_config": ((_I, _I, _I, _P, _I), _I),
+    "sn_mp4v_encoder_create": ((_I, _I, _I, _I, _I, _IP), _P),
+    "sn_mp4v_encoder_encode": ((_P, _P, _I64, _I64, _I64, _I64), _I64),
+    "sn_mp4v_encoder_output": ((_P,), _P),
+    "sn_mp4v_encoder_destroy": ((_P,), None),
+    "sn_mp4v_vol_info": ((_P, _SIZE, _IP, _IP, _IP), _I),
+    "sn_mp4v_decode": ((_P, _SIZE, _P, _SIZE, _P, _I), _I),
+    "sn_mp4v_idct": ((_P, _P, _I, _I, _I), None),
 }
 
 _ZSTD_ERRORS = {-1: "truncated input", -2: "corrupt data",
@@ -89,10 +102,30 @@ _JPEG_ERRORS = {
     -11: "out of memory",
     -12: "no image (EOI before any scan)"}
 
+# mpeg4.cc's error codes (Mp4vCode).
+_MP4V_ERRORS = {
+    -1: "the stream is truncated",
+    -2: "corrupt data (an invalid code or a missing marker bit)",
+    -3: "no video object layer header",
+    -4: "only rectangular video objects are supported",
+    -5: "interlaced video is not supported",
+    -6: "a coding tool beyond the Simple Profile's intra coding (sprites, "
+        "OBMC, resync markers, data partitioning, scalability, complexity "
+        "estimation, chroma other than 4:2:0, other object types)",
+    -7: "MPEG quantisation (quant_type 1) is not supported",
+    -8: "only I-VOPs are supported (a P-, B- or S-VOP)",
+    -9: "a not-coded VOP",
+    -10: "a frame of another size than the stream's",
+    -11: "dquant, AC prediction or an intra_dc_vlc_thr other than 0",
+    -12: "out of memory, or no thread could start",
+    -13: "unsupported arguments (an odd or zero size, fps or quantiser out "
+         "of range)",
+    -14: "no VOP in the sample"}
+
 
 def _sources():
     """The library's C++ sources, compiled together by one g++ call."""
-    return SOURCE, JPEG_SOURCE
+    return SOURCE, JPEG_SOURCE, MPEG4_SOURCE
 
 
 def library_path() -> str:
@@ -325,6 +358,112 @@ def inflate(data) -> bytes:
     return _decoded(library().sn_inflate, data, "inflate")
 
 
+def _mp4v_error(code: int) -> ValueError:
+    return ValueError(f"MPEG-4 video: {_MP4V_ERRORS.get(code, code)}")
+
+
+def mp4v_config(width: int, height: int, fps: int) -> bytes:
+    """The VOS, VO and VOL headers of the stream ``Mpeg4Encoder`` writes
+    for even ``width`` x ``height`` frames at ``fps``: the decoder-specific
+    info of an MP4's ``esds``."""
+    out = ctypes.create_string_buffer(64)
+    n = library().sn_mp4v_config(width, height, fps, out, len(out))
+    if n < 0:
+        raise _mp4v_error(n)
+    return out.raw[:n]
+
+
+def vol_info(config: bytes) -> Tuple[int, int, int]:
+    """(width, height, vop_time_increment_resolution) of the VOL in
+    ``config``; ``ValueError`` for one the decoder does not take."""
+    src = bytes(config)
+    w, h, res = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = library().sn_mp4v_vol_info(src, len(src), ctypes.byref(w),
+                                    ctypes.byref(h), ctypes.byref(res))
+    if rc:
+        raise _mp4v_error(rc)
+    return w.value, h.value, res.value
+
+
+class Mpeg4Encoder:
+    """MPEG-4 Part 2 Simple Profile encoder (``mpeg4.cc``): every frame an
+    I-VOP at the fixed quantiser ``qp`` (1-31, H.263 quantisation), for
+    even ``width`` x ``height`` BGR uint8 frames at ``fps``, on up to
+    ``threads`` threads (the GIL released)::
+
+        enc = Mpeg4Encoder(1300, 1192, fps=30, qp=4)
+        vop = enc.encode(frame_bgr, index)   # bytes of one MP4 sample
+    """
+
+    def __init__(self, width: int, height: int, fps: int, qp: int,
+                 threads: int = 1):
+        self._lib = library()
+        self.width, self.height, self.fps = int(width), int(height), int(fps)
+        error = ctypes.c_int()
+        self._handle = self._lib.sn_mp4v_encoder_create(
+            self.width, self.height, self.fps, int(qp), int(threads),
+            ctypes.byref(error))
+        if not self._handle:
+            raise _mp4v_error(error.value)
+        self.config = mp4v_config(self.width, self.height, self.fps)
+
+    def encode(self, frame_bgr: np.ndarray, index: int) -> bytes:
+        """One (height, width, 3) uint8 BGR frame as the VOP of frame
+        ``index``.  Any strides are read in place (a crop of a larger
+        frame, or an RGB array reversed along its last axis, copies
+        nothing)."""
+        frame = np.asarray(frame_bgr)
+        if frame.shape != (self.height, self.width, 3):
+            raise ValueError(f"frame shape {frame.shape}, expected "
+                             f"{(self.height, self.width, 3)}")
+        if frame.dtype != np.uint8:
+            frame = frame.astype(np.uint8)
+        n = self._lib.sn_mp4v_encoder_encode(self._handle, _ptr(frame),
+                                             *frame.strides, int(index))
+        if n < 0:
+            raise _mp4v_error(n)
+        return ctypes.string_at(self._lib.sn_mp4v_encoder_output(
+            self._handle), n)
+
+    def close(self) -> None:
+        if getattr(self, "_handle", None):
+            self._lib.sn_mp4v_encoder_destroy(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        self.close()
+
+
+def decode_mp4v(config: bytes, sample: bytes, threads: int = 1,
+                out: Optional[np.ndarray] = None) -> np.ndarray:
+    """One VOP of the stream whose VOL is ``config`` -> (H, W, 3) uint8
+    BGR, into ``out`` when given.  Only what ``Mpeg4Encoder`` writes is
+    read (I-VOPs, H.263 quantisation, rectangular, progressive); anything
+    else raises ``ValueError`` naming the reason."""
+    cfg, src = bytes(config), bytes(sample)
+    w, h, _ = vol_info(cfg)
+    if out is None:
+        out = np.empty((h, w, 3), np.uint8)
+    elif (out.shape != (h, w, 3) or out.dtype != np.uint8
+          or not out.flags.c_contiguous):
+        raise _mp4v_error(-10)
+    rc = library().sn_mp4v_decode(cfg, len(cfg), src, len(src), _ptr(out),
+                                  int(threads))
+    if rc:
+        raise _mp4v_error(rc)
+    return out
+
+
+def mp4v_idct(blocks: np.ndarray, lo: int = -256,
+              hi: int = 255) -> np.ndarray:
+    """The decoder's 8x8 inverse DCT of (N, 8, 8) integer coefficients,
+    rounded and clamped to [lo, hi]."""
+    src = np.ascontiguousarray(blocks, np.int32).reshape(-1, 64)
+    out = np.empty_like(src)
+    library().sn_mp4v_idct(_ptr(src), _ptr(out), len(src), lo, hi)
+    return out.reshape(-1, 8, 8)
+
+
 class FramePrefetcher:
     """Threaded native PNG -> padded CHW decoding over a ring of reusable
     buffers, yielding frames in submission order::
@@ -389,8 +528,9 @@ class FramePrefetcher:
         self.close()
 
 
-__all__ = ["FramePrefetcher", "available", "build_error", "decode_jpeg_rgb",
-           "decode_png_hwc", "decode_png_padded_chw", "hwc_to_padded_chw",
-           "inflate", "jpeg_info", "library", "mean_pool", "png_info",
-           "png_shape", "resize_bilinear_chw", "rgb_to_gray",
-           "zstd_decompress"]
+__all__ = ["FramePrefetcher", "Mpeg4Encoder", "available", "build_error",
+           "decode_jpeg_rgb", "decode_mp4v", "decode_png_hwc",
+           "decode_png_padded_chw", "hwc_to_padded_chw",
+           "inflate", "jpeg_info", "library", "mean_pool", "mp4v_config",
+           "mp4v_idct", "png_info", "png_shape", "resize_bilinear_chw",
+           "rgb_to_gray", "vol_info", "zstd_decompress"]

@@ -135,10 +135,10 @@ class PointCloudSaver(DepthEstimationPipelineHook):
 
 
 class ContextVideoSaver(DepthEstimationPipelineHook):
-    """Streams one grid frame per processed frame into a video writer (an
-    uncompressed AVI, ``utils/image_io.py``; the JAX package writes mp4).
-    The writer is opened on the first frame and frames are written as they
-    come, so host memory stays flat over the drive's length.
+    """Streams one grid frame per processed frame into an mp4 writer
+    (MPEG-4 Part 2, ``utils/image_io.py``), as the JAX package's saver
+    does.  The writer is opened on the first frame and frames are written
+    as they come, so host memory stays flat over the drive's length.
 
     Hook tasks run on a thread pool and may complete out of order, while a
     video must be written in frame order: a small reorder buffer holds

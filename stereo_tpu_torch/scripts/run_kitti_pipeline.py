@@ -5,8 +5,8 @@
         --drive-dir /data/kitti/2011_09_26/2011_09_26_drive_0001_sync
 
 Streams the drive through each selected backend with a completion logger,
-a context-frame saver and a context video (an uncompressed AVI; the JAX
-package writes mp4) under ``--save-dir/<backend>/``.
+a context-frame saver and a context video (``<backend>.mp4``, MPEG-4 Part 2
+as the JAX package writes it) under ``--save-dir/<backend>/``.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def main(argv=None) -> None:
             DisparityMapCompletionLogger(),
             ContextFrameSaver(os.path.join(args.save_dir, backend)),
             ContextVideoSaver(os.path.join(args.save_dir, backend,
-                                           f"{backend}.avi"),
+                                           f"{backend}.mp4"),
                               fps=BACKEND_VIDEO_FPS.get(backend, 10)),
         ]
         if args.batch_size > 1:

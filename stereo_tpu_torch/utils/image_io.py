@@ -6,19 +6,19 @@ files are told apart by their signature, as PIL tells them apart, and
 decoded by the native host runtime (``utils/png.py``;
 ``_native.decode_jpeg_rgb``, ``_native/jpeg.cc``) to the values of PIL's
 ``convert("RGB")``; PNGs are written by ``utils/png.py``.
-Video is an uncompressed RGB AVI (RIFF, ``00db`` DIB frames): the JAX
-package writes mp4 through OpenCV, which the card's machine does not have.
-The frames and their order are the same.
+Video is an mp4 of MPEG-4 Part 2 (``mp4v``) as the JAX package writes it
+through OpenCV, here encoded and decoded by the native host runtime
+(``_native/mpeg4.cc``) and muxed by ``utils/mp4.py``.
 """
 
 from __future__ import annotations
 
 import os
-import struct
 from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 
+from .mp4 import Mp4Writer, read_sample, read_track
 from .png import BadRequestError, decode_png_rgb, encode_png
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -145,95 +145,58 @@ def read_kitti_drive_stereo_pairs(drive_dir: str) -> Tuple[List[str], List[str]]
     return lefts, rights
 
 
-# --- uncompressed AVI ------------------------------------------------------
+# --- mp4v video --------------------------------------------------------------
 
-_AVIF_HASINDEX = 0x10
-_AVIIF_KEYFRAME = 0x10
-_RIFF_LIMIT = 2 ** 32 - 1
+# The encoder's quantiser (1-31, H.263 quantisation, every frame intra),
+# chosen with ``tests/video_floor.py``: the lowest at which the file is
+# at least as sharp as OpenCV's on every frame shape the tests hold it to.
+VIDEO_QUANTISER = 4
 
 
-class AviWriter:
-    """Streams BGR uint8 (H, W, 3) frames into an uncompressed AVI: 24-bit
-    DIB frames (rows bottom-up, each padded to 4 bytes) in ``00db`` chunks,
-    then an ``idx1`` index.  ``write`` and ``release`` as OpenCV's
-    ``VideoWriter``; the frame count and sizes are patched in on
-    ``release``."""
+def _threads() -> int:
+    """Macroblock-row threads of the video encoder and decoder."""
+    return min(4, len(os.sched_getaffinity(0)))
+
+
+class Mp4vWriter:
+    """Streams BGR uint8 (H, W, 3) frames into an MP4 of MPEG-4 Part 2
+    video (``mp4v``, ``_native/mpeg4.cc``, muxed by ``utils/mp4.py``),
+    with OpenCV's ``VideoWriter`` contract: ``write(frame_bgr)`` per frame,
+    ``release()`` at the end.  Odd widths and heights are cropped to even,
+    as OpenCV crops them (the last column or row is dropped)."""
 
     def __init__(self, path: str, height: int, width: int, fps: int):
-        self._h, self._w, self._fps = int(height), int(width), int(fps)
-        self._stride = (3 * self._w + 3) & ~3
-        self._frame_bytes = self._stride * self._h
-        self._index: List[Tuple[int, int]] = []
-        self._file = open(path, "wb")
-        self._write_headers()
+        from .. import _native
 
-    def _write_headers(self) -> None:
-        f, h, w = self._file, self._h, self._w
-        avih = struct.pack("<10I16x", round(1e6 / self._fps),
-                           self._frame_bytes * self._fps, 0, _AVIF_HASINDEX,
-                           0, 0, 1, self._frame_bytes, w, h)
-        strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"DIB ", 0, 0, 0,
-                           0, 1, self._fps, 0, 0, self._frame_bytes,
-                           0xFFFFFFFF, 0, 0, 0, w, h)
-        strf = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0,
-                           self._frame_bytes, 0, 0, 0, 0)
-        strl = (b"strl" + _chunk(b"strh", strh) + _chunk(b"strf", strf))
-        hdrl = b"hdrl" + _chunk(b"avih", avih) + _chunk(b"LIST", strl)
-        f.write(b"RIFF" + struct.pack("<I", 0) + b"AVI ")
-        f.write(_chunk(b"LIST", hdrl))
-        # Offsets of the fields patched in on release: the hdrl list's
-        # body starts at byte 20, avih's body at 32 (its fifth field is the
-        # frame count), strl's body after avih and strl's own chunk header,
-        # strh's body 12 bytes into it (its ninth field is the length).
-        self._total_frames_at = 32 + 16
-        strl_at = 20 + len(hdrl) - len(strl)
-        self._length_at = strl_at + 4 + 8 + 32
-        self._movi_at = f.tell()
-        f.write(b"LIST" + struct.pack("<I", 0) + b"movi")
+        self._shape = (int(height), int(width), 3)
+        self._h, self._w = self._shape[0] & ~1, self._shape[1] & ~1
+        self._encoder = _native.Mpeg4Encoder(self._w, self._h, fps,
+                                             VIDEO_QUANTISER, _threads())
+        self._mp4 = Mp4Writer(path, self._w, self._h, fps,
+                              self._encoder.config)
+        self._index = 0
 
     def write(self, frame_bgr: np.ndarray) -> None:
         frame = np.asarray(frame_bgr, np.uint8)
-        if frame.shape != (self._h, self._w, 3):
+        if frame.shape != self._shape:
             raise ValueError(f"frame shape {frame.shape}, expected "
-                             f"{(self._h, self._w, 3)}")
-        if self._file.tell() + 8 + self._frame_bytes + 16 * (
-                len(self._index) + 1) > _RIFF_LIMIT:
-            raise RuntimeError("uncompressed AVI would pass 4 GiB")
-        rows = np.zeros((self._h, self._stride), np.uint8)
-        rows[:, :3 * self._w] = frame[::-1].reshape(self._h, -1)
-        self._index.append((self._file.tell() - (self._movi_at + 8),
-                            self._frame_bytes))
-        self._file.write(_chunk(b"00db", rows.tobytes()))
+                             f"{self._shape}")
+        self._mp4.write(self._encoder.encode(frame[:self._h, :self._w],
+                                             self._index))
+        self._index += 1
 
     def release(self) -> None:
-        if self._file.closed:
-            return
-        f = self._file
-        movi_end = f.tell()
-        f.write(b"idx1" + struct.pack("<I", 16 * len(self._index)))
-        for offset, size in self._index:
-            f.write(struct.pack("<4sIII", b"00db", _AVIIF_KEYFRAME, offset,
-                                size))
-        end = f.tell()
-        for at, value in ((4, end - 8),
-                          (self._movi_at + 4, movi_end - self._movi_at - 8),
-                          (self._total_frames_at, len(self._index)),
-                          (self._length_at, len(self._index))):
-            f.seek(at)
-            f.write(struct.pack("<I", value))
-        f.close()
+        self._mp4.close()
+        self._encoder.close()
 
 
-def _chunk(fourcc: bytes, body: bytes) -> bytes:
-    return fourcc + struct.pack("<I", len(body)) + body
-
-
-def open_video_writer(path: str, height: int, width: int, fps: int) -> AviWriter:
-    """Open a streaming video writer; callers ``.write()`` BGR uint8 frames
+def open_video_writer(path: str, height: int, width: int,
+                      fps: int) -> Mp4vWriter:
+    """Open a streaming mp4 writer; callers ``.write()`` BGR uint8 frames
     incrementally and ``.release()`` when done, so memory stays flat over
     the video's length."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    return AviWriter(path, height, width, fps)
+    return Mp4vWriter(path, height, width, fps)
 
 
 def write_video(path: str, frames_thwc: np.ndarray, fps: int) -> None:
@@ -248,30 +211,17 @@ def write_video(path: str, frames_thwc: np.ndarray, fps: int) -> None:
 
 
 def read_video(path: str) -> Tuple[np.ndarray, int]:
-    """Read an AVI written by ``AviWriter`` -> ((T, H, W, 3) uint8 RGB, fps)."""
+    """Read an mp4 written by ``Mp4vWriter`` -> ((T, H, W, 3) uint8 RGB,
+    fps); ``ValueError`` naming MP4 or MPEG-4 video for any other file."""
+    from .. import _native
+
+    track = read_track(path)
+    frames = np.empty((len(track.sizes), track.height, track.width, 3),
+                      np.uint8)
+    bgr = np.empty(frames.shape[1:], np.uint8)
     with open(path, "rb") as f:
-        data = f.read()
-    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
-        raise ValueError(f"{path!r} is not an AVI file")
-    chunks = {}        # top-level chunk or list type -> body offset
-    pos = 12
-    while pos + 8 <= len(data):
-        fourcc, size = struct.unpack_from("<4sI", data, pos)
-        key = data[pos + 8:pos + 12] if fourcc == b"LIST" else fourcc
-        chunks[key] = pos + 8
-        pos += 8 + size + (size & 1)
-    hdrl, movi, idx1 = chunks[b"hdrl"], chunks[b"movi"], chunks[b"idx1"]
-    fps = round(1e6 / struct.unpack_from("<I", data, hdrl + 12)[0])
-    strf = data.index(b"strf", hdrl) + 8
-    _, w, h, _, bits = struct.unpack_from("<IiiHH", data, strf)
-    if bits != 24 or h <= 0:
-        raise ValueError(f"unsupported AVI frames ({bits} bits, height {h})")
-    stride = (3 * w + 3) & ~3
-    n = struct.unpack_from("<I", data, idx1 - 4)[0] // 16
-    frames = np.empty((n, h, w, 3), np.uint8)
-    for i in range(n):
-        _, _, offset, size = struct.unpack_from("<4sIII", data, idx1 + 16 * i)
-        start = movi + offset + 8      # offsets count from the "movi" type
-        rows = np.frombuffer(data, np.uint8, size, start).reshape(h, stride)
-        frames[i] = rows[::-1, :3 * w].reshape(h, w, 3)[:, :, ::-1]
-    return frames, fps
+        for i in range(len(track.sizes)):
+            _native.decode_mp4v(track.config, read_sample(f, track, i),
+                                _threads(), out=bgr)
+            frames[i] = bgr[:, :, ::-1]
+    return frames, track.fps

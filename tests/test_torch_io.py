@@ -118,16 +118,34 @@ def test_save_image_grid_decodes_to_jax_pixels(tmp_path):
 
 
 def test_video_round_trip_keeps_frames_and_order(tmp_path):
-    rng = np.random.default_rng(3)
-    frames = rng.integers(0, 256, (3, 7, 13, 3), dtype=np.uint8)
-    path = str(tmp_path / "clip.avi")
+    """write_video and read_video: an mp4 of MPEG-4 Part 2 (lossy: each
+    frame within 1 dB of the worst frame of the JAX package's mp4 of the
+    same frames, odd sizes cropped to even as OpenCV crops them), in
+    order, at its fps; ftyp first, a 64-bit mdat, moov last with 64-bit
+    chunk offsets (co64)."""
+    from video_oracle import cv2_read, drive_frames, psnr, quality
+
+    frames = drive_frames(3, 3, 7, 13)
+    frames[1] //= 2                        # the frames' order is visible
+    path = str(tmp_path / "clip.mp4")
     image_io.write_video(path, frames, fps=6)
     got, fps = image_io.read_video(path)
-    assert fps == 6
-    np.testing.assert_array_equal(got, frames)
+    assert fps == 6 and got.shape == (3, 6, 12, 3)
+    jax_path = str(tmp_path / "jax.mp4")
+    jax_image_io.write_video(jax_path, frames, fps=6)
+    floor = quality(cv2_read(jax_path)[0], frames)["worst"] - 1.0
+    for i, frame in enumerate(got):
+        gate = [psnr(frame, f[:6, :12]) for f in frames]
+        assert max(range(3), key=gate.__getitem__) == i
+        assert gate[i] >= floor, (gate, floor)
     data = open(path, "rb").read()
-    assert data[:4] == b"RIFF" and data[8:12] == b"AVI "
-    assert struct.unpack_from("<I", data, 4)[0] == len(data) - 8
+    assert data[4:8] == b"ftyp" and data[8:12] == b"isom"
+    size, kind, mdat = struct.unpack_from(">I4sQ", data, 28)
+    assert (size, kind) == (1, b"mdat")
+    moov = data[28 + mdat:]
+    assert moov[4:8] == b"moov"
+    assert struct.unpack_from(">I", moov)[0] == len(moov)
+    assert b"co64" in moov and b"stco" not in moov and b"mp4v" in moov
 
 
 # --- the native host runtime -----------------------------------------------

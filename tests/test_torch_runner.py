@@ -23,6 +23,7 @@ from stereo_tpu.pipeline.camera import KittiSingleViewCamera as JaxKitti
 from stereo_tpu.pipeline.camera import MiddleburyStereoCamera as JaxMiddlebury
 from stereo_tpu.pipeline.hooks import DisparityMapSaver as JaxDisparitySaver
 from stereo_tpu.pipeline.metrics import default_metrics as jax_metrics
+from stereo_tpu.utils import image_io as JaxImageIo
 
 from stereo_tpu_torch.core.config import MatchingConfig, PipelineConfig
 from stereo_tpu_torch.pipeline import (
@@ -256,7 +257,7 @@ def test_savers_write_readable_files(tmp_path):
     cam = PairCamera(n=2)
     pipeline = small_pipeline()
     disparities = {}
-    video = str(tmp_path / "video" / "clip.avi")
+    video = str(tmp_path / "video" / "clip.mp4")
     hooks = [collect(disparities),
              DisparityMapSaver(str(tmp_path / "disparity")),
              ContextFrameSaver(str(tmp_path / "context")),
@@ -294,11 +295,21 @@ def test_savers_write_readable_files(tmp_path):
             np.testing.assert_array_equal(points[:, 2], 0.54 * 100.0 / d)
     frames, fps = read_video(video)
     assert fps == 5 and frames.shape == (2, grid_h, SHAPE[1] + 20, 3)
+    # Each frame of the lossy video is its context grid, within what the
+    # JAX package's mp4 (OpenCV) of the same grids reaches, less 1 dB.
+    from video_oracle import cv2_read, quality
+
+    grids = np.stack([decode_png(open(path, "rb").read())
+                      for path in files("context")])
+    jax_video = str(tmp_path / "jax.mp4")
+    JaxImageIo.write_video(jax_video, grids, fps=5)
+    floor = quality(cv2_read(jax_video)[0], grids)["worst"] - 1.0
+    assert quality(frames, grids)["worst"] >= floor
 
 
 def test_video_saver_reorders_frames(tmp_path):
     """Hook tasks may finish out of order; the video is in frame order."""
-    path = str(tmp_path / "clip.avi")
+    path = str(tmp_path / "clip.mp4")
     saver = ContextVideoSaver(path, fps=4)
     config = PipelineConfig(image_shape=(8, 12))
     images = {}
@@ -501,7 +512,7 @@ def test_scripts_run_on_the_cpu(tmp_path):
                              "classical", "--use-right-view", "--save-dir",
                              str(tmp_path / "kitti"), "--device", "cpu"])
     frames, fps = read_video(str(tmp_path / "kitti" / "classical" /
-                                 "classical.avi"))
+                                 "classical.mp4"))
     assert fps == 30 and frames.shape == (2, 3 * 384 + 40, 1300, 3)
 
     results = evaluate_depth_estimation_pipeline.main(
