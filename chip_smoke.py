@@ -19,7 +19,11 @@ Phases, each ending in one flushed JSON line with its name and seconds
              plain and Adam7) against the Python decoder; every committed
              JPEG fixture (``tests/fixtures/jpeg``) decoded by the native
              JPEG decoder to the SHA-256 of PIL's decode in its manifest,
-             and the host ms of the 375x1242 JPEG frame;
+             and the host ms of the 375x1242 JPEG frame; every committed
+             BMP, TIFF, GIF, PNM and PFM fixture (``tests/fixtures/raster``)
+             to its manifest's SHA-256s (PIL's RGB, the JAX trainer's
+             ground truth), and the host ms of the fixture frame as a BMP,
+             a PPM and an uncompressed, LZW and Deflate TIFF;
 3. kernels:  each kernel against its plain PyTorch version at the shapes of
              the single-view paths (384x1280, disparity 1..64; GwcNet's
              volume also at disparity 192 and in bf16), with its median
@@ -116,16 +120,19 @@ Phases, each ending in one flushed JSON line with its name and seconds
    train_stereo: GwcNet at its published widths: ``SyntheticStereoTrainer``
              at its defaults (256x512, disparity 64, batch 4), its first
              step against the CPU's, a few steps; ``StereoTrainer`` for an
-             epoch on four 16-bit-GT triplets; the export through the GwcNet
-             backend's ``gwc_volume`` against the plain version;
+             epoch on four 16-bit-GT triplets, and from the same seed with
+             the ground truth as PFM and as float TIFF (the same losses);
+             the export through the GwcNet backend's ``gwc_volume`` against
+             the plain version;
    scripts:  the five entry points (``python -m
              stereo_tpu_torch.scripts.<name>``: the evaluation, the KITTI
              and Middlebury runs, both training scripts for 2 steps), each
              in its own process;
-8. server:   ``DepthEstimationServer`` on a free local port answers four
-             PNG uploads (one the fixture frame, resized by the server),
-             then shuts down, once with the classical backend and once
-             with GwcNet;
+8. server:   ``DepthEstimationServer`` on a free local port answers nine
+             uploads (seeded PNGs; the fixture frame as PNG, JPEG, BMP, LZW
+             TIFF and PPM, resized by the server, each decoded tensor equal
+             to the PNG's; the GIF fixture), then shuts down, once with the
+             classical backend and once with GwcNet;
    server_asgi: ``create_asgi_app`` around the classical pipeline, driven
              through ASGI's scope/receive/send: GET, a raw and a multipart
              POST of the fixture frame, and a bad payload (400).
@@ -226,8 +233,9 @@ phase lines say which.
     python3 chip_smoke.py --phases multiprocess synthetic
 
 runs the device and build phases and then only the named phases, in
-the order of ``ONLY_PHASES``, with their gates (``multiprocess``,
-``mesh_dnn_rows``, ``orbax``, ``train_stereo``,
+the order of ``ONLY_PHASES``, with their gates (``io``,
+``multiprocess``, ``mesh_dnn_rows``, ``orbax``, ``server`` (the classical
+pipeline's), ``train_stereo``,
 ``mesh_single_view_rows``, ``mesh_train``, ``synthetic``, ``runner``
 with ``video_stream`` after it; Deep3D's
 committed weights when ``data/checkpoints/deep3d.npz`` is present, which
@@ -301,6 +309,14 @@ FIXTURE_FRAMES = [os.path.join(FIXTURE_DRIVE, side, "data", name)
 # at quality 90 among them.
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "jpeg")
 JPEG_FRAME = os.path.join(JPEG_FIXTURES, "kitti_0000000000_q90.jpg")
+# BMP, TIFF, GIF, PNM and PFM fixtures with the SHA-256 of PIL's decode.
+RASTER_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "raster")
+RASTER_GIF = os.path.join(RASTER_FIXTURES, "gif.gif")
+# The fixture frame's formats for the host timings and the server: name ->
+# content type.
+FRAME_FORMATS = {"bmp": "image/bmp", "ppm": "image/x-portable-pixmap",
+                 "tiff_raw": "image/tiff", "tiff_lzw": "image/tiff",
+                 "tiff_deflate": "image/tiff"}
 # A Middlebury calibration for ``middlebury_pair()``: MatchingConfig()'s
 # 1080x1920 and disparity range 75..262.
 MIDDLEBURY_CALIB = """cam0=[1758.23 0 953.34; 0 1758.23 552.29; 0 0 1]
@@ -1533,6 +1549,72 @@ def manifest_checked_jpeg(path: str) -> tuple:
     return data, rgb
 
 
+def raster_manifest() -> dict:
+    with open(os.path.join(RASTER_FIXTURES, "expected.json")) as f:
+        return json.load(f)
+
+
+def manifest_checked_raster(path: str) -> tuple:
+    """A committed BMP/TIFF/GIF/PNM/PFM fixture's bytes and the port's RGB
+    decode of it, which must hash to the SHA-256 of PIL's decode in the
+    manifest, as its ground-truth array must hash to the JAX trainer's."""
+    import hashlib
+
+    from stereo_tpu_torch.utils.image_io import (decode_image,
+                                                 decode_image_rgb,
+                                                 disparity_of)
+
+    with open(path, "rb") as f:
+        data = f.read()
+    entry = raster_manifest()["files"][os.path.basename(path)]
+    rgb = decode_image_rgb(data)
+    digest = hashlib.sha256(rgb.tobytes()).hexdigest()
+    disp = hashlib.sha256(disparity_of(decode_image(data)).tobytes())
+    require(list(rgb.shape) == entry["shape"] and digest == entry["sha256"]
+            and disp.hexdigest() == entry["disparity_sha256"],
+            f"decode of {path}: shape {rgb.shape}, sha256 {digest}, "
+            f"ground truth {disp.hexdigest()}, manifest {entry}")
+    return data, rgb
+
+
+_FRAME_FILES = {}
+
+
+def raster_writers() -> tuple:
+    """``bmp_file``, ``bmp_rows`` and ``tiff_file`` of
+    ``tests/raster_files.py`` (NumPy only: the card's machine has no imaging
+    library)."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import raster_files
+
+    return raster_files.bmp_file, raster_files.bmp_rows, raster_files.tiff_file
+
+
+def frame_files() -> tuple:
+    """The fixture frame's pixels ((375, 1242, 3) uint8, its PNG decoded)
+    and ``FRAME_FORMATS`` name -> the frame's file bytes: a 24-bit BMP, a
+    P6 PPM and RGB TIFFs uncompressed, LZW and Deflate (predictor 2),
+    written once by ``tests/raster_files.py``."""
+    if not _FRAME_FILES:
+        from stereo_tpu_torch.utils.png import decode_png
+
+        bmp_file, bmp_rows, tiff_file = raster_writers()
+
+        with open(FIXTURE_FRAMES[0], "rb") as f:
+            frame = decode_png(f.read())
+        h, w, _ = frame.shape
+        _FRAME_FILES["frame"] = frame
+        _FRAME_FILES["files"] = {
+            "bmp": bmp_file(w, h, 24, bmp_rows(frame[..., ::-1], 24)),
+            "ppm": b"P6 %d %d 255\n" % (w, h) + frame.tobytes(),
+            "tiff_raw": tiff_file(frame, 2),
+            "tiff_lzw": tiff_file(frame, 2, compression=5),
+            "tiff_deflate": tiff_file(frame, 2, compression=8, predictor=2)}
+    return _FRAME_FILES["frame"], _FRAME_FILES["files"]
+
+
 def upload_ms(torch, data: bytes, shape, dev, reps: int = 10) -> float:
     """Host ms of ``decode_png_to_pipeline_image`` to the card, median."""
     from stereo_tpu_torch.serve import decode_png_to_pipeline_image
@@ -1548,14 +1630,16 @@ def upload_ms(torch, data: bytes, shape, dev, reps: int = 10) -> float:
 
 
 def phase_server(torch, pipeline, dev, kernels):
-    """Five uploads to a server around ``pipeline``: three seeded PNG
+    """Nine uploads to a server around ``pipeline``: three seeded PNG
     frames at the pipeline's shape, the fixture frame's PNG bytes (375x1242,
-    Paeth-filtered, resized by the server) and the same frame as a JPEG
+    Paeth-filtered, resized by the server), the same frame as a JPEG
     (``Content-Type: image/jpeg``), whose decoded upload tensor must equal
-    the one from a PNG of its manifest-checked pixels.  Every name in
-    ``kernels`` must launch in that run.  Also the host ms of decoding and
-    uploading the fixture frame, PNG and JPEG
-    (``decode_png_to_pipeline_image``)."""
+    the one from a PNG of its manifest-checked pixels, and as a BMP, an LZW
+    TIFF and a PPM, whose upload tensors must equal the PNG's, and the GIF
+    fixture (``image/gif``), whose tensor must equal a PNG of its
+    manifest-checked pixels.  Every name in ``kernels`` must launch in that
+    run.  Also the host ms of decoding and uploading the fixture frame in
+    each format (``decode_png_to_pipeline_image``)."""
     from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
     from stereo_tpu_torch.serve import (DepthEstimationServer,
                                         decode_png_to_pipeline_image)
@@ -1580,6 +1664,28 @@ def phase_server(torch, pipeline, dev, kernels):
             "the JPEG upload's tensor differs from its pixels' PNG upload")
     decode_ms = upload_ms(torch, uploads[3], config.image_shape, dev)
     jpeg_decode_ms = upload_ms(torch, jpeg, config.image_shape, dev)
+    from_frame_png = decode_png_to_pipeline_image(uploads[3],
+                                                  config.image_shape, dev)
+    _, files = frame_files()
+    format_ms = {}
+    for name in ("bmp", "tiff_lzw", "ppm"):
+        tensor = decode_png_to_pipeline_image(files[name],
+                                              config.image_shape, dev)
+        require(tensor.dtype == torch.uint8
+                and torch.equal(tensor, from_frame_png),
+                f"the {name} upload's tensor differs from the PNG upload's")
+        format_ms[name] = upload_ms(torch, files[name], config.image_shape,
+                                    dev)
+        uploads.append(files[name])
+        types.append(FRAME_FORMATS[name])
+    gif, gif_pixels = manifest_checked_raster(RASTER_GIF)
+    require(torch.equal(
+        decode_png_to_pipeline_image(gif, config.image_shape, dev),
+        decode_png_to_pipeline_image(encode_png(gif_pixels),
+                                     config.image_shape, dev)),
+        "the GIF upload's tensor differs from its pixels' PNG upload")
+    uploads.append(gif)
+    types.append("image/gif")
     replies = [None] * len(uploads)
     host, port = server.start("127.0.0.1", 0)
 
@@ -1617,8 +1723,11 @@ def phase_server(torch, pipeline, dev, kernels):
                         frames=server.batcher.frames_run,
                         timer_pending=pending,
                         jpeg_upload_equals_png_of_its_pixels=True,
+                        bmp_tiff_ppm_uploads_equal_the_png_upload=True,
+                        gif_upload_equals_png_of_its_pixels=True,
                         fixture_decode_upload_ms_median=decode_ms,
-                        fixture_jpeg_decode_upload_ms_median=jpeg_decode_ms)
+                        fixture_jpeg_decode_upload_ms_median=jpeg_decode_ms,
+                        fixture_format_decode_upload_ms_median=format_ms)
 
 
 def phase_io() -> dict:
@@ -1626,9 +1735,15 @@ def phase_io() -> dict:
     decoded by it equal byte for byte to the Python decoder, and the host
     ms of a 375x1242 frame for each decoder (the Python one timed once);
     every committed JPEG decoded to its manifest's SHA-256, and the host ms
-    of the 375x1242 JPEG frame (median of 20, under the PNG's 50 ms)."""
+    of the 375x1242 JPEG frame (median of 20, under the PNG's 50 ms); every
+    committed BMP, TIFF, GIF, PNM and PFM fixture decoded to its manifest's
+    SHA-256 (RGB and ground truth), and the host ms of ``decode_image_rgb``
+    of the fixture frame as a BMP, a PPM and an uncompressed, an LZW and a
+    Deflate TIFF (median of 20 each, each under 50 ms, each equal to the
+    PNG's pixels)."""
     from stereo_tpu_torch import _native
     from stereo_tpu_torch.pipeline.camera.kitti import KITTI_PAD
+    from stereo_tpu_torch.utils.image_io import decode_image_rgb
     from stereo_tpu_torch.utils.png import decode_png, decode_png_python
 
     _native.library()
@@ -1671,6 +1786,17 @@ def phase_io() -> dict:
         jpeg = f.read()
     jpeg_ms = host_ms(lambda: _native.decode_jpeg_rgb(jpeg))
     require(jpeg_ms < 50, f"native JPEG decode took {jpeg_ms} ms")
+    raster_names = sorted(raster_manifest()["files"])
+    for name in raster_names:
+        manifest_checked_raster(os.path.join(RASTER_FIXTURES, name))
+    frame, files = frame_files()
+    format_ms = {}
+    for name, blob in files.items():
+        require(np.array_equal(decode_image_rgb(blob), frame),
+                f"the fixture frame as {name} decodes to other pixels")
+        format_ms[name] = host_ms(lambda: decode_image_rgb(blob))
+        require(format_ms[name] < 50,
+                f"{name} decode of the frame took {format_ms[name]} ms")
     return dict(gxx_seconds=round(_native.build_seconds, 3),
                 library=os.path.relpath(_native.library_path(), ROOT),
                 native_available=_native.available(),
@@ -1680,6 +1806,10 @@ def phase_io() -> dict:
                 frames=frames, python_decode_ms_once=python_ms,
                 native_decode_ms=native_ms,
                 native_jpeg_decode_ms=jpeg_ms,
+                raster_fixtures=dict(files=len(raster_names),
+                                     equal_to_manifest=True),
+                frame_format_decode_ms=format_ms,
+                frame_format_bytes={k: len(v) for k, v in files.items()},
                 decode_png_ms=host_ms(lambda: decode_png(data)),
                 native_file_padded_ms=host_ms(
                     lambda: _native.decode_png_padded_chw(FIXTURE_FRAMES[0],
@@ -2166,13 +2296,46 @@ def write_kitti2015(root: str, n: int = 4) -> tuple:
     return lists
 
 
+def ground_truth_twins(png_paths, root: str) -> dict:
+    """The 16-bit ground-truth PNGs again as PFM (``Pf``, little-endian,
+    bottom-up) and as float32 TIFF (Deflate, predictor 3), the same
+    disparities (multiples of 1/256, exact in float32): format -> paths.
+    Each twin must read back (``read_disparity``) equal to its PNG."""
+    from stereo_tpu_torch.train.stereo_trainer import read_disparity
+
+    tiff_file = raster_writers()[2]
+
+    twins = {"pfm": [], "float_tiff": []}
+    for fmt in twins:
+        os.makedirs(os.path.join(root, f"disp_{fmt}"), exist_ok=True)
+    for png in png_paths:
+        disp = read_disparity(png)
+        h, w = disp.shape
+        stem = os.path.splitext(os.path.basename(png))[0]
+        blobs = {"pfm": b"Pf\n%d %d\n-1.0\n" % (w, h) + disp[::-1].astype(
+                     "<f4").tobytes(),
+                 "float_tiff": tiff_file(disp, 1, compression=8,
+                                         predictor=3)}
+        for fmt, blob in blobs.items():
+            path = os.path.join(root, f"disp_{fmt}",
+                                stem + (".pfm" if fmt == "pfm" else ".tif"))
+            with open(path, "wb") as f:
+                f.write(blob)
+            require(np.array_equal(read_disparity(path), disp),
+                    f"{path} reads back other disparities than {png}")
+            twins[fmt].append(path)
+    return twins
+
+
 def phase_train_stereo(torch, dev, tmp: str):
     """GwcNet at its published widths (320 features, 40 groups, 16
     layer-2 blocks): ``SyntheticStereoTrainer`` at its defaults (256x512,
     disparity 64, batch 4), its first step on two scenes against the same
     step on the CPU, then a few steps; ``StereoTrainer`` for one epoch on
-    four 16-bit-GT triplets; the synthetic trainer's export loaded in the
-    GwcNet backend, whose ``gwc_volume`` must agree with the plain
+    four 16-bit-GT triplets, then from the same seed on the same triplets
+    with their ground truth as PFM and as float TIFF, whose epoch losses
+    must equal the PNG epoch's; the synthetic trainer's export loaded in
+    the GwcNet backend, whose ``gwc_volume`` must agree with the plain
     version on the exported net."""
     import copy
 
@@ -2229,6 +2392,17 @@ def phase_train_stereo(torch, dev, tmp: str):
             f"StereoTrainer epoch losses {kitti_losses}")
     kitti_trained = check_trained(torch, kitti.model, kitti_before)
     del kitti
+    twin_losses = {}
+    for fmt, paths in ground_truth_twins(
+            files[2], os.path.join(tmp, "kitti2015")).items():
+        twin = StereoTrainer("gwcnet", config=TrainerConfig(
+            n_epochs=1, batch_size=4, learning_rate=1e-3), device=dev)
+        twin_losses[fmt] = twin.train(Kitti2015StereoDataset(
+            files[0], files[1], paths))
+        del twin
+        require(twin_losses[fmt] == kitti_losses,
+                f"{fmt} ground truth: epoch losses {twin_losses[fmt]}, "
+                f"16-bit PNG {kitti_losses}")
 
     backend = DnnStereoMatchingBackend("gwcnet", (384, 1280),
                                        max_disparity=64,
@@ -2258,7 +2432,9 @@ def phase_train_stereo(torch, dev, tmp: str):
         kitti2015=dict(epoch_loss=kitti_losses[0], epoch_s=kitti_epoch_s,
                        steps=1, batch=4, max_disparity=192,
                        max_memory_allocated_bytes=kitti_peak,
-                       trained=kitti_trained),
+                       trained=kitti_trained,
+                       ground_truth_twin_losses=twin_losses,
+                       twin_losses_equal_png=True),
         export_vs_plain=agreement, export_launches=counts)
 
 
@@ -4369,8 +4545,9 @@ def compare_gwc(torch, libs, dev) -> None:
 
 
 # What ``--phases`` runs, in this order.
-ONLY_PHASES = ("multiprocess", "mesh_dnn_rows", "orbax", "train_stereo",
-               "mesh_single_view_rows", "mesh_train", "synthetic", "runner")
+ONLY_PHASES = ("io", "multiprocess", "mesh_dnn_rows", "orbax", "server",
+               "train_stereo", "mesh_single_view_rows", "mesh_train",
+               "synthetic", "runner")
 
 
 def only(names) -> int:
@@ -4396,6 +4573,9 @@ def only(names) -> int:
     t = time.perf_counter()
     build.library()
     report("build", t, nvcc_seconds=round(build.build_seconds, 3))
+    if "io" in names:
+        t = time.perf_counter()
+        report("io", t, **phase_io())
     if "multiprocess" in names:
         with tempfile.TemporaryDirectory() as tmp:
             t = time.perf_counter()
@@ -4419,6 +4599,17 @@ def only(names) -> int:
                                           os.path.join(tmp, "orbax"))
             report("orbax", t, launches=counts, **numbers)
         del synthesis
+        torch.cuda.empty_cache()
+    if "server" in names:
+        synthesis, deep3d_weights = make_synthesis(dev)
+        pipeline, _ = phase_pipeline(torch, dev, synthesis,
+                                     reference_check=False)
+        t = time.perf_counter()
+        counts, numbers = phase_server(torch, pipeline, dev,
+                                       CLASSICAL_KERNELS)
+        report("server", t, deep3d_weights=deep3d_weights, launches=counts,
+               **numbers)
+        del synthesis, pipeline
         torch.cuda.empty_cache()
     if "train_stereo" in names:
         with tempfile.TemporaryDirectory() as tmp:

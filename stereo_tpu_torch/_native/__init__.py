@@ -1,10 +1,11 @@
 """ctypes bindings of the port's native host runtime (``stereo_native.cc``,
-``jpeg.cc`` and ``mpeg4.cc``).
+``jpeg.cc``, ``mpeg4.cc`` and ``raster.cc``).
 
 A copy of ``stereo_tpu/_native`` for the port: a zlib PNG decoder (every
 colour type, bit depth and interlace, from bytes in memory or from a
 file), a JPEG decoder (``jpeg_info``, ``decode_jpeg_rgb``: the bytes of
-PIL's ``convert("RGB")`` on libjpeg-turbo's defaults), an MPEG-4 Part 2
+PIL's ``convert("RGB")`` on libjpeg-turbo's defaults), BMP, TIFF and GIF
+decoders (``decode_raster``: PIL's mode and samples), an MPEG-4 Part 2
 video encoder and decoder (``Mpeg4Encoder``, ``mp4v_config``,
 ``decode_mp4v``: the intra-only ``mp4v`` stream of the context video),
 layout conversions
@@ -12,7 +13,7 @@ layout conversions
 luma) and a threaded frame prefetcher, and a zstd decoder and zlib/gzip
 inflation for Orbax checkpoints (``zstd_decompress``, ``inflate``).
 Unlike the JAX package's copy it has no NumPy or imaging fallback: the
-library is built from the three sources with one ``g++ ... -lz`` call on first
+library is built from the four sources with one ``g++ ... -lz`` call on first
 use into ``stereo_tpu_torch/_build/`` (named by a hash of the sources and
 the flags, so a later process reuses it), and a failed build raises with
 the compiler's log.  Importing this module builds nothing.
@@ -36,6 +37,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_DIR, "stereo_native.cc")
 JPEG_SOURCE = os.path.join(_DIR, "jpeg.cc")
 MPEG4_SOURCE = os.path.join(_DIR, "mpeg4.cc")
+RASTER_SOURCE = os.path.join(_DIR, "raster.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -50,6 +52,7 @@ _F = ctypes.c_float
 _SIZE = ctypes.c_size_t
 _I64 = ctypes.c_int64
 _IP = ctypes.POINTER(ctypes.c_int)
+_I64P = ctypes.POINTER(ctypes.c_int64)
 _BUF = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
 _SIGNATURES = {
     "sn_png_info_mem": ((_P, _SIZE, _IP, _IP, _IP, _IP), _I),
@@ -69,7 +72,7 @@ _SIGNATURES = {
     "sn_inflate": ((_P, _SIZE, _BUF), ctypes.c_int64),
     "sn_free": ((_P,), None),
     "sn_jpeg_info_mem": ((_P, _SIZE, _IP, _IP, _IP), _I),
-    "sn_decode_jpeg_rgb_mem": ((_P, _SIZE, _P, _I, _I), _I),
+    "sn_decode_jpeg_mem": ((_P, _SIZE, _P, _I, _I, _I), _I),
     "sn_mp4v_config": ((_I, _I, _I, _P, _I), _I),
     "sn_mp4v_encoder_create": ((_I, _I, _I, _I, _I, _IP), _P),
     "sn_mp4v_encoder_encode": ((_P, _P, _I64, _I64, _I64, _I64), _I64),
@@ -78,6 +81,7 @@ _SIGNATURES = {
     "sn_mp4v_vol_info": ((_P, _SIZE, _IP, _IP, _IP), _I),
     "sn_mp4v_decode": ((_P, _SIZE, _P, _SIZE, _P, _I), _I),
     "sn_mp4v_idct": ((_P, _P, _I, _I, _I), None),
+    "sn_raster_decode": ((_P, _SIZE, _I64P, _BUF), _I),
 }
 
 _ZSTD_ERRORS = {-1: "truncated input", -2: "corrupt data",
@@ -123,9 +127,36 @@ _MP4V_ERRORS = {
     -14: "no VOP in the sample"}
 
 
+# raster.cc's error codes (RasterCode).
+_RASTER_ERRORS = {
+    -1: "image file is truncated",
+    -2: "corrupt or malformed image data",
+    -3: "not a BMP, TIFF or GIF file (by its signature)",
+    -4: "image too large (over 178956970 pixels)",
+    -5: "out of memory",
+    -6: "a header, depth, compression or bitfields layout PIL refuses",
+    -7: "a layout PIL refuses (photometric, sample format, bits, extra "
+        "samples, tags or data organization)",
+    -10: "JPEG compression is not supported",
+    -11: "CCITT compression is not supported",
+    -12: "LZMA compression is not supported",
+    -13: "ZSTD compression is not supported",
+    -14: "WebP compression is not supported",
+    -15: "ThunderScan, SGILog or 16-bit-padded compression is not supported",
+    -16: "YCbCr (photometric 6) is not supported",
+    -17: "CIELab (photometric 8) is not supported"}
+
+# raster.cc's modes (Mode), by PIL's names, with the dtype of their samples.
+RASTER_MODES = (("1", np.uint8), ("L", np.uint8), ("P", np.uint8),
+                ("LA", np.uint8), ("PA", np.uint8), ("RGB", np.uint8),
+                ("RGBA", np.uint8), ("CMYK", np.uint8), ("I;16", np.uint16),
+                ("I", np.int32), ("F", np.float32))
+_RASTER_FORMATS = {1: "BMP", 2: "TIFF", 3: "GIF"}
+
+
 def _sources():
     """The library's C++ sources, compiled together by one g++ call."""
-    return SOURCE, JPEG_SOURCE, MPEG4_SOURCE
+    return SOURCE, JPEG_SOURCE, MPEG4_SOURCE, RASTER_SOURCE
 
 
 def library_path() -> str:
@@ -339,10 +370,60 @@ def decode_jpeg_rgb(data) -> np.ndarray:
         raise ValueError(f"JPEG: {_JPEG_ERRORS.get(info, info)}")
     h, w, _ = info
     out = np.empty((h, w, 3), np.uint8)
-    rc = library().sn_decode_jpeg_rgb_mem(src, len(src), _ptr(out), h, w)
+    rc = library().sn_decode_jpeg_mem(src, len(src), _ptr(out), h, w, 0)
     if rc:
         raise ValueError(f"JPEG: {_JPEG_ERRORS.get(rc, rc)}")
     return out
+
+
+def decode_jpeg(data) -> Tuple[str, np.ndarray]:
+    """JPEG bytes -> (PIL's mode, its (H, W, C) uint8 samples), as PIL's
+    ``Image.open`` holds them: "L" for one component, "RGB" for three,
+    "CMYK" for four (libjpeg's CMYK inverted, PIL's "CMYK;I").  Raises
+    ``decode_jpeg_rgb``'s ``ValueError``."""
+    src = bytes(data)
+    info = jpeg_info(src)
+    if isinstance(info, int):
+        raise ValueError(f"JPEG: {_JPEG_ERRORS.get(info, info)}")
+    h, w, components = info
+    if components != 4:
+        rgb = decode_jpeg_rgb(src)
+        return ("L", rgb[..., :1]) if components == 1 else ("RGB", rgb)
+    out = np.empty((h, w, 4), np.uint8)
+    rc = library().sn_decode_jpeg_mem(src, len(src), _ptr(out), h, w, 1)
+    if rc:
+        raise ValueError(f"JPEG: {_JPEG_ERRORS.get(rc, rc)}")
+    return "CMYK", out
+
+
+def decode_raster(data) -> Tuple[str, np.ndarray, np.ndarray, int, str]:
+    """BMP, TIFF or GIF bytes -> (PIL's mode, its (H, W, C) samples, the
+    palette's (N, 3) uint8 RGB of modes P and PA, TIFF's Orientation tag,
+    the format's name), as PIL's ``Image.open`` decodes them before any
+    conversion (``raster.cc``; the Orientation is not applied).  Raises
+    ``ValueError`` naming the reason for bytes it does not take."""
+    src = bytes(data)
+    meta = (ctypes.c_int64 * 6)()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    rc = library().sn_raster_decode(src, len(src), meta, ctypes.byref(out))
+    if rc:
+        name = ("BMP" if src[:2] == b"BM" else "GIF" if src[:3] == b"GIF"
+                else "TIFF")
+        raise ValueError(f"{name}: {_RASTER_ERRORS.get(rc, rc)}")
+    try:
+        mode, dtype = RASTER_MODES[meta[0]]
+        h, w, entries = meta[1], meta[2], meta[3]
+        channels = {"LA": 2, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4}.get(
+            mode, 1)
+        samples = np.empty((h, w, channels), dtype)
+        ctypes.memmove(_ptr(samples), out, samples.nbytes)
+        palette = np.empty((entries, 3), np.uint8)
+        ctypes.memmove(_ptr(palette),
+                       ctypes.addressof(out.contents) + samples.nbytes,
+                       palette.nbytes)
+    finally:
+        library().sn_free(out)
+    return mode, samples, palette, int(meta[4]), _RASTER_FORMATS[meta[5]]
 
 
 def zstd_decompress(data) -> bytes:
@@ -530,7 +611,7 @@ class FramePrefetcher:
 
 __all__ = ["FramePrefetcher", "Mpeg4Encoder", "available", "build_error",
            "decode_jpeg_rgb", "decode_mp4v", "decode_png_hwc",
-           "decode_png_padded_chw", "hwc_to_padded_chw",
+           "decode_png_padded_chw", "decode_raster", "hwc_to_padded_chw",
            "inflate", "jpeg_info", "library", "mean_pool", "mp4v_config",
            "mp4v_idct", "png_info", "png_shape", "resize_bilinear_chw",
            "rgb_to_gray", "vol_info", "zstd_decompress"]

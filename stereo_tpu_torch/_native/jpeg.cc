@@ -987,7 +987,7 @@ struct Jpeg {
 
   void smoothed_block(const Component& c, const int* bits,
                       const int rows[5], int bx, int16_t* ws) const;
-  void output(uint8_t* rgb);
+  void output(uint8_t* rgb, bool cmyk);
 };
 
 // ---------------------------------------------------------------------------
@@ -1221,7 +1221,7 @@ void Jpeg::smoothed_block(const Component& c, const int* bits,
   ws[0] = int16_t(num >= 0 ? pred : -pred);
 }
 
-void Jpeg::output(uint8_t* rgb) {
+void Jpeg::output(uint8_t* rgb, bool cmyk) {
   std::vector<uint8_t> planes[4];
   const int imcu_rows = (height + 8 * maxv - 1) / (8 * maxv);
   for (int ci = 0; ci < ncomp; ++ci) {
@@ -1357,6 +1357,11 @@ void Jpeg::output(uint8_t* rgb) {
       cmy[2] = p2[i];
     }
     const int nk = p3[i];  // 255 - (255 - K)
+    if (cmyk) {  // PIL's samples themselves
+      for (int k = 0; k < 3; ++k) rgb[4 * i + k] = uint8_t(255 - cmy[k]);
+      rgb[4 * i + 3] = uint8_t(255 - nk);
+      continue;
+    }
     for (int k = 0; k < 3; ++k)
       rgb[3 * i + k] = clamp(nk - muldiv255(255 - cmy[k], nk));
   }
@@ -1384,17 +1389,18 @@ int sn_jpeg_info_mem(const uint8_t* data, size_t size, int* h, int* w,
   }
 }
 
-// JPEG bytes -> (h, w, 3) uint8 RGB at `out`; h and w must be the file's
-// (sn_jpeg_info_mem).  Returns 0, or a negative JpegCode; `out` is
-// unspecified after an error.
-int sn_decode_jpeg_rgb_mem(const uint8_t* data, size_t size, uint8_t* out,
-                           int h, int w) {
+// JPEG bytes -> (h, w, 3) uint8 RGB at `out`, or with `cmyk` set (a file
+// of four components) the (h, w, 4) CMYK samples PIL reads ("CMYK;I"); h
+// and w must be the file's (sn_jpeg_info_mem).  Returns 0, or a negative
+// JpegCode; `out` is unspecified after an error.
+int sn_decode_jpeg_mem(const uint8_t* data, size_t size, uint8_t* out, int h,
+                       int w, int cmyk) {
   try {
     Jpeg jpeg(data, size);
     jpeg.read_header();
-    jcheck(jpeg.height == h && jpeg.width == w);
+    jcheck(jpeg.height == h && jpeg.width == w && (!cmyk || jpeg.ncomp == 4));
     jpeg.decode_all();
-    jpeg.output(out);
+    jpeg.output(out, cmyk != 0);
     return 0;
   } catch (const JpegError& e) {
     return e.code;

@@ -23,8 +23,7 @@ from ..core.device import resolve_device, set_float32_precision
 from ..models import (build_stereo_model, gwcnet_loss, init_params,
                       msnet_loss, save_params_npz)
 from ..pipeline.backends import normalize_imagenet
-from ..utils.image_io import read_image_chw
-from ..utils.png import decode_png
+from ..utils.image_io import decode_image, disparity_of, read_image_chw
 from .trainer import (checkpoint_format, load_training_state, optax_adam_state,
                       save_orbax_training_state, save_training_state,
                       to_device)
@@ -32,19 +31,30 @@ from .trainer import (checkpoint_format, load_training_state, optax_adam_state,
 LOSSES = {"gwcnet": gwcnet_loss, "msnet2d": msnet_loss, "msnet3d": msnet_loss}
 
 
-def read_disparity_png(path: str) -> np.ndarray:
-    """A KITTI ground-truth PNG -> (H, W) float32 disparities: a 16-bit
-    file holds ``disparity * 256`` (scaled by the header's bit depth, never
-    by the values), an 8-bit one the disparity itself."""
+def read_disparity(path: str) -> np.ndarray:
+    """A ground-truth disparity file -> (H, W) float32, as the JAX trainer
+    reads it (``np.asarray`` of PIL's image, its first channel): 16-bit grey
+    (KITTI's PNG, a 16-bit TIFF, a PGM at a maxval over 255) holds
+    ``disparity * 256`` and is divided by 256 (by the file's mode, never by
+    its values); float files (``Pf`` PFM, float TIFF) and 8-bit grey give
+    the disparity itself; a palette (PNG, BMP, GIF, TIFF) its index; a
+    bitmap 0 or 1; colour its red channel (16-bit colour its high byte),
+    CMYK its cyan.  The format is told by the signature
+    (``utils.image_io.decode_image``, ``disparity_of``)."""
     with open(path, "rb") as f:
-        arr = decode_png(f.read())[..., 0]
-    disp = arr.astype(np.float32)
-    return disp / 256.0 if arr.dtype == np.uint16 else disp
+        return disparity_of(decode_image(f.read()))
+
+
+def read_disparity_png(path: str) -> np.ndarray:
+    """A KITTI ground-truth PNG -> (H, W) float32 disparities
+    (``read_disparity``, which reads the other formats too)."""
+    return read_disparity(path)
 
 
 class Kitti2015StereoDataset:
-    """KITTI-2015-style training triplets: left/right PNGs and 16-bit GT
-    disparity PNGs, random-cropped to ``crop`` (H, W)."""
+    """KITTI-2015-style training triplets: left/right images and ground-truth
+    disparity files (16-bit PNGs, or any format ``read_disparity`` takes),
+    random-cropped to ``crop`` (H, W)."""
 
     def __init__(self, left_paths: Sequence[str], right_paths: Sequence[str],
                  disparity_paths: Sequence[str],
@@ -64,7 +74,7 @@ class Kitti2015StereoDataset:
         column, as the JAX package draws them)."""
         left = read_image_chw(self.lefts[idx])
         right = read_image_chw(self.rights[idx])
-        disp = read_disparity_png(self.disps[idx])
+        disp = read_disparity(self.disps[idx])
         ch, cw = self.crop
         h, w = left.shape[-2:]
         y = int(rng.integers(0, max(1, h - ch + 1)))

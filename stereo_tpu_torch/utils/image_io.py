@@ -1,11 +1,14 @@
 """Image and video I/O and grid composition (port of
 ``stereo_tpu/utils/image_io.py``; NumPy and the standard library only).
 
-Images are CHW float32 in 0..255 unless stated otherwise.  PNG and JPEG
-files are told apart by their signature, as PIL tells them apart, and
+Images are CHW float32 in 0..255 unless stated otherwise.  Image files are
+told apart by their signature, as PIL tells them apart: PNG and JPEG are
 decoded by the native host runtime (``utils/png.py``;
 ``_native.decode_jpeg_rgb``, ``_native/jpeg.cc``) to the values of PIL's
-``convert("RGB")``; PNGs are written by ``utils/png.py``.
+``convert("RGB")``; BMP, TIFF and GIF (``_native.decode_raster``,
+``_native/raster.cc``) and PNM/PFM (``utils/pnm.py``) to PIL's own mode and
+samples (``decode_image``), which ``convert_rgb`` converts as PIL's
+``convert("RGB")`` does; PNGs are written by ``utils/png.py``.
 Video is an mp4 of MPEG-4 Part 2 (``mp4v``) as the JAX package writes it
 through OpenCV, here encoded and decoded by the native host runtime
 (``_native/mpeg4.cc``) and muxed by ``utils/mp4.py``.
@@ -14,26 +17,122 @@ through OpenCV, here encoded and decoded by the native host runtime
 from __future__ import annotations
 
 import os
-from typing import List, Sequence, Tuple, Union
+from typing import List, NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 
 from .mp4 import Mp4Writer, read_sample, read_track
-from .png import BadRequestError, decode_png_rgb, encode_png
+from .png import BadRequestError, decode_png_image, decode_png_rgb, encode_png
+from .pnm import decode_pnm, is_pnm
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SIGNATURE = b"\xff\xd8\xff"   # what PIL's JPEG plugin accepts
+_RASTER_SIGNATURES = (b"BM", b"GIF87a", b"GIF89a", b"II*\0", b"MM\0*",
+                      b"II+\0", b"MM\0+", b"MM*\0", b"II\0*")
+FORMATS = "PNG, JPEG, BMP, TIFF, GIF, PNM (P1-P6) or PFM"
+# TIFF's Orientation tag -> the transpose PIL applies when it loads the file
+# (ImageOps.exif_transpose), on (H, W, C) samples.
+_ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
+           4: lambda a: a[::-1], 5: lambda a: a.transpose(1, 0, 2),
+           6: lambda a: np.rot90(a, -1), 7: lambda a: np.rot90(a, 2).transpose(
+               1, 0, 2), 8: lambda a: np.rot90(a, 1)}
 
 ImageLike = Union[np.ndarray, "object"]  # ndarray or anything np.asarray-able
 
 
+class DecodedImage(NamedTuple):
+    """An image as PIL's ``Image.open`` holds it: its mode ("1", "L", "P",
+    "LA", "PA", "RGB", "RGBA", "CMYK", "I;16", "I" or "F"), its (H, W, C)
+    samples (mode "1" as 0 or 255) and, for "P" and "PA", the palette's
+    (N, 3) uint8 RGB."""
+    mode: str
+    samples: np.ndarray
+    palette: np.ndarray
+
+
+def decode_image(data: bytes) -> DecodedImage:
+    """Image bytes (any format ``decode_image_rgb`` takes) ->
+    ``DecodedImage``, what PIL's ``Image.open`` decodes before any
+    conversion (TIFF's Orientation applied, as PIL applies it when it loads
+    the file).  The format is told by the signature.  A file PIL refuses,
+    or another format, is a ``BadRequestError`` naming the format and the
+    cause; so is a variant PIL opens and the port does not (TIFF with JPEG,
+    CCITT, LZMA, ZSTD or WebP compression, or in YCbCr or CIELab), by its
+    name."""
+    from .. import _native
+
+    no_palette = np.zeros((0, 3), np.uint8)
+    if data[:len(_PNG_SIGNATURE)] == _PNG_SIGNATURE:
+        return DecodedImage(*decode_png_image(data))
+    try:
+        if data[:len(_JPEG_SIGNATURE)] == _JPEG_SIGNATURE:
+            return DecodedImage(*_native.decode_jpeg(data), no_palette)
+        if is_pnm(data):
+            return DecodedImage(*decode_pnm(data), no_palette)
+        if data[:6].startswith(_RASTER_SIGNATURES):
+            mode, samples, palette, orientation, _ = _native.decode_raster(
+                data)
+            if orientation in _ORIENT:
+                samples = np.ascontiguousarray(_ORIENT[orientation](samples))
+            return DecodedImage(mode, samples, palette)
+    except ValueError as exc:
+        raise BadRequestError(str(exc)) from exc
+    raise BadRequestError(f"not a {FORMATS} image")
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def convert_rgb(image: DecodedImage) -> np.ndarray:
+    """``DecodedImage`` -> (H, W, 3) uint8, PIL's ``convert("RGB")``: alpha
+    dropped, a palette index past the palette black (its ``transparency``
+    ignored), "1" as 0 or 255, "I;16" and "I" clipped to 0..255, "F"
+    truncated toward zero and clipped (NaN as 0), CMYK as PIL maps it."""
+    mode, samples = image.mode, image.samples
+    if mode in ("P", "PA"):
+        palette = np.zeros((256, 3), np.uint8)
+        palette[:len(image.palette)] = image.palette[:256]
+        return palette[samples[..., 0]]
+    if mode in ("RGB", "RGBA"):
+        return np.ascontiguousarray(samples[..., :3], np.uint8)
+    if mode == "CMYK":
+        cmyk = samples.astype(np.int32)
+        nk = 255 - cmyk[..., 3:]
+        return np.clip(nk - _muldiv255(cmyk[..., :3], nk), 0,
+                       255).astype(np.uint8)
+    grey = samples[..., 0]
+    if mode in ("I;16", "I"):
+        grey = np.clip(grey, 0, 255)
+    elif mode == "F":
+        grey = np.clip(np.trunc(np.nan_to_num(grey, nan=0.0, posinf=255.0,
+                                              neginf=0.0)), 0, 255)
+    return np.repeat(grey.astype(np.uint8)[..., None], 3, axis=2)
+
+
+def disparity_of(image: DecodedImage) -> np.ndarray:
+    """``DecodedImage`` -> (H, W) float32, the JAX stereo trainer's reading
+    of a ground-truth file: ``np.asarray(im, float32)``, its first channel,
+    divided by 256 in modes "I" and "I;16" (KITTI's encoding)."""
+    mode, samples = image.mode, image.samples
+    disp = samples[..., 0].astype(np.float32)
+    if mode == "1":
+        return (disp != 0).astype(np.float32)
+    if mode in ("I;16", "I"):
+        return disp / np.float32(256.0)
+    return disp
+
+
 def decode_image_rgb(data: bytes) -> np.ndarray:
-    """PNG or JPEG bytes -> (H, W, 3) uint8 RGB, the values of PIL's
+    """Image bytes -> (H, W, 3) uint8 RGB, the values of PIL's
     ``Image.open(...).convert("RGB")``, which the JAX package reads and
     serves images with.  The format is the one the bytes' signature names,
-    whatever a file name says; anything else, and a file PIL would refuse,
-    is a ``BadRequestError`` (a ``ValueError``) naming the format and the
-    cause.  JPEG (``_native/jpeg.cc``): baseline, extended and progressive
+    whatever a file name says: PNG, JPEG, BMP, TIFF, GIF, PNM or PFM
+    (``decode_image`` and ``convert_rgb`` for the last five); anything
+    else, and a file PIL would refuse, is a ``BadRequestError`` (a
+    ``ValueError``) naming the format and the cause.  JPEG
+    (``_native/jpeg.cc``): baseline, extended and progressive
     Huffman files at 8 bits, 1, 3 or 4 components, any sampling factors
     1-4, restart markers, the colour space libjpeg picks, CMYK and YCCK as
     PIL converts them, block smoothing, damaged streams as libjpeg reads
@@ -49,15 +148,15 @@ def decode_image_rgb(data: bytes) -> np.ndarray:
             return _native.decode_jpeg_rgb(data)
         except ValueError as exc:
             raise BadRequestError(str(exc)) from exc
-    raise BadRequestError("not a PNG or JPEG image")
+    return convert_rgb(decode_image(data))
 
 
 def read_image_chw(path: str) -> np.ndarray:
-    """Decode a PNG (any colour type, bit depth or interlace) or JPEG file
-    to (3, H, W) float32 in 0..255 with the native decoders, with the
-    values of PIL's ``convert("RGB")``, which the JAX package reads image
-    files with.  The format is told by the file's signature, not its name;
-    other formats raise ``ValueError``."""
+    """Decode an image file (PNG of any colour type, bit depth or
+    interlace, JPEG, BMP, TIFF, GIF, PNM or PFM) to (3, H, W) float32 in
+    0..255, with the values of PIL's ``convert("RGB")``, which the JAX
+    package reads image files with.  The format is told by the file's
+    signature, not its name; other formats raise ``ValueError``."""
     from .. import _native
 
     with open(path, "rb") as f:

@@ -8,7 +8,9 @@ in C++): grey at 1, 2, 4, 8 and 16 bits, palette with or without
 interlaced, all five filter types (16-bit grey is KITTI's disparity
 format); anything else raises ``BadRequestError``.  ``decode_png_rgb``
 maps the samples to 8-bit RGB as an image library's RGB conversion does
-(PIL's ``convert("RGB")``, which the JAX package uses).
+(PIL's ``convert("RGB")``, which the JAX package uses);
+``decode_png_image`` gives PIL's own mode and samples (a palette's
+indices), which the stereo trainer's ground truth reads.
 ``decode_png_python`` is the same decode in Python, the rows unfiltered
 byte by byte for the Average and Paeth filters: the native decoder's test
 oracle.  ``encode_png`` writes 8-bit grey and RGB with the standard
@@ -71,6 +73,11 @@ def _chunks(data: bytes):
             raise BadRequestError(f"PNG chunk {ctype!r} fails its CRC")
         yield ctype, body
         pos += 12 + length
+
+
+def _chunk(ctype: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + ctype + body
+            + struct.pack(">I", zlib.crc32(ctype + body)))
 
 
 def _paeth(a: int, b: int, c: int) -> int:
@@ -163,6 +170,35 @@ def decode_png(data: bytes) -> np.ndarray:
                                                     png.channels)
     except ValueError as exc:   # inflate, size or filter-type failure
         raise BadRequestError(f"corrupt PNG data ({exc})") from exc
+
+
+def decode_png_image(data: bytes):
+    """PNG bytes -> (PIL's mode, its (H, W, C) samples, the palette's (N, 3)
+    uint8 RGB of mode "P"), as PIL's ``Image.open`` holds them: grey as "1"
+    (0 or 255), "L" (below 8 bits scaled to 0..255) or "I;16"; "LA", "RGB"
+    and "RGBA" (16-bit samples by their high byte; 16-bit grey+alpha as
+    "RGBA"); a palette as "P", its indices (``tRNS`` left aside, as PIL
+    leaves it out of the samples)."""
+    png = _parse(data)
+    palette = np.frombuffer(png.palette, np.uint8).reshape(-1, 3)
+    if png.color == 3:
+        # The indices: the same file through the palette i -> (i, i, i).
+        ramp = np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()
+        indexed = bytearray(_SIGNATURE)
+        for ctype, body in _chunks(data):
+            if ctype != b"tRNS":
+                indexed += _chunk(ctype, ramp if ctype == b"PLTE" else body)
+            if ctype == b"IEND":
+                break
+        return "P", decode_png(bytes(indexed))[..., :1], palette
+    samples = decode_png(data)
+    if png.color == 0:
+        return {1: "1", 16: "I;16"}.get(png.depth, "L"), samples, palette[:0]
+    if png.depth == 16:
+        samples = (samples >> 8).astype(np.uint8)
+        if png.color == 4:  # PIL opens 16-bit grey+alpha as RGBA
+            return "RGBA", samples[..., [0, 0, 0, 1]], palette[:0]
+    return {2: "RGB", 4: "LA", 6: "RGBA"}[png.color], samples, palette[:0]
 
 
 def rgb_like_pil(samples: np.ndarray) -> np.ndarray:
@@ -259,11 +295,7 @@ def encode_png(image: np.ndarray) -> bytes:
     rows = image.reshape(height, -1)
     raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
 
-    def chunk(ctype: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + ctype + body
-                + struct.pack(">I", zlib.crc32(ctype + body)))
-
     ihdr = struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0)
-    return (_SIGNATURE + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-            + chunk(b"IEND", b""))
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))

@@ -21,9 +21,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "stereo_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "cv2", "stereo_tpu",
              "orbax", "tensorstore", "zstandard")
-# The port, the smoke, and the ranks the multi-process tests spawn.
+# The port, the smoke, the file writers the smoke imports, and the ranks
+# the multi-process tests spawn.
 SOURCES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_multiprocess_ranks.py",
+    ROOT / "chip_smoke.py", ROOT / "tests" / "raster_files.py",
+    ROOT / "tests" / "torch_multiprocess_ranks.py",
     ROOT / "tests" / "torch_spawn_targets.py"]
 
 

@@ -100,6 +100,15 @@ def assert_reads_like_jax(tmp_path, data: bytes) -> np.ndarray:
     np.testing.assert_array_equal(got, want)
     rgb = image_io.decode_image_rgb(data)
     np.testing.assert_array_equal(rgb.transpose(2, 0, 1), want)
+    # PIL's mode and samples ("L", "RGB" or "CMYK"), which the stereo
+    # trainer's ground truth reads, convert to the same pixels.
+    image = image_io.decode_image(data)
+    with Image.open(io.BytesIO(data)) as im:
+        assert image.mode == im.mode
+        samples = np.asarray(im)
+    np.testing.assert_array_equal(image.samples.reshape(samples.shape),
+                                  samples)
+    np.testing.assert_array_equal(image_io.convert_rgb(image), rgb)
     return rgb
 
 
@@ -635,8 +644,11 @@ def test_formats_not_decoded_are_refused_by_name(marker, reason):
 
 
 def test_other_formats_are_refused():
-    gif = b"GIF89a" + bytes(32)
-    with pytest.raises(BadRequestError, match="not a PNG or JPEG image"):
+    webp = b"RIFF" + bytes(4) + b"WEBPVP8 " + bytes(32)
+    with pytest.raises(BadRequestError, match="not a PNG, JPEG, BMP, TIFF"):
+        image_io.decode_image_rgb(webp)
+    gif = b"GIF89a" + bytes(32)   # a GIF with no frame, which PIL refuses
+    with pytest.raises(BadRequestError, match="GIF"):
         image_io.decode_image_rgb(gif)
     png = encode_png(pixels("noise", 5, 6))
     np.testing.assert_array_equal(image_io.decode_image_rgb(png),

@@ -22,6 +22,7 @@ from stereo_tpu_torch import _native
 from stereo_tpu_torch.pipeline.camera.kitti import KITTI_PAD
 from stereo_tpu_torch.serve import (BadRequestError,
                                     decode_png_to_pipeline_image)
+from stereo_tpu_torch.train.stereo_trainer import read_disparity
 from stereo_tpu_torch.utils import image_io, png
 
 import torch_threads
@@ -145,6 +146,33 @@ def test_native_and_python_decode_like_pil(case, interlace):
     want = pil_rgb(data)
     np.testing.assert_array_equal(png.decode_png_rgb(data), want)
     np.testing.assert_array_equal(png.rgb_like_pil(samples), want)
+
+
+@pytest.mark.parametrize("interlace", [False, True], ids=["plain", "adam7"])
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_pil_mode_and_ground_truth_like_pil(tmp_path, case, interlace):
+    """``image_io.decode_image`` gives PIL's mode and samples (a palette's
+    indices, 16-bit grey+alpha as RGBA), ``convert_rgb`` of them the RGB
+    decode, and the stereo trainer's ground truth the JAX trainer's reading
+    (``np.asarray`` of PIL's image, channel 0, divided by 256 for 16-bit
+    grey)."""
+    data = case_png(*case, interlace)
+    image = image_io.decode_image(data)
+    with Image.open(io.BytesIO(data)) as im:
+        mode, want = im.mode, np.asarray(im)
+    assert image.mode == mode
+    samples = image.samples.reshape(want.shape)
+    np.testing.assert_array_equal(samples != 0 if mode == "1" else samples,
+                                  want)
+    np.testing.assert_array_equal(image_io.convert_rgb(image),
+                                  image_io.decode_image_rgb(data))
+    path = str(tmp_path / "disp.png")
+    with open(path, "wb") as f:
+        f.write(data)
+    disp = (want if want.ndim == 2 else want[..., 0]).astype(np.float32)
+    if mode == "I;16":
+        disp = disp / np.float32(256.0)
+    np.testing.assert_array_equal(read_disparity(path), disp)
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (3, 2), (9, 17)],
