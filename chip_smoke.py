@@ -21,9 +21,12 @@ Phases, each ending in one flushed JSON line with its name and seconds
              JPEG decoder to the SHA-256 of PIL's decode in its manifest,
              and the host ms of the 375x1242 JPEG frame; every committed
              BMP, TIFF, GIF, PNM and PFM fixture (``tests/fixtures/raster``)
-             to its manifest's SHA-256s (PIL's RGB, the JAX trainer's
-             ground truth), and the host ms of the fixture frame as a BMP,
-             a PPM and an uncompressed, LZW and Deflate TIFF;
+             and WebP fixture (``tests/fixtures/webp``) to its manifest's
+             SHA-256s (PIL's RGB, the JAX trainer's ground truth), and the
+             host ms of the fixture frame as a BMP, a PPM, an uncompressed,
+             LZW and Deflate TIFF and a lossy and a lossless WebP; PNGs
+             whose headers declare 20000x20000 pixels or sizes that wrap a
+             64-bit size refused in under 10 ms (``chip_smoke_io.py``);
 3. kernels:  each kernel against its plain PyTorch version at the shapes of
              the single-view paths (384x1280, disparity 1..64; GwcNet's
              volume also at disparity 192 and in bf16), with its median
@@ -128,11 +131,12 @@ Phases, each ending in one flushed JSON line with its name and seconds
              stereo_tpu_torch.scripts.<name>``: the evaluation, the KITTI
              and Middlebury runs, both training scripts for 2 steps), each
              in its own process;
-8. server:   ``DepthEstimationServer`` on a free local port answers nine
+8. server:   ``DepthEstimationServer`` on a free local port answers twelve
              uploads (seeded PNGs; the fixture frame as PNG, JPEG, BMP, LZW
              TIFF and PPM, resized by the server, each decoded tensor equal
-             to the PNG's; the GIF fixture), then shuts down, once with the
-             classical backend and once with GwcNet;
+             to the PNG's; the GIF fixture; three WebP fixtures) and a 400
+             to each huge PNG, then shuts down, once with the classical
+             backend and once with GwcNet;
    server_asgi: ``create_asgi_app`` around the classical pipeline, driven
              through ASGI's scope/receive/send: GET, a raw and a multipart
              POST of the fixture frame, and a bad payload (400).
@@ -282,11 +286,19 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
+
+from chip_smoke_io import (FIXTURE_DRIVE, FIXTURE_FRAMES, FRAME_FORMATS,
+                           HUGE_PNGS, JPEG_FRAME, RASTER_GIF, WEBP_ALPHA,
+                           WEBP_FRAME, WEBP_LOSSLESS, frame_files,
+                           manifest_checked_jpeg, manifest_checked_raster,
+                           manifest_checked_webp, phase_io, raster_writers,
+                           require, upload_ms)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KITTI_GOLDEN = os.path.join(ROOT, "tests", "golden",
@@ -297,26 +309,6 @@ DEEP3D_NPZ = os.path.join(ROOT, "data", "checkpoints", "deep3d.npz")
 ORBAX_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "orbax_small")
 # The same tree written with ``use_zarr3=True`` (zarr v3 arrays).
 ORBAX_ZARR3_FIXTURE = ORBAX_FIXTURE + "_zarr3"
-# The committed KITTI fixture drive: two 375x1242 frames per camera, each
-# PNG Paeth-filtered as image libraries write them, and Velodyne scans.
-FIXTURE_DRIVE = os.path.join(ROOT, "tests", "fixtures", "kitti", "2011_09_26",
-                             "2011_09_26_drive_0001_sync")
-FIXTURE_FRAMES = [os.path.join(FIXTURE_DRIVE, side, "data", name)
-                  for side in ("image_02", "image_03")
-                  for name in ("0000000000.png", "0000000001.png")]
-# JPEGs written by Pillow and the SHA-256 of PIL's decode of each
-# (tests/fixtures/make_jpeg_fixtures.py); the first frame above as a JPEG
-# at quality 90 among them.
-JPEG_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "jpeg")
-JPEG_FRAME = os.path.join(JPEG_FIXTURES, "kitti_0000000000_q90.jpg")
-# BMP, TIFF, GIF, PNM and PFM fixtures with the SHA-256 of PIL's decode.
-RASTER_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "raster")
-RASTER_GIF = os.path.join(RASTER_FIXTURES, "gif.gif")
-# The fixture frame's formats for the host timings and the server: name ->
-# content type.
-FRAME_FORMATS = {"bmp": "image/bmp", "ppm": "image/x-portable-pixmap",
-                 "tiff_raw": "image/tiff", "tiff_lzw": "image/tiff",
-                 "tiff_deflate": "image/tiff"}
 # A Middlebury calibration for ``middlebury_pair()``: MatchingConfig()'s
 # 1080x1920 and disparity range 75..262.
 MIDDLEBURY_CALIB = """cam0=[1758.23 0 953.34; 0 1758.23 552.29; 0 0 1]
@@ -369,11 +361,6 @@ def report(phase: str, start: float, **numbers) -> None:
     print(json.dumps({"phase": phase, "seconds": round(time.perf_counter()
                                                        - start, 3),
                       **numbers}), flush=True)
-
-
-def require(cond: bool, message: str) -> None:
-    if not cond:
-        raise RuntimeError(message)
 
 
 def cuda_ms(fn, reps: int, device_only: bool = False,
@@ -1526,120 +1513,20 @@ def profile(torch, label: str, pipeline, dev) -> None:
         report(label, t, error=f"{type(exc).__name__}: {exc}")
 
 
-def jpeg_manifest() -> dict:
-    with open(os.path.join(JPEG_FIXTURES, "expected.json")) as f:
-        return json.load(f)
-
-
-def manifest_checked_jpeg(path: str) -> tuple:
-    """A committed JPEG's bytes and the port's decode of it, which must
-    hash to the SHA-256 of PIL's decode in the fixtures' manifest."""
-    import hashlib
-
-    from stereo_tpu_torch.utils.image_io import decode_image_rgb
-
-    with open(path, "rb") as f:
-        data = f.read()
-    entry = jpeg_manifest()["files"][os.path.basename(path)]
-    rgb = decode_image_rgb(data)
-    digest = hashlib.sha256(rgb.tobytes()).hexdigest()
-    require(list(rgb.shape) == entry["shape"] and digest == entry["sha256"],
-            f"JPEG decode of {path}: shape {rgb.shape}, sha256 {digest}, "
-            f"manifest {entry['shape']} {entry['sha256']}")
-    return data, rgb
-
-
-def raster_manifest() -> dict:
-    with open(os.path.join(RASTER_FIXTURES, "expected.json")) as f:
-        return json.load(f)
-
-
-def manifest_checked_raster(path: str) -> tuple:
-    """A committed BMP/TIFF/GIF/PNM/PFM fixture's bytes and the port's RGB
-    decode of it, which must hash to the SHA-256 of PIL's decode in the
-    manifest, as its ground-truth array must hash to the JAX trainer's."""
-    import hashlib
-
-    from stereo_tpu_torch.utils.image_io import (decode_image,
-                                                 decode_image_rgb,
-                                                 disparity_of)
-
-    with open(path, "rb") as f:
-        data = f.read()
-    entry = raster_manifest()["files"][os.path.basename(path)]
-    rgb = decode_image_rgb(data)
-    digest = hashlib.sha256(rgb.tobytes()).hexdigest()
-    disp = hashlib.sha256(disparity_of(decode_image(data)).tobytes())
-    require(list(rgb.shape) == entry["shape"] and digest == entry["sha256"]
-            and disp.hexdigest() == entry["disparity_sha256"],
-            f"decode of {path}: shape {rgb.shape}, sha256 {digest}, "
-            f"ground truth {disp.hexdigest()}, manifest {entry}")
-    return data, rgb
-
-
-_FRAME_FILES = {}
-
-
-def raster_writers() -> tuple:
-    """``bmp_file``, ``bmp_rows`` and ``tiff_file`` of
-    ``tests/raster_files.py`` (NumPy only: the card's machine has no imaging
-    library)."""
-    tests = os.path.join(ROOT, "tests")
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    import raster_files
-
-    return raster_files.bmp_file, raster_files.bmp_rows, raster_files.tiff_file
-
-
-def frame_files() -> tuple:
-    """The fixture frame's pixels ((375, 1242, 3) uint8, its PNG decoded)
-    and ``FRAME_FORMATS`` name -> the frame's file bytes: a 24-bit BMP, a
-    P6 PPM and RGB TIFFs uncompressed, LZW and Deflate (predictor 2),
-    written once by ``tests/raster_files.py``."""
-    if not _FRAME_FILES:
-        from stereo_tpu_torch.utils.png import decode_png
-
-        bmp_file, bmp_rows, tiff_file = raster_writers()
-
-        with open(FIXTURE_FRAMES[0], "rb") as f:
-            frame = decode_png(f.read())
-        h, w, _ = frame.shape
-        _FRAME_FILES["frame"] = frame
-        _FRAME_FILES["files"] = {
-            "bmp": bmp_file(w, h, 24, bmp_rows(frame[..., ::-1], 24)),
-            "ppm": b"P6 %d %d 255\n" % (w, h) + frame.tobytes(),
-            "tiff_raw": tiff_file(frame, 2),
-            "tiff_lzw": tiff_file(frame, 2, compression=5),
-            "tiff_deflate": tiff_file(frame, 2, compression=8, predictor=2)}
-    return _FRAME_FILES["frame"], _FRAME_FILES["files"]
-
-
-def upload_ms(torch, data: bytes, shape, dev, reps: int = 10) -> float:
-    """Host ms of ``decode_png_to_pipeline_image`` to the card, median."""
-    from stereo_tpu_torch.serve import decode_png_to_pipeline_image
-
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        decode_png_to_pipeline_image(data, shape, dev)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
 def phase_server(torch, pipeline, dev, kernels):
-    """Nine uploads to a server around ``pipeline``: three seeded PNG
+    """Twelve uploads to a server around ``pipeline``: three seeded PNG
     frames at the pipeline's shape, the fixture frame's PNG bytes (375x1242,
     Paeth-filtered, resized by the server), the same frame as a JPEG
     (``Content-Type: image/jpeg``), whose decoded upload tensor must equal
     the one from a PNG of its manifest-checked pixels, and as a BMP, an LZW
-    TIFF and a PPM, whose upload tensors must equal the PNG's, and the GIF
-    fixture (``image/gif``), whose tensor must equal a PNG of its
-    manifest-checked pixels.  Every name in ``kernels`` must launch in that
-    run.  Also the host ms of decoding and uploading the fixture frame in
-    each format (``decode_png_to_pipeline_image``)."""
+    TIFF and a PPM, whose upload tensors must equal the PNG's, the GIF
+    fixture (``image/gif``), and three WebP fixtures (``image/webp``: the
+    frame lossy, its top rows lossless, a small lossy file with alpha),
+    whose tensors must equal a PNG of their manifest-checked pixels.  Every
+    name in ``kernels`` must launch in that run.  Then the huge PNGs
+    (``chip_smoke_io.HUGE_PNGS``) must each get a 400.  Also the host ms of
+    decoding and uploading the fixture frame in each format
+    (``decode_png_to_pipeline_image``)."""
     from stereo_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
     from stereo_tpu_torch.serve import (DepthEstimationServer,
                                         decode_png_to_pipeline_image)
@@ -1686,6 +1573,19 @@ def phase_server(torch, pipeline, dev, kernels):
         "the GIF upload's tensor differs from its pixels' PNG upload")
     uploads.append(gif)
     types.append("image/gif")
+    webp_ms = {}
+    for path in (WEBP_FRAME, WEBP_LOSSLESS, WEBP_ALPHA):
+        webp, webp_pixels = manifest_checked_webp(path)
+        require(torch.equal(
+            decode_png_to_pipeline_image(webp, config.image_shape, dev),
+            decode_png_to_pipeline_image(encode_png(webp_pixels),
+                                         config.image_shape, dev)),
+            f"the WebP upload {path}'s tensor differs from its pixels' PNG "
+            f"upload")
+        webp_ms[os.path.basename(path)] = upload_ms(torch, webp,
+                                                    config.image_shape, dev)
+        uploads.append(webp)
+        types.append("image/webp")
     replies = [None] * len(uploads)
     host, port = server.start("127.0.0.1", 0)
 
@@ -1694,6 +1594,15 @@ def phase_server(torch, pipeline, dev, kernels):
                                      headers={"Content-Type": types[i]})
         with urllib.request.urlopen(req, timeout=120) as resp:
             replies[i] = (resp.status, resp.read())
+
+    def refused(data):
+        req = urllib.request.Request(f"http://{host}:{port}/", data=data,
+                                     headers={"Content-Type": "image/png"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as exc:
+            return exc.code, exc.read()
 
     try:
         reset_launch_counts()
@@ -1705,8 +1614,10 @@ def phase_server(torch, pipeline, dev, kernels):
             t.join(timeout=180)
         torch.cuda.synchronize()
         counts = dict(LAUNCHES)
+        huge = {name: refused(data)[0] for name, data in HUGE_PNGS.items()}
     finally:
         server.shutdown()
+    require(set(huge.values()) == {400}, f"huge PNG uploads answered {huge}")
     # The stage timer folds finished stages as it goes: a server that never
     # asks for the stage times must not hold more CUDA events per batch.
     pending = pipeline._timer.pending
@@ -1725,197 +1636,12 @@ def phase_server(torch, pipeline, dev, kernels):
                         jpeg_upload_equals_png_of_its_pixels=True,
                         bmp_tiff_ppm_uploads_equal_the_png_upload=True,
                         gif_upload_equals_png_of_its_pixels=True,
+                        webp_uploads_equal_png_of_their_pixels=True,
+                        huge_png_uploads=huge,
+                        webp_decode_upload_ms_median=webp_ms,
                         fixture_decode_upload_ms_median=decode_ms,
                         fixture_jpeg_decode_upload_ms_median=jpeg_decode_ms,
                         fixture_format_decode_upload_ms_median=format_ms)
-
-
-def phase_io() -> dict:
-    """The native host runtime: its g++ build, the committed fixture frames
-    decoded by it equal byte for byte to the Python decoder, and the host
-    ms of a 375x1242 frame for each decoder (the Python one timed once);
-    every committed JPEG decoded to its manifest's SHA-256, and the host ms
-    of the 375x1242 JPEG frame (median of 20, under the PNG's 50 ms); every
-    committed BMP, TIFF, GIF, PNM and PFM fixture decoded to its manifest's
-    SHA-256 (RGB and ground truth), and the host ms of ``decode_image_rgb``
-    of the fixture frame as a BMP, a PPM and an uncompressed, an LZW and a
-    Deflate TIFF (median of 20 each, each under 50 ms, each equal to the
-    PNG's pixels)."""
-    from stereo_tpu_torch import _native
-    from stereo_tpu_torch.pipeline.camera.kitti import KITTI_PAD
-    from stereo_tpu_torch.utils.image_io import decode_image_rgb
-    from stereo_tpu_torch.utils.png import decode_png, decode_png_python
-
-    _native.library()
-    frames = []
-    python_ms = None
-    for path in FIXTURE_FRAMES:
-        with open(path, "rb") as f:
-            data = f.read()
-        native = _native.decode_png_hwc(data)
-        t0 = time.perf_counter()
-        oracle = decode_png_python(data)
-        if python_ms is None:
-            python_ms = (time.perf_counter() - t0) * 1e3
-        padded = _native.decode_png_padded_chw(path, KITTI_PAD)
-        require(np.array_equal(native, oracle)
-                and np.array_equal(decode_png(data), oracle)
-                and np.array_equal(padded[:, 5:380, 19:1261],
-                                   oracle.transpose(2, 0, 1)),
-                f"native decode of {path} differs from the Python decoder")
-        frames.append(dict(frame=os.path.relpath(path, ROOT),
-                           shape=list(native.shape), bytes=len(data),
-                           equal_to_python=True))
-    with open(FIXTURE_FRAMES[0], "rb") as f:
-        data = f.read()
-
-    def host_ms(fn, reps=20):
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
-    native_ms = host_ms(lambda: _native.decode_png_hwc(data))
-    require(native_ms < 50, f"native decode took {native_ms} ms")
-    names = sorted(jpeg_manifest()["files"])
-    for name in names:
-        manifest_checked_jpeg(os.path.join(JPEG_FIXTURES, name))
-    with open(JPEG_FRAME, "rb") as f:
-        jpeg = f.read()
-    jpeg_ms = host_ms(lambda: _native.decode_jpeg_rgb(jpeg))
-    require(jpeg_ms < 50, f"native JPEG decode took {jpeg_ms} ms")
-    raster_names = sorted(raster_manifest()["files"])
-    for name in raster_names:
-        manifest_checked_raster(os.path.join(RASTER_FIXTURES, name))
-    frame, files = frame_files()
-    format_ms = {}
-    for name, blob in files.items():
-        require(np.array_equal(decode_image_rgb(blob), frame),
-                f"the fixture frame as {name} decodes to other pixels")
-        format_ms[name] = host_ms(lambda: decode_image_rgb(blob))
-        require(format_ms[name] < 50,
-                f"{name} decode of the frame took {format_ms[name]} ms")
-    return dict(gxx_seconds=round(_native.build_seconds, 3),
-                library=os.path.relpath(_native.library_path(), ROOT),
-                native_available=_native.available(),
-                build_error=_native.build_error(),
-                png_cases=check_png_cases(),
-                jpeg_fixtures=dict(files=len(names), equal_to_manifest=True),
-                frames=frames, python_decode_ms_once=python_ms,
-                native_decode_ms=native_ms,
-                native_jpeg_decode_ms=jpeg_ms,
-                raster_fixtures=dict(files=len(raster_names),
-                                     equal_to_manifest=True),
-                frame_format_decode_ms=format_ms,
-                frame_format_bytes={k: len(v) for k, v in files.items()},
-                decode_png_ms=host_ms(lambda: decode_png(data)),
-                native_file_padded_ms=host_ms(
-                    lambda: _native.decode_png_padded_chw(FIXTURE_FRAMES[0],
-                                                          KITTI_PAD)))
-
-
-# Adam7's passes: (first column, first row, column step, row step).
-ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
-         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
-
-
-def encode_test_png(samples, depth: int, color: int, interlace: bool,
-                    palette=None, trns=None) -> bytes:
-    """PNG bytes of the stored ``samples`` (H, W, S) at ``depth`` bits,
-    plain or Adam7, row r of each pass filtered with type r % 3 (none, Sub,
-    Up): an encoder of its own, since the card's machine has no imaging
-    library."""
-    import struct
-    import zlib
-
-    def chunk(ctype, body):
-        return (struct.pack(">I", len(body)) + ctype + body
-                + struct.pack(">I", zlib.crc32(ctype + body)))
-
-    h, w, s = samples.shape
-    bpp = max(1, s * depth // 8)
-    raw = bytearray()
-    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
-        sub = samples[y0::dy, x0::dx]
-        if sub.size == 0:
-            continue
-        prior = None
-        for r, row in enumerate(sub):
-            vals = row.reshape(-1).astype(np.int64)
-            if depth == 16:
-                packed = vals.astype(">u2").tobytes()
-            elif depth == 8:
-                packed = vals.astype(np.uint8).tobytes()
-            else:
-                packed = np.packbits(((vals[:, None] >> np.arange(
-                    depth - 1, -1, -1)) & 1).reshape(-1).astype(
-                        np.uint8)).tobytes()
-            cur = np.frombuffer(packed, np.uint8).astype(np.int64)
-            up = np.zeros_like(cur) if prior is None else prior
-            left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
-            pred = (np.zeros_like(cur), left, up)[r % 3]
-            raw.append(r % 3)
-            raw += ((cur - pred) % 256).astype(np.uint8).tobytes()
-            prior = cur
-    ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, int(interlace))
-    body = chunk(b"IHDR", ihdr)
-    if palette is not None:
-        body += chunk(b"PLTE", palette.astype(np.uint8).tobytes())
-    if trns is not None:
-        body += chunk(b"tRNS", trns.astype(np.uint8).tobytes())
-    return (b"\x89PNG\r\n\x1a\n" + body + chunk(b"IDAT", zlib.compress(
-        bytes(raw))) + chunk(b"IEND", b""))
-
-
-def check_png_cases() -> dict:
-    """The PNG kinds the decoders take besides 8-bit grey/RGB/RGBA (grey at
-    1, 2, 4 and 16 bits, palettes with and without tRNS, grey+alpha, 16-bit
-    RGB and RGBA), plain and Adam7: the native samples equal the Python
-    oracle's, and the native padded RGB (a file, as the cameras read it)
-    equals the oracle's samples mapped as PIL's ``convert("RGB")`` maps
-    them (the CPU tests hold that mapping to PIL itself)."""
-    import tempfile
-
-    from stereo_tpu_torch import _native
-    from stereo_tpu_torch.utils.png import decode_png_python, rgb_like_pil
-
-    rng = np.random.default_rng(30)
-    cases = 0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "case.png")
-        for color, depth, trns in ((0, 1, False), (0, 2, False),
-                                   (0, 4, False), (0, 16, False),
-                                   (3, 4, False), (3, 8, True),
-                                   (4, 8, False), (4, 16, False),
-                                   (2, 16, False), (6, 16, False)):
-            for interlace in (False, True):
-                samples_per_pixel = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
-                palette = alpha = None
-                top = 2 ** depth
-                if color == 3:
-                    top = min(top, 40)
-                    palette = rng.integers(0, 256, (top, 3))
-                    alpha = rng.integers(0, 256, top // 2) if trns else None
-                elif color == 0 and depth == 16:
-                    top = 400                   # PIL clips 16-bit grey
-                samples = rng.integers(0, top, (37, 45, samples_per_pixel))
-                data = encode_test_png(samples, depth, color, interlace,
-                                       palette, alpha)
-                oracle = decode_png_python(data)
-                native = _native.decode_png_hwc(data)
-                with open(path, "wb") as f:
-                    f.write(data)
-                padded = _native.decode_png_padded_chw(path)
-                require(np.array_equal(native, oracle)
-                        and np.array_equal(padded, rgb_like_pil(oracle)
-                                           .transpose(2, 0, 1)),
-                        f"PNG colour type {color}, depth {depth}, tRNS "
-                        f"{trns}, interlace {interlace}: native differs "
-                        f"from the Python decoder")
-                cases += 1
-    return dict(cases=cases, equal_to_python=True)
 
 
 class plain_versions:

@@ -1,19 +1,20 @@
 """ctypes bindings of the port's native host runtime (``stereo_native.cc``,
-``jpeg.cc``, ``mpeg4.cc`` and ``raster.cc``).
+``jpeg.cc``, ``mpeg4.cc``, ``raster.cc`` and ``webp.cc``).
 
 A copy of ``stereo_tpu/_native`` for the port: a zlib PNG decoder (every
 colour type, bit depth and interlace, from bytes in memory or from a
 file), a JPEG decoder (``jpeg_info``, ``decode_jpeg_rgb``: the bytes of
 PIL's ``convert("RGB")`` on libjpeg-turbo's defaults), BMP, TIFF and GIF
-decoders (``decode_raster``: PIL's mode and samples), an MPEG-4 Part 2
-video encoder and decoder (``Mpeg4Encoder``, ``mp4v_config``,
+decoders (``decode_raster``: PIL's mode and samples), a WebP decoder
+(``decode_webp``: VP8L, VP8 and ALPH, PIL's mode and samples), an MPEG-4
+Part 2 video encoder and decoder (``Mpeg4Encoder``, ``mp4v_config``,
 ``decode_mp4v``: the intra-only ``mp4v`` stream of the context video),
 layout conversions
 (HWC uint8 -> padded CHW float32, bilinear resize, mean pool, RGB ->
 luma) and a threaded frame prefetcher, and a zstd decoder and zlib/gzip
 inflation for Orbax checkpoints (``zstd_decompress``, ``inflate``).
 Unlike the JAX package's copy it has no NumPy or imaging fallback: the
-library is built from the four sources with one ``g++ ... -lz`` call on first
+library is built from the five sources with one ``g++ ... -lz`` call on first
 use into ``stereo_tpu_torch/_build/`` (named by a hash of the sources and
 the flags, so a later process reuses it), and a failed build raises with
 the compiler's log.  Importing this module builds nothing.
@@ -38,6 +39,7 @@ SOURCE = os.path.join(_DIR, "stereo_native.cc")
 JPEG_SOURCE = os.path.join(_DIR, "jpeg.cc")
 MPEG4_SOURCE = os.path.join(_DIR, "mpeg4.cc")
 RASTER_SOURCE = os.path.join(_DIR, "raster.cc")
+WEBP_SOURCE = os.path.join(_DIR, "webp.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -57,6 +59,7 @@ _BUF = ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8))
 _SIGNATURES = {
     "sn_png_info_mem": ((_P, _SIZE, _IP, _IP, _IP, _IP), _I),
     "sn_decode_png_hwc_mem": ((_P, _SIZE, _P, _I, _I, _I, _I), _I),
+    "sn_png_whole_mem": ((_P, _SIZE), _I),
     "sn_png_shape": ((ctypes.c_char_p, _IP, _IP, _IP), _I),
     "sn_decode_png_chw": ((ctypes.c_char_p, _I, _I, _I, _I, _F, _P, _I, _I),
                           _I),
@@ -82,6 +85,7 @@ _SIGNATURES = {
     "sn_mp4v_decode": ((_P, _SIZE, _P, _SIZE, _P, _I), _I),
     "sn_mp4v_idct": ((_P, _P, _I, _I, _I), None),
     "sn_raster_decode": ((_P, _SIZE, _I64P, _BUF), _I),
+    "sn_webp_decode": ((_P, _SIZE, _I64P, _BUF), _I),
 }
 
 _ZSTD_ERRORS = {-1: "truncated input", -2: "corrupt data",
@@ -154,9 +158,19 @@ RASTER_MODES = (("1", np.uint8), ("L", np.uint8), ("P", np.uint8),
 _RASTER_FORMATS = {1: "BMP", 2: "TIFF", 3: "GIF"}
 
 
+# webp.cc's error codes (WebpCode).
+_WEBP_ERRORS = {
+    -1: "image file is truncated",
+    -2: "corrupt or malformed image data",
+    -3: "not a WebP file (by its signature)",
+    -4: "image too large (over 178956970 pixels)",
+    -5: "out of memory",
+    -6: "the frame is not a displayable keyframe"}
+
+
 def _sources():
     """The library's C++ sources, compiled together by one g++ call."""
-    return SOURCE, JPEG_SOURCE, MPEG4_SOURCE, RASTER_SOURCE
+    return SOURCE, JPEG_SOURCE, MPEG4_SOURCE, RASTER_SOURCE, WEBP_SOURCE
 
 
 def library_path() -> str:
@@ -258,6 +272,14 @@ def decode_png_hwc(data: bytes) -> np.ndarray:
     if rc:
         raise ValueError(f"native PNG decoder: error {rc}")
     return out
+
+
+def png_whole(data: bytes) -> bool:
+    """Whether the JAX package's native decoder decodes these PNG bytes
+    whole (bit depth 8, not interlaced, no palette, an IDAT stream that
+    fills the image exactly), checked through a small window whatever
+    size the header declares."""
+    return library().sn_png_whole_mem(data, len(data)) == 0
 
 
 def png_shape(path: str):
@@ -424,6 +446,45 @@ def decode_raster(data) -> Tuple[str, np.ndarray, np.ndarray, int, str]:
     finally:
         library().sn_free(out)
     return mode, samples, palette, int(meta[4]), _RASTER_FORMATS[meta[5]]
+
+
+def decode_webp(data) -> Tuple[str, np.ndarray]:
+    """WebP bytes -> (PIL's mode, "RGB" or "RGBA", and its (H, W, C) uint8
+    samples), as PIL's ``Image.open`` decodes them through libwebp's
+    WebPAnimDecoder (``webp.cc``; an animation's first frame on its
+    canvas).  Raises ``ValueError`` naming WebP and the reason for bytes
+    it does not take."""
+    mode, samples, _ = _webp(data)
+    return mode, samples
+
+
+# The coding tools of a lossless stream, by bit (webp.cc's
+# VP8LDecoder::coding).
+WEBP_LOSSLESS_TOOLS = ("predictor", "cross_colour", "subtract_green",
+                       "colour_indexing", "colour_cache", "meta_huffman")
+
+
+def webp_lossless_tools(data) -> Tuple[str, ...]:
+    """The tools the lossless first frame of WebP bytes was coded with
+    (``WEBP_LOSSLESS_TOOLS``), () for a lossy one; decodes the file."""
+    return tuple(name for bit, name in enumerate(WEBP_LOSSLESS_TOOLS)
+                 if _webp(data)[2] >> bit & 1)
+
+
+def _webp(data) -> Tuple[str, np.ndarray, int]:
+    src = bytes(data)
+    meta = (ctypes.c_int64 * 4)()
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    rc = library().sn_webp_decode(src, len(src), meta, ctypes.byref(out))
+    if rc:
+        raise ValueError(f"WebP: {_WEBP_ERRORS.get(rc, rc)}")
+    try:
+        channels, h, w = meta[0], meta[1], meta[2]
+        samples = np.empty((h, w, channels), np.uint8)
+        ctypes.memmove(_ptr(samples), out, samples.nbytes)
+    finally:
+        library().sn_free(out)
+    return ("RGBA" if channels == 4 else "RGB"), samples, int(meta[3])
 
 
 def zstd_decompress(data) -> bytes:
@@ -611,7 +672,8 @@ class FramePrefetcher:
 
 __all__ = ["FramePrefetcher", "Mpeg4Encoder", "available", "build_error",
            "decode_jpeg_rgb", "decode_mp4v", "decode_png_hwc",
-           "decode_png_padded_chw", "decode_raster", "hwc_to_padded_chw",
-           "inflate", "jpeg_info", "library", "mean_pool", "mp4v_config",
-           "mp4v_idct", "png_info", "png_shape", "resize_bilinear_chw",
-           "rgb_to_gray", "vol_info", "zstd_decompress"]
+           "decode_png_padded_chw", "decode_raster", "decode_webp",
+           "hwc_to_padded_chw", "inflate", "jpeg_info", "library",
+           "mean_pool", "mp4v_config", "mp4v_idct", "png_info", "png_shape",
+           "png_whole", "resize_bilinear_chw", "rgb_to_gray", "vol_info",
+           "webp_lossless_tools", "zstd_decompress"]

@@ -218,6 +218,53 @@ int pass_size(int extent, int start, int step) {
   return extent > start ? (extent - start + step - 1) / step : 0;
 }
 
+// Raw (filtered) sizes above this are checked against the IDAT stream
+// before they are allocated.
+constexpr size_t kStreamCheckBytes = size_t(64) << 20;
+
+// Whether the IDAT stream inflates to exactly `total` bytes (as zlib's
+// uncompress into a buffer of that size would succeed), with a filter
+// type of 0-4 at the start of every row of `row_bytes` (0: no row check),
+// through a small window, so that nothing of the declared size is
+// allocated.
+bool idat_inflates_to(const std::vector<uint8_t>& idat, size_t total,
+                      size_t row_bytes) {
+  z_stream zs;
+  std::memset(&zs, 0, sizeof(zs));
+  if (inflateInit(&zs) != Z_OK) return false;
+  std::vector<uint8_t> window(size_t(1) << 16);
+  const uint8_t* next = idat.data();
+  size_t left = idat.size();
+  size_t produced = 0;
+  bool ok = true;
+  int rc = Z_OK;
+  while (ok && rc != Z_STREAM_END) {
+    if (zs.avail_in == 0 && left > 0) {
+      const size_t n = std::min(left, size_t(1) << 30);
+      zs.next_in = const_cast<Bytef*>(next);
+      zs.avail_in = uInt(n);
+      next += n;
+      left -= n;
+    }
+    zs.next_out = window.data();
+    zs.avail_out = uInt(window.size());
+    rc = inflate(&zs, Z_NO_FLUSH);
+    const size_t n = window.size() - zs.avail_out;
+    if ((rc != Z_OK && rc != Z_STREAM_END) || n > total - produced) {
+      ok = false;
+      break;
+    }
+    if (row_bytes)
+      for (size_t k = (row_bytes - produced % row_bytes) % row_bytes; k < n;
+           k += row_bytes)
+        if (window[k] > 4) ok = false;
+    produced += n;
+    if (rc == Z_OK && n == 0 && zs.avail_in == 0 && left == 0) ok = false;
+  }
+  inflateEnd(&zs);
+  return ok && rc == Z_STREAM_END && produced == total;
+}
+
 // Returns 0 on success; fills `out`.
 int decode_png(const uint8_t* data, size_t size, Image* out) {
   Header hdr;
@@ -229,12 +276,30 @@ int decode_png(const uint8_t* data, size_t size, Image* out) {
   // Filters work on bytes, a pixel's bytes apart (at least one).
   const size_t bpp = bits >= 8 ? bits / 8 : 1;
 
+  // Every size product is checked: a header may declare up to 2^31 - 1
+  // by 2^31 - 1 pixels of 8 bytes, which would wrap a size_t.
   size_t total = 0;
   for (int p = 0; p < n_passes; ++p) {
     const int pw = pass_size(hdr.width, passes[p].x0, passes[p].dx);
     const int ph = pass_size(hdr.height, passes[p].y0, passes[p].dy);
-    if (pw && ph) total += size_t(ph) * (1 + (size_t(pw) * bits + 7) / 8);
+    size_t rows;
+    if (pw && ph &&
+        (__builtin_mul_overflow(size_t(ph), 1 + (size_t(pw) * bits + 7) / 8,
+                                &rows) ||
+         __builtin_add_overflow(total, rows, &total)))
+      return -12;
   }
+  const size_t pixel_bytes = size_t(hdr.channels) * (hdr.depth / 8);
+  size_t out_bytes;
+  if (__builtin_mul_overflow(size_t(hdr.width), size_t(hdr.height),
+                             &out_bytes) ||
+      __builtin_mul_overflow(out_bytes, pixel_bytes, &out_bytes))
+    return -12;
+  // A large image is allocated only once its data is known to fill it.
+  if (total > kStreamCheckBytes &&
+      !idat_inflates_to(hdr.idat, total,
+                        hdr.interlace ? 0 : 1 + (size_t(hdr.width) * bits + 7) / 8))
+    return -6;
   std::vector<uint8_t> raw(total);
   uLongf raw_len = raw.size();
   if (uncompress(raw.data(), &raw_len, hdr.idat.data(), hdr.idat.size()) !=
@@ -246,8 +311,7 @@ int decode_png(const uint8_t* data, size_t size, Image* out) {
   out->width = hdr.width;
   out->channels = hdr.channels;
   out->depth = hdr.depth;
-  const size_t pixel_bytes = size_t(hdr.channels) * (hdr.depth / 8);
-  out->pixels.assign(size_t(hdr.width) * hdr.height * pixel_bytes, 0);
+  out->pixels.assign(out_bytes, 0);
   size_t pos = 0;
   std::vector<uint8_t> prior, cur;
   for (int p = 0; p < n_passes; ++p) {
@@ -370,6 +434,26 @@ int sn_decode_png_chw_mem(const uint8_t* data, size_t size, int left,
       return -11;
     to_padded_chw(im, left, top, right, bottom, scale, out);
     return 0;
+  } catch (const std::exception&) {
+    return -12;
+  }
+}
+
+// 0 when the JAX package's native PNG decoder decodes these bytes whole:
+// bit depth 8, not interlaced, grey, RGB, grey+alpha or RGBA, and an IDAT
+// stream that fills the image exactly with filter types 0-4.  Checked
+// through a small window, whatever size the header declares.
+int sn_png_whole_mem(const uint8_t* data, size_t size) {
+  try {
+    Header hdr;
+    int rc = parse_png(data, size, &hdr, true);
+    if (rc) return rc;
+    if (hdr.bit_depth != 8 || hdr.interlace || hdr.color_type == 3) return -4;
+    const size_t stride = size_t(hdr.width) * hdr.raw_channels;
+    size_t total;
+    if (__builtin_mul_overflow(stride + 1, size_t(hdr.height), &total))
+      return -12;
+    return idat_inflates_to(hdr.idat, total, stride + 1) ? 0 : -6;
   } catch (const std::exception&) {
     return -12;
   }

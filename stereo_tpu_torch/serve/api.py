@@ -4,14 +4,18 @@ ASGI 3 application ``create_asgi_app``).
 
 ``POST /`` takes a PNG of any colour type, bit depth or interlace, a JPEG
 (baseline or progressive, grey, YCbCr, RGB or CMYK), a BMP, TIFF or GIF
-(``_native/raster.cc``) or a PNM or PFM (``utils/pnm.py``), as a multipart
+(``_native/raster.cc``), a WebP (lossless, lossy, with alpha, an
+animation's first frame: ``_native/webp.cc``) or a PNM or PFM
+(``utils/pnm.py``), as a multipart
 ``file`` field or the raw body, runs the single-view pipeline (right-view
 synthesis + the configured backend) and answers with the disparity map as
 an 8-bit PNG; ``GET /`` returns the configuration.  Both surfaces share
 ``DepthEstimationServer.run_pipeline`` and the port's decoders
 (``utils.image_io.decode_image_rgb``: the format the bytes' signature
 names, to the RGB of PIL's ``convert("RGB")``, which the JAX server reads
-uploads with).  Uploads travel to the
+uploads with; a PNG over PIL's decompression-bomb limit of 178956970
+pixels is a 400, as PIL refuses it, before anything of its declared size
+is allocated).  Uploads travel to the
 device as uint8 and are upcast there; the disparity is quantised to uint8
 on the device before it comes back.  Uploads at the pipeline shape go in
 unresized; other sizes are resized on the device.
@@ -41,13 +45,13 @@ from ..utils.png import BadRequestError, encode_png
 
 def decode_png_to_pipeline_image(data: bytes, image_shape,
                                  device) -> torch.Tensor:
-    """Image bytes (PNG, JPEG, BMP, TIFF, GIF, PNM or PFM) -> (3, H, W)
-    uint8 tensor on ``device`` at the pipeline shape.  The bytes are decoded
-    on the host by ``utils.image_io.decode_image_rgb`` (the format their
-    signature names) to the 8-bit RGB the JAX server's image library gives;
-    the upload is uint8.  Another size is resized on the device (bilinear,
-    antialiased) and rounded back to uint8, as an image library's resize
-    would.  Other formats, the variants the port does not decode (named in
+    """Image bytes (PNG, JPEG, BMP, TIFF, GIF, WebP, PNM or PFM) ->
+    (3, H, W) uint8 tensor on ``device`` at the pipeline shape.  The bytes
+    are decoded on the host by ``utils.image_io.decode_image_rgb`` (the
+    format their signature names) to the 8-bit RGB the JAX server's image
+    library gives; the upload is uint8.  Another size is resized on the
+    device (bilinear, antialiased) and rounded back to uint8, as an image
+    library's resize would.  Other formats, the variants the port does not decode (named in
     the message) and files the decoders refuse are a ``BadRequestError``
     (400) naming the format and the cause."""
     arr = decode_image_rgb(data)

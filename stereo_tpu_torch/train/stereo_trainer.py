@@ -38,8 +38,9 @@ def read_disparity(path: str) -> np.ndarray:
     ``disparity * 256`` and is divided by 256 (by the file's mode, never by
     its values); float files (``Pf`` PFM, float TIFF) and 8-bit grey give
     the disparity itself; a palette (PNG, BMP, GIF, TIFF) its index; a
-    bitmap 0 or 1; colour its red channel (16-bit colour its high byte),
-    CMYK its cyan.  The format is told by the signature
+    bitmap 0 or 1; colour its red channel (16-bit colour its high byte;
+    WebP, lossless or lossy, with or without alpha, too), CMYK its cyan.
+    The format is told by the signature
     (``utils.image_io.decode_image``, ``disparity_of``)."""
     with open(path, "rb") as f:
         return disparity_of(decode_image(f.read()))

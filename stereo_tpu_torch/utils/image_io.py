@@ -6,8 +6,9 @@ told apart by their signature, as PIL tells them apart: PNG and JPEG are
 decoded by the native host runtime (``utils/png.py``;
 ``_native.decode_jpeg_rgb``, ``_native/jpeg.cc``) to the values of PIL's
 ``convert("RGB")``; BMP, TIFF and GIF (``_native.decode_raster``,
-``_native/raster.cc``) and PNM/PFM (``utils/pnm.py``) to PIL's own mode and
-samples (``decode_image``), which ``convert_rgb`` converts as PIL's
+``_native/raster.cc``), WebP (``_native.decode_webp``, ``_native/webp.cc``)
+and PNM/PFM (``utils/pnm.py``) to PIL's own mode and samples
+(``decode_image``), which ``convert_rgb`` converts as PIL's
 ``convert("RGB")`` does; PNGs are written by ``utils/png.py``.
 Video is an mp4 of MPEG-4 Part 2 (``mp4v``) as the JAX package writes it
 through OpenCV, here encoded and decoded by the native host runtime
@@ -22,14 +23,15 @@ from typing import List, NamedTuple, Sequence, Tuple, Union
 import numpy as np
 
 from .mp4 import Mp4Writer, read_sample, read_track
-from .png import BadRequestError, decode_png_image, decode_png_rgb, encode_png
+from .png import (MAX_PIXELS, BadRequestError, declared_size, decode_png_image,
+                  decode_png_rgb, encode_png, too_large_message)
 from .pnm import decode_pnm, is_pnm
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _JPEG_SIGNATURE = b"\xff\xd8\xff"   # what PIL's JPEG plugin accepts
 _RASTER_SIGNATURES = (b"BM", b"GIF87a", b"GIF89a", b"II*\0", b"MM\0*",
                       b"II+\0", b"MM\0+", b"MM*\0", b"II\0*")
-FORMATS = "PNG, JPEG, BMP, TIFF, GIF, PNM (P1-P6) or PFM"
+FORMATS = "PNG, JPEG, BMP, TIFF, GIF, WebP, PNM (P1-P6) or PFM"
 # TIFF's Orientation tag -> the transpose PIL applies when it loads the file
 # (ImageOps.exif_transpose), on (H, W, C) samples.
 _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
@@ -58,7 +60,9 @@ def decode_image(data: bytes) -> DecodedImage:
     or another format, is a ``BadRequestError`` naming the format and the
     cause; so is a variant PIL opens and the port does not (TIFF with JPEG,
     CCITT, LZMA, ZSTD or WebP compression, or in YCbCr or CIELab), by its
-    name."""
+    name.  WebP (RIFF....WEBP, as PIL's plugin accepts it) is "RGB" or
+    "RGBA" as PIL opens it: VP8L, VP8 and ALPH, an animation's first
+    frame on its canvas."""
     from .. import _native
 
     no_palette = np.zeros((0, 3), np.uint8)
@@ -69,6 +73,8 @@ def decode_image(data: bytes) -> DecodedImage:
             return DecodedImage(*_native.decode_jpeg(data), no_palette)
         if is_pnm(data):
             return DecodedImage(*decode_pnm(data), no_palette)
+        if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+            return DecodedImage(*_native.decode_webp(data), no_palette)
         if data[:6].startswith(_RASTER_SIGNATURES):
             mode, samples, palette, orientation, _ = _native.decode_raster(
                 data)
@@ -128,8 +134,8 @@ def decode_image_rgb(data: bytes) -> np.ndarray:
     """Image bytes -> (H, W, 3) uint8 RGB, the values of PIL's
     ``Image.open(...).convert("RGB")``, which the JAX package reads and
     serves images with.  The format is the one the bytes' signature names,
-    whatever a file name says: PNG, JPEG, BMP, TIFF, GIF, PNM or PFM
-    (``decode_image`` and ``convert_rgb`` for the last five); anything
+    whatever a file name says: PNG, JPEG, BMP, TIFF, GIF, WebP, PNM or PFM
+    (``decode_image`` and ``convert_rgb`` for the last six); anything
     else, and a file PIL would refuse, is a ``BadRequestError`` (a
     ``ValueError``) naming the format and the cause.  JPEG
     (``_native/jpeg.cc``): baseline, extended and progressive
@@ -153,16 +159,30 @@ def decode_image_rgb(data: bytes) -> np.ndarray:
 
 def read_image_chw(path: str) -> np.ndarray:
     """Decode an image file (PNG of any colour type, bit depth or
-    interlace, JPEG, BMP, TIFF, GIF, PNM or PFM) to (3, H, W) float32 in
-    0..255, with the values of PIL's ``convert("RGB")``, which the JAX
+    interlace, JPEG, BMP, TIFF, GIF, WebP, PNM or PFM) to (3, H, W) float32
+    in 0..255, with the values of PIL's ``convert("RGB")``, which the JAX
     package reads image files with.  The format is told by the file's
-    signature, not its name; other formats raise ``ValueError``."""
+    signature, not its name; other formats raise ``ValueError``.  A PNG
+    over PIL's decompression-bomb limit is refused (``BadRequestError``)
+    unless the JAX package's native decoder would decode it whole, as the
+    JAX package reads such a file."""
     from .. import _native
 
     with open(path, "rb") as f:
         head = f.read(len(_PNG_SIGNATURE))
         if head != _PNG_SIGNATURE:
             return _native.hwc_to_padded_chw(decode_image_rgb(head + f.read()))
+        # As the JAX package reads a PNG file: its native decoder takes an
+        # 8-bit, non-interlaced file of any size, and otherwise PIL refuses
+        # one over its decompression-bomb limit.
+        head += f.read(1 << 16)
+        size = declared_size(head)
+        if size is None:
+            head += f.read()
+            size = declared_size(head)
+        if size is not None and size[0] * size[1] > MAX_PIXELS:
+            if not _native.png_whole(head + f.read()):
+                raise BadRequestError(too_large_message(*size))
     return _native.decode_png_padded_chw(path)
 
 

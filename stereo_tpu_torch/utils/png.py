@@ -28,6 +28,9 @@ from typing import NamedTuple
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# PIL's decompression-bomb limit (Image.MAX_IMAGE_PIXELS), which the port's
+# other decoders keep too.
+MAX_PIXELS = 178956970
 _JPEG_SIGNATURE = b"\xff\xd8\xff"
 # PNG colour type -> (samples per stored pixel, bit depths it may have).
 _COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
@@ -151,10 +154,30 @@ def _parse(data: bytes) -> _Png:
         raise BadRequestError(
             f"unsupported PNG (bit depth {depth}, colour type {color}, "
             f"interlace {interlace})")
+    if width * height > MAX_PIXELS:
+        raise BadRequestError(too_large_message(width, height))
     if color == 3 and (not palette or len(palette) % 3 or len(palette) > 768):
         raise BadRequestError("palette PNG without a valid PLTE chunk")
     return _Png(height, width, depth, color, interlace, palette,
                 trns if color == 3 else b"", idat)
+
+
+def too_large_message(width: int, height: int) -> str:
+    return (f"PNG: image too large ({width}x{height}: over {MAX_PIXELS} "
+            "pixels, PIL's decompression-bomb limit)")
+
+
+def declared_size(data: bytes):
+    """(width, height) of the first IHDR chunk of PNG bytes, or None; the
+    chunks' CRCs are not checked."""
+    pos = len(_SIGNATURE)
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        if ctype == b"IHDR":
+            return (struct.unpack(">II", data[pos + 8:pos + 16])
+                    if pos + 16 <= len(data) else None)
+        pos += 12 + length
+    return None
 
 
 def decode_png(data: bytes) -> np.ndarray:

@@ -21,10 +21,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "stereo_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "PIL", "cv2", "stereo_tpu",
              "orbax", "tensorstore", "zstandard")
-# The port, the smoke, the file writers the smoke imports, and the ranks
-# the multi-process tests spawn.
+# The port, the smoke and its I/O module, the file writers the smoke
+# imports, and the ranks the multi-process tests spawn.
 SOURCES = sorted(PORT.rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "raster_files.py",
+    ROOT / "chip_smoke.py", ROOT / "chip_smoke_io.py",
+    ROOT / "tests" / "raster_files.py",
     ROOT / "tests" / "torch_multiprocess_ranks.py",
     ROOT / "tests" / "torch_spawn_targets.py"]
 
@@ -53,6 +54,7 @@ import stereo_tpu_torch
 for mod in pkgutil.walk_packages(stereo_tpu_torch.__path__, "stereo_tpu_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
+import chip_smoke_io
 from stereo_tpu_torch.core.config import MatchingConfig
 from stereo_tpu_torch.matching.classical import ClassicalStereoEngine
 rng = np.random.default_rng(0)

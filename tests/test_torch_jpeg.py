@@ -644,9 +644,16 @@ def test_formats_not_decoded_are_refused_by_name(marker, reason):
 
 
 def test_other_formats_are_refused():
+    # A WebP whose RIFF size and frame are zeros: PIL refuses it, and so
+    # does the port's WebP decoder, by name.
     webp = b"RIFF" + bytes(4) + b"WEBPVP8 " + bytes(32)
-    with pytest.raises(BadRequestError, match="not a PNG, JPEG, BMP, TIFF"):
+    with pytest.raises(Exception):
+        with Image.open(io.BytesIO(webp)) as im:
+            im.load()
+    with pytest.raises(BadRequestError, match="WebP"):
         image_io.decode_image_rgb(webp)
+    with pytest.raises(BadRequestError, match="not a PNG, JPEG, BMP, TIFF"):
+        image_io.decode_image_rgb(b"XYZW" + bytes(40))
     gif = b"GIF89a" + bytes(32)   # a GIF with no frame, which PIL refuses
     with pytest.raises(BadRequestError, match="GIF"):
         image_io.decode_image_rgb(gif)

@@ -10,13 +10,22 @@ integer arithmetic, so the tolerance is 0.
 """
 
 import io
+import os
 import struct
+import subprocess
+import sys
+import urllib.error
+import urllib.request
 import zlib
 
 import numpy as np
 import pytest
 import torch
 from PIL import Image
+
+from stereo_tpu.serve.api import (
+    decode_png_to_pipeline_image as jax_decode_upload)
+from stereo_tpu.utils import image_io as jax_image_io
 
 from stereo_tpu_torch import _native
 from stereo_tpu_torch.pipeline.camera.kitti import KITTI_PAD
@@ -254,3 +263,130 @@ def test_malformed_palette_and_depth_are_bad_requests(make):
     for decode in (png.decode_png, png.decode_png_python):
         with pytest.raises(BadRequestError):
             decode(data)
+
+
+# --- PNGs over PIL's pixel limit ---------------------------------------------
+
+def huge_png(width, height, depth, color):
+    """A PNG whose header declares ``width`` x ``height`` over a tiny IDAT."""
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth,
+                                         color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"\0" * 10)) + chunk(b"IEND", b""))
+
+
+# 20000x20000 RGB (400 million pixels, over PIL's limit of 178956970), and
+# headers whose raw size would wrap a 64-bit size_t (2^31 - 1 squared at
+# 16-bit RGBA) or that a C int reads as negative (2^31).
+HUGE = {"rgb_20000x20000": huge_png(20000, 20000, 8, 2),
+        "rgba16_2147483647_square": huge_png(2 ** 31 - 1, 2 ** 31 - 1, 16, 6),
+        "rgba16_2147483648_square": huge_png(2 ** 31, 2 ** 31, 16, 6)}
+
+
+@pytest.mark.parametrize("name", sorted(HUGE))
+def test_huge_png_is_refused_like_jax(tmp_path, name):
+    """The bytes paths refuse the file as PIL does (the JAX server's upload
+    decode: a 400), naming PIL's limit; ``read_image_chw`` raises where the
+    JAX package's (its native decoder fails, then PIL refuses)."""
+    data = HUGE[name]
+    with pytest.raises(BadRequestError, match="178956970"):
+        image_io.decode_image_rgb(data)
+    with pytest.raises(BadRequestError, match="178956970"):
+        image_io.decode_image(data)
+    with pytest.raises(BadRequestError, match="178956970"):
+        decode_png_to_pipeline_image(data, (16, 32), "cpu")
+    with pytest.raises(ValueError, match="exceeds limit of 178956970"):
+        jax_decode_upload(data, (16, 32))
+    with pytest.raises(Image.DecompressionBombError):
+        with Image.open(io.BytesIO(data)) as im:
+            im.load()
+    path = str(tmp_path / "huge.png")
+    with open(path, "wb") as f:
+        f.write(data)
+    with pytest.raises(Image.DecompressionBombError):
+        jax_image_io.read_image_chw(path)
+    with pytest.raises(BadRequestError, match="178956970"):
+        image_io.read_image_chw(path)
+
+
+def test_native_decoder_checks_its_sizes():
+    """The native decoder's own entry points never wrap a size: the header
+    alone fails (-4, a width a C int reads as negative) or the decode
+    returns an error code before it allocates."""
+    assert _native.png_info(HUGE["rgba16_2147483648_square"]) == -4
+    assert not _native.png_whole(HUGE["rgb_20000x20000"])
+    assert not _native.png_whole(HUGE["rgba16_2147483647_square"])
+    with pytest.raises(ValueError, match="-6"):
+        _native.decode_png_hwc(HUGE["rgb_20000x20000"])
+
+
+_LIMITED = """
+import resource, sys
+from stereo_tpu_torch import _native
+from stereo_tpu_torch.utils import image_io
+from stereo_tpu_torch.utils.png import BadRequestError
+_native.library()
+with open("/proc/self/status") as f:
+    vm = [int(l.split()[1]) for l in f if l.startswith("VmSize")][0] * 1024
+limit = vm + (256 << 20)
+resource.setrlimit(resource.RLIMIT_AS, (limit, limit))
+path = sys.argv[1]
+with open(path, "rb") as f:
+    data = f.read()
+for fn in (image_io.decode_image_rgb, image_io.decode_image,
+           lambda d: image_io.read_image_chw(path)):
+    try:
+        fn(data)
+        print("decoded")
+    except BadRequestError:
+        print("refused")
+"""
+
+
+def test_huge_png_allocates_nothing_of_its_size(tmp_path):
+    """Under an address-space limit of 256 MiB over what the process holds,
+    every path refuses the 20000x20000 file (whose raw rows alone are 1.2
+    GB) with a ``BadRequestError``, not a ``MemoryError``."""
+    path = str(tmp_path / "huge.png")
+    with open(path, "wb") as f:
+        f.write(HUGE["rgb_20000x20000"])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _LIMITED, path], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["refused"] * 3
+
+
+SHAPE = (16, 32)
+
+
+@pytest.fixture(scope="module")
+def server():
+    from stereo_tpu_torch.core.config import PipelineConfig
+    from stereo_tpu_torch.pipeline import DepthEstimationPipeline
+    from stereo_tpu_torch.serve import DepthEstimationServer
+    from stereo_tpu_torch.synthesis import RightViewSynthesis
+
+    synthesis = RightViewSynthesis(output_shape=SHAPE, seed=0,
+                                   model_full_shape=(64, 128),
+                                   model_down_shape=(16, 32), device="cpu")
+    config = PipelineConfig(image_shape=SHAPE, max_disparity=8)
+    pipeline = DepthEstimationPipeline(config, synthesis=synthesis,
+                                       device="cpu")
+    srv = DepthEstimationServer(config, pipeline=pipeline, micro_batch=2,
+                                device="cpu")
+    host, port = srv.start("127.0.0.1", 0)
+    yield f"http://{host}:{port}/"
+    srv.shutdown()
+
+
+@pytest.mark.parametrize("name", sorted(HUGE))
+def test_huge_png_upload_is_a_400(server, name):
+    req = urllib.request.Request(server, data=HUGE[name],
+                                 headers={"Content-Type": "image/png"})
+    with pytest.raises(urllib.error.HTTPError) as err:
+        urllib.request.urlopen(req, timeout=60)
+    assert err.value.code == 400
+    assert b"178956970" in err.value.read()
